@@ -1,0 +1,525 @@
+"""StyleGAN2 generator (port of the generator half of
+gagan_tpu/models/stylegan2.py).
+
+As in the JAX module, configs are frozen dataclasses with the same field
+names (so a ``g_cfg`` dict written by either package builds either config),
+and every forward is a plain function over a nested dict of tensors keyed as
+the JAX parameter pytree.  :class:`Generator` holds those tensors as an
+``nn.Module`` whose ``state_dict()`` keys are exactly the dotted keys of
+``gagan_tpu.utils.checkpoint.tree_to_flat``.
+
+Levels that the JAX package sends to its Pallas kernel under
+``SynthesisConfig.pallas_level`` go to the port's fused CUDA op
+(ops/fused_modconv.py) under the same flag and conditions, by shape only.
+
+Not in this module yet: layer hooks (adaptation), ``remat`` (a training
+memory option; the fields stay so configs round-trip) and the discriminator.
+``noise_mode="random"`` draws from a caller-supplied ``torch.Generator``,
+which cannot reproduce JAX's threefry noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from .. import resolve_device
+from ..ops import fused_modconv as fmc
+from ..ops import packed as pk
+from ..ops.bias_act import activation_funcs, bias_act
+from ..ops.modulated_conv2d import demod_coefs, modulated_conv2d
+from ..ops.upfirdn2d import setup_filter, upsample2d
+
+Params = Dict[str, Any]
+
+
+# ----------------------------------------------------------------------------
+# Configs (field for field as gagan_tpu.models.stylegan2)
+
+
+@dataclasses.dataclass(frozen=True)
+class MappingConfig:
+    z_dim: int = 512
+    c_dim: int = 0
+    w_dim: int = 512
+    num_ws: Optional[int] = None
+    num_layers: int = 8
+    embed_features: Optional[int] = None
+    layer_features: Optional[int] = None
+    activation: str = "lrelu"
+    lr_multiplier: float = 0.01
+    w_avg_beta: Optional[float] = 0.995
+
+    @property
+    def resolved_embed_features(self) -> int:
+        if self.c_dim == 0:
+            return 0
+        return self.embed_features if self.embed_features is not None else self.w_dim
+
+    @property
+    def resolved_layer_features(self) -> int:
+        return self.layer_features if self.layer_features is not None else self.w_dim
+
+    @property
+    def features_list(self) -> List[int]:
+        lf = self.resolved_layer_features
+        return [self.z_dim + self.resolved_embed_features] + [lf] * (
+            self.num_layers - 1) + [self.w_dim]
+
+
+@dataclasses.dataclass(frozen=True)
+class SynthesisConfig:
+    w_dim: int = 512
+    img_resolution: int = 1024
+    img_channels: int = 3
+    channel_base: int = 32768
+    channel_max: int = 512
+    num_fp16_res: int = 0          # bf16 for the N highest resolutions
+    conv_clamp: Optional[float] = None
+    architecture: str = "skip"
+    resample_filter: Tuple[int, ...] = (1, 3, 3, 1)
+    activation: str = "lrelu"
+    use_noise: bool = True
+    # Exact space-to-depth reformulation of the last block (ops/packed.py).
+    packed_last_block: bool = False
+    # The port runs the packed tail with these two at their defaults only.
+    packed_fused_torgb: bool = True
+    packed_tail_blocks: int = 1
+    # Training memory options of the JAX package; no effect on a forward.
+    remat: bool = False
+    remat_min_res: Optional[int] = None
+    # Route eligible stride-1 3x3 levels through the fused modconv op
+    # (ops/fused_modconv.py, a CUDA kernel on the card); forward only.
+    pallas_level: bool = False
+
+    @property
+    def block_resolutions(self) -> List[int]:
+        return [2 ** i for i in range(2, int(np.log2(self.img_resolution)) + 1)]
+
+    def channels(self, res: int) -> int:
+        return min(self.channel_base // res, self.channel_max)
+
+    @property
+    def bf16_resolution(self) -> int:
+        return max(
+            2 ** (int(np.log2(self.img_resolution)) + 1 - self.num_fp16_res), 8)
+
+    @property
+    def num_ws(self) -> int:
+        n = 0
+        for res in self.block_resolutions:
+            n += 1 if res == 4 else 2
+        return n + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneratorConfig:
+    z_dim: int = 512
+    c_dim: int = 0
+    w_dim: int = 512
+    img_resolution: int = 1024
+    img_channels: int = 3
+    mapping: MappingConfig = dataclasses.field(default_factory=MappingConfig)
+    synthesis: SynthesisConfig = dataclasses.field(default_factory=SynthesisConfig)
+
+    def __post_init__(self):
+        s = dataclasses.replace(
+            self.synthesis, w_dim=self.w_dim, img_resolution=self.img_resolution,
+            img_channels=self.img_channels)
+        m = dataclasses.replace(
+            self.mapping, z_dim=self.z_dim, c_dim=self.c_dim, w_dim=self.w_dim,
+            num_ws=s.num_ws)
+        object.__setattr__(self, "mapping", m)
+        object.__setattr__(self, "synthesis", s)
+
+    @property
+    def num_ws(self) -> int:
+        return self.synthesis.num_ws
+
+
+# ----------------------------------------------------------------------------
+# Initialization (same shapes and rules as the JAX init; torch draws)
+
+
+def _normal(gen: torch.Generator, shape) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32)
+
+
+def _init_fc(gen, in_features: int, out_features: int,
+             lr_multiplier: float = 1.0, bias_init: float = 0.0) -> Params:
+    return {"weight": _normal(gen, (out_features, in_features)) / lr_multiplier,
+            "bias": torch.full((out_features,), float(bias_init))}
+
+
+def _init_conv(gen, in_channels: int, out_channels: int, kernel: int) -> Params:
+    return {"weight": _normal(gen, (out_channels, in_channels, kernel, kernel)),
+            "bias": torch.zeros((out_channels,))}
+
+
+def init_mapping(gen: torch.Generator, cfg: MappingConfig) -> Params:
+    params: Params = {}
+    feats = cfg.features_list
+    for idx in range(cfg.num_layers):
+        params[f"fc{idx}"] = _init_fc(gen, feats[idx], feats[idx + 1],
+                                      lr_multiplier=cfg.lr_multiplier)
+    if cfg.c_dim > 0:
+        params["embed"] = _init_fc(gen, cfg.c_dim, cfg.resolved_embed_features)
+    if cfg.num_ws is not None and cfg.w_avg_beta is not None:
+        params["w_avg"] = torch.zeros((cfg.w_dim,))
+    return params
+
+
+def _init_synthesis_layer(gen, in_channels: int, out_channels: int, w_dim: int,
+                          resolution: int, use_noise: bool) -> Params:
+    p = _init_conv(gen, in_channels, out_channels, 3)
+    p["affine"] = _init_fc(gen, w_dim, in_channels, bias_init=1.0)
+    if use_noise:
+        p["noise_const"] = _normal(gen, (resolution, resolution))
+        p["noise_strength"] = torch.zeros(())
+    return p
+
+
+def init_synthesis(gen: torch.Generator, cfg: SynthesisConfig) -> Params:
+    params: Params = {}
+    for res in cfg.block_resolutions:
+        block: Params = {}
+        out_ch = cfg.channels(res)
+        if res == 4:
+            block["const"] = _normal(gen, (out_ch, res, res))
+        else:
+            block["conv0"] = _init_synthesis_layer(
+                gen, cfg.channels(res // 2), out_ch, cfg.w_dim, res,
+                cfg.use_noise)
+        block["conv1"] = _init_synthesis_layer(gen, out_ch, out_ch, cfg.w_dim,
+                                               res, cfg.use_noise)
+        torgb = _init_conv(gen, out_ch, cfg.img_channels, 1)
+        torgb["affine"] = _init_fc(gen, cfg.w_dim, out_ch, bias_init=1.0)
+        block["torgb"] = torgb
+        params[f"b{res}"] = block
+    return params
+
+
+def init_generator(cfg: GeneratorConfig, gen: torch.Generator,
+                   device) -> Params:
+    """Random generator parameters (JAX init shapes and rules) drawn on the
+    CPU from ``gen``, then moved to ``device``."""
+    params = {"mapping": init_mapping(gen, cfg.mapping),
+              "synthesis": init_synthesis(gen, cfg.synthesis)}
+    return _tree_map(lambda t: t.to(device), params)
+
+
+def _tree_map(fn, tree: Params) -> Params:
+    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+# ----------------------------------------------------------------------------
+# Primitive layers
+
+
+def fc_apply(p: Params, x: torch.Tensor, activation: str = "linear",
+             lr_multiplier: float = 1.0) -> torch.Tensor:
+    """FullyConnectedLayer forward (equalized learning rate)."""
+    w = p["weight"]
+    w = w.to(x.dtype) * (lr_multiplier / np.sqrt(w.shape[1]))
+    x = x @ w.T
+    b = p.get("bias")
+    if b is not None and lr_multiplier != 1.0:
+        b = b * lr_multiplier
+    return bias_act(x, b, act=activation)
+
+
+def normalize_2nd_moment(x: torch.Tensor, dim: int = 1,
+                         eps: float = 1e-8) -> torch.Tensor:
+    return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
+
+
+def mapping_apply(cfg: MappingConfig, params: Params, z: Optional[torch.Tensor],
+                  c: Optional[torch.Tensor] = None, truncation_psi: float = 1.0,
+                  truncation_cutoff: Optional[int] = None,
+                  broadcast: bool = True) -> torch.Tensor:
+    """MappingNetwork forward: ws [N, num_ws, w_dim] (broadcast) or [N, w_dim]."""
+    x = None
+    if cfg.z_dim > 0:
+        x = normalize_2nd_moment(z.float())
+    if cfg.c_dim > 0:
+        y = normalize_2nd_moment(fc_apply(params["embed"], c.float()))
+        x = torch.cat([x, y], dim=1) if x is not None else y
+
+    for idx in range(cfg.num_layers):
+        x = fc_apply(params[f"fc{idx}"], x, activation=cfg.activation,
+                     lr_multiplier=cfg.lr_multiplier)
+
+    if broadcast and cfg.num_ws is not None:
+        x = x[:, None, :].repeat(1, cfg.num_ws, 1)
+
+    if truncation_psi != 1.0:
+        w_avg = params["w_avg"]
+        if cfg.num_ws is None or truncation_cutoff is None:
+            x = w_avg + truncation_psi * (x - w_avg)
+        else:
+            head = w_avg + truncation_psi * (x[:, :truncation_cutoff] - w_avg)
+            x = torch.cat([head, x[:, truncation_cutoff:]], dim=1)
+    return x
+
+
+def _layer_styles(lp: Params, w: torch.Tensor,
+                  weight_gain: float = 1.0) -> torch.Tensor:
+    styles = fc_apply(lp["affine"], w)
+    if weight_gain != 1.0:
+        styles = styles * weight_gain
+    return styles
+
+
+def _noise(cfg: SynthesisConfig, lp: Params, noise_mode: str, shape,
+           generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """Scaled layer noise: [H, W] for const, ``shape`` for random."""
+    if not cfg.use_noise or noise_mode == "none":
+        return None
+    if noise_mode == "const":
+        return lp["noise_const"] * lp["noise_strength"]
+    strength = lp["noise_strength"]
+    nz = torch.randn(shape, generator=generator, dtype=torch.float32,
+                     device=generator.device)
+    return nz.to(strength.device) * strength
+
+
+def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
+                          w: torch.Tensor, resolution: int, up: int,
+                          resample_filter: torch.Tensor,
+                          noise_mode: str = "const",
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """SynthesisLayer forward."""
+    styles = _layer_styles(lp, w)
+    weight = lp["weight"]
+    noise = _noise(cfg, lp, noise_mode, (x.shape[0], 1, resolution, resolution),
+                   generator)
+
+    if (cfg.pallas_level and up == 1 and cfg.activation == "lrelu"
+            and fmc.supported_shape(tuple(x.shape), tuple(weight.shape))):
+        nz = noise
+        if nz is not None and nz.ndim == 2:      # const buffer [H, W]
+            nz = nz[None, None].expand(x.shape[0], 1, *nz.shape).contiguous()
+        return fmc.fused_modconv_level(
+            x, weight, styles, lp["bias"], noise=nz,
+            act_gain=activation_funcs[cfg.activation].def_gain,
+            clamp=cfg.conv_clamp)
+
+    x = modulated_conv2d(x, weight, styles, up=up,
+                         padding=weight.shape[-1] // 2,
+                         resample_filter=resample_filter,
+                         flip_weight=(up == 1))
+    if noise is not None:
+        x = x + noise.to(x.dtype)
+    return bias_act(x, lp["bias"].to(x.dtype), act=cfg.activation,
+                    gain=activation_funcs[cfg.activation].def_gain,
+                    clamp=cfg.conv_clamp)
+
+
+def torgb_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
+                      w: torch.Tensor) -> torch.Tensor:
+    """ToRGBLayer forward (1x1, no demodulation)."""
+    in_ch = lp["weight"].shape[1]
+    kernel = lp["weight"].shape[-1]
+    styles = _layer_styles(lp, w, 1.0 / np.sqrt(in_ch * kernel ** 2))
+    x = modulated_conv2d(x, lp["weight"], styles, demodulate=False)
+    return bias_act(x, lp["bias"].to(x.dtype), clamp=cfg.conv_clamp)
+
+
+def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
+                 block_ws: List[torch.Tensor], x: torch.Tensor,
+                 img: Optional[torch.Tensor], noise_mode: str,
+                 generator: Optional[torch.Generator],
+                 dtype: torch.dtype) -> torch.Tensor:
+    """The last synthesis block on the 2x2-packed grid (exact; ops/packed.py),
+    ending in the fused torgb + depth-to-space: returns the image."""
+    taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
+                           device=x.device)
+    taps = taps / taps.sum()
+    spec = activation_funcs[cfg.activation]
+    batch = x.shape[0]
+    x = x.to(dtype)
+
+    def add_noise_act(lp, h, out_ch):
+        nz = _noise(cfg, lp, noise_mode, (batch, 1, res, res), generator)
+        if nz is not None:
+            nz = pk.pack(nz[None, None] if nz.ndim == 2 else nz)
+            h = h + nz.repeat_interleave(out_ch, dim=1).to(h.dtype)
+        bias = pk.pack_channel_tile(lp["bias"])
+        return bias_act(h, bias.to(h.dtype), act=cfg.activation,
+                        gain=spec.def_gain, clamp=cfg.conv_clamp)
+
+    # conv0 (up=2): unpacked input -> packed output, composed up-conv kernel.
+    lp = block["conv0"]
+    styles = _layer_styles(lp, block_ws[0])
+    d = demod_coefs(lp["weight"], styles)
+    wp = pk.build_packed_upconv(lp["weight"], taps)
+    h = x * styles.to(x.dtype)[:, :, None, None]
+    h = pk.conv_packed(h, wp.to(dtype))
+    h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
+    h = add_noise_act(lp, h, lp["weight"].shape[0])
+
+    # conv1: packed -> packed.
+    lp = block["conv1"]
+    styles = _layer_styles(lp, block_ws[1])
+    d = demod_coefs(lp["weight"], styles)
+    wp = pk.build_packed_conv3x3(lp["weight"])
+    h = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
+    h = pk.conv_packed(h, wp.to(dtype))
+    h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
+    h = add_noise_act(lp, h, lp["weight"].shape[0])
+
+    # torgb 1x1 + depth-to-space as one input-dilated conv to the image.
+    lp = block["torgb"]
+    styles = _layer_styles(lp, block_ws[2], 1.0 / np.sqrt(lp["weight"].shape[1]))
+    krgb = pk.build_torgb_transposed(lp["weight"][:, :, 0, 0])
+    y = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
+    y = pk.conv_transposed_unpack(y, krgb.to(dtype))
+    y = bias_act(y, lp["bias"].to(y.dtype), clamp=cfg.conv_clamp).float()
+    if img is None:
+        return y
+    return upsample2d(img, taps) + y
+
+
+def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
+                    noise_mode: str = "const",
+                    generator: Optional[torch.Generator] = None,
+                    force_fp32: bool = False) -> torch.Tensor:
+    """SynthesisNetwork forward: ws [N, num_ws, w_dim] -> img [N, C, R, R]."""
+    if noise_mode not in ("random", "const", "none"):
+        raise ValueError(f"noise_mode must be random, const or none, "
+                         f"got {noise_mode!r}")
+    if noise_mode == "random" and generator is None:
+        raise ValueError("noise_mode='random' needs a torch.Generator")
+    if cfg.architecture != "skip":
+        raise NotImplementedError(
+            f"architecture={cfg.architecture!r}: the port has 'skip' only")
+    resolutions = cfg.block_resolutions
+    tail_res = None
+    if cfg.packed_last_block and len(resolutions) > 1:
+        if cfg.packed_tail_blocks != 1 or not cfg.packed_fused_torgb:
+            raise NotImplementedError(
+                "the port's packed tail runs packed_tail_blocks=1 with "
+                "packed_fused_torgb=True only")
+        tail_res = resolutions[-1]
+
+    resample_filter = setup_filter(cfg.resample_filter, device=ws.device)
+    batch = ws.shape[0]
+    ws = ws.float()
+    x = img = None
+    w_idx = 0
+    for res in resolutions:
+        block = params[f"b{res}"]
+        dtype = (torch.bfloat16 if res >= cfg.bf16_resolution and not force_fp32
+                 else torch.float32)
+        num_conv = 1 if res == 4 else 2
+        block_ws = [ws[:, w_idx + i] for i in range(num_conv + 1)]
+        w_idx += num_conv
+
+        if res == tail_res:
+            return _packed_tail(cfg, block, res, block_ws, x, img, noise_mode,
+                                generator, dtype)
+        if res == 4:
+            x = block["const"].to(dtype)[None].repeat(batch, 1, 1, 1)
+        else:
+            x = synthesis_layer_apply(cfg, block["conv0"], x.to(dtype),
+                                      block_ws[0], res, 2, resample_filter,
+                                      noise_mode, generator)
+        x = synthesis_layer_apply(cfg, block["conv1"], x, block_ws[num_conv - 1],
+                                  res, 1, resample_filter, noise_mode, generator)
+        if img is not None:
+            img = upsample2d(img, resample_filter)
+        y = torgb_layer_apply(cfg, block["torgb"], x, block_ws[num_conv]).float()
+        img = y if img is None else img + y
+    return img
+
+
+def generator_apply(cfg: GeneratorConfig, params: Params, z: torch.Tensor,
+                    c: Optional[torch.Tensor] = None,
+                    truncation_psi: float = 1.0,
+                    truncation_cutoff: Optional[int] = None,
+                    noise_mode: str = "const",
+                    generator: Optional[torch.Generator] = None,
+                    force_fp32: bool = False) -> torch.Tensor:
+    """z [N, z_dim] -> img [N, img_channels, R, R] in float32."""
+    ws = mapping_apply(cfg.mapping, params["mapping"], z, c,
+                       truncation_psi=truncation_psi,
+                       truncation_cutoff=truncation_cutoff)
+    return synthesis_apply(cfg.synthesis, params["synthesis"], ws,
+                           noise_mode=noise_mode, generator=generator,
+                           force_fp32=force_fp32)
+
+
+# ----------------------------------------------------------------------------
+# nn.Module holder
+
+
+# Leaves that StyleGAN2 keeps as buffers rather than trainable parameters.
+_BUFFERS = ("w_avg", "noise_const")
+
+
+class _Tree(nn.Module):
+    """A nested parameter dict as modules: state_dict keys are dotted paths."""
+
+    def __init__(self, tree: Params):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, _Tree(v))
+            elif k in _BUFFERS:
+                self.register_buffer(k, v)
+            else:
+                self.register_parameter(k, nn.Parameter(v))
+
+    def tree(self) -> Params:
+        out: Params = {k: m.tree() for k, m in self.named_children()}
+        out.update(self.named_parameters(recurse=False))
+        out.update(self.named_buffers(recurse=False))
+        return out
+
+
+class Generator(nn.Module):
+    """The generator's parameters as a module; ``forward`` is
+    :func:`generator_apply` over them.  ``state_dict()`` keys equal the keys
+    of the JAX package's ``tree_to_flat(init_generator(...))``."""
+
+    def __init__(self, cfg: GeneratorConfig, device, seed: int = 0,
+                 params: Optional[Params] = None):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        if params is None:
+            params = init_generator(cfg, torch.Generator().manual_seed(seed),
+                                    "cpu")
+        self.mapping = _Tree(params["mapping"])
+        self.synthesis = _Tree(params["synthesis"])
+        self.to(device)
+
+    def params(self) -> Params:
+        return {"mapping": self.mapping.tree(),
+                "synthesis": self.synthesis.tree()}
+
+    def load_flat(self, flat: Dict[str, np.ndarray]) -> "Generator":
+        """Copy a flat {dotted key: array} dict in; the key sets must match."""
+        own = self.state_dict()
+        missing, extra = set(own) - set(flat), set(flat) - set(own)
+        if missing or extra:
+            raise KeyError(f"weight keys differ: missing {sorted(missing)}, "
+                           f"unexpected {sorted(extra)}")
+        with torch.no_grad():
+            for k, t in own.items():
+                src = torch.as_tensor(np.array(flat[k]))
+                if tuple(src.shape) != tuple(t.shape):
+                    raise ValueError(f"{k}: shape {tuple(src.shape)} != "
+                                     f"{tuple(t.shape)}")
+                t.copy_(src)
+        return self
+
+    def forward(self, z: torch.Tensor, c: Optional[torch.Tensor] = None,
+                **kwargs) -> torch.Tensor:
+        return generator_apply(self.cfg, self.params(), z, c, **kwargs)

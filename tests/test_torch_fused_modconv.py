@@ -1,0 +1,138 @@
+"""The port's fused modconv level (gagan_tpu_torch.ops.fused_modconv) against
+the JAX package's Pallas kernel, which runs under the Pallas interpreter on
+the CPU.  On the CPU the port runs the kernel's plain PyTorch version.
+
+Tolerances: float32 2e-4 (summation order only); bfloat16 one bf16 ulp of
+max|y|, since both sides fold the taps to bf16 and sum in fp32, so the sums
+differ in order only and round at most one ulp apart.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gagan_tpu.ops import pallas_modconv as pmc
+from gagan_tpu_torch.ops import fused_modconv as fmc
+
+torch.set_num_threads(2)
+
+
+def _inputs(seed=3, n=2, c=128, h=8, w=128):
+    rng = np.random.RandomState(seed)
+    return dict(
+        x=rng.randn(n, c, h, w).astype(np.float32),
+        w=(rng.randn(c, c, 3, 3) * 0.05).astype(np.float32),
+        s=(rng.randn(n, c) * 0.3 + 1.0).astype(np.float32),
+        b=(rng.randn(c) * 0.1).astype(np.float32),
+        nz=(rng.randn(n, 1, h, w) * 0.05).astype(np.float32))
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("demodulate", [True, False])
+@pytest.mark.parametrize("noise", [True, False])
+def test_fused_level_matches_pallas(dtype, demodulate, noise):
+    a = _inputs()
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    assert pmc.supported_shape(a["x"].shape, a["w"].shape)
+    want = pmc.fused_modconv_level(
+        jnp.asarray(a["x"]).astype(jdt), jnp.asarray(a["w"]),
+        jnp.asarray(a["s"]), jnp.asarray(a["b"]),
+        noise=jnp.asarray(a["nz"]) if noise else None, demodulate=demodulate)
+    want = np.asarray(want.astype(jnp.float32))
+    got = fmc.fused_modconv_level(
+        torch.from_numpy(a["x"]).to(tdt), torch.from_numpy(a["w"]),
+        torch.from_numpy(a["s"]), torch.from_numpy(a["b"]),
+        noise=torch.from_numpy(a["nz"]) if noise else None,
+        demodulate=demodulate)
+    assert got.dtype == tdt and tuple(got.shape) == want.shape
+    got = got.float().numpy()
+    tol = 2e-4 if dtype == "float32" else _bf16_ulp(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+
+
+def test_raises_on_requires_grad():
+    a = _inputs(n=1, h=4)
+    x = torch.from_numpy(a["x"]).requires_grad_()
+    with pytest.raises(NotImplementedError, match="training slice"):
+        fmc.fused_modconv_level(x, torch.from_numpy(a["w"]),
+                                torch.from_numpy(a["s"]),
+                                torch.from_numpy(a["b"]))
+    with torch.no_grad():       # a forward without autograd is fine
+        fmc.fused_modconv_level(x, torch.from_numpy(a["w"]),
+                                torch.from_numpy(a["s"]),
+                                torch.from_numpy(a["b"]))
+
+
+def test_cpu_tensors_never_take_the_cuda_path(monkeypatch):
+    def no_cuda():
+        raise AssertionError("CUDA kernel path taken for CPU tensors")
+
+    monkeypatch.setattr(fmc, "_lib", no_cuda)
+    before = fmc.fused_modconv3x3.launches
+    a = _inputs(n=1, h=4)
+    y = fmc.fused_modconv_level(torch.from_numpy(a["x"]),
+                                torch.from_numpy(a["w"]),
+                                torch.from_numpy(a["s"]),
+                                torch.from_numpy(a["b"]),
+                                noise=torch.from_numpy(a["nz"][:, :, :4]))
+    assert y.device.type == "cpu"
+    assert fmc.fused_modconv3x3.launches == before
+
+
+def test_predicate_covers_pallas_scope():
+    """Every level the Pallas kernel takes, the Hopper kernel takes too."""
+    taken = 0
+    for c in (48, 64, 128, 256, 512):
+        for h in (2, 3, 4, 8, 16, 128):
+            for w in (64, 128, 160, 256, 384):
+                shape = (2, c, h, w)
+                for w_shape in ((c, c, 3, 3), (2 * c, c, 3, 3)):
+                    if pmc.supported_shape(shape, w_shape):
+                        taken += 1
+                        assert fmc.supported_shape(shape, w_shape), shape
+                assert not fmc.supported_shape(shape, (c, c, 3, 3), up=2)
+                assert not fmc.supported_shape(shape, (c, c, 1, 1))
+    assert taken > 0
+    # Wider than the TPU tiling: W not a multiple of 128, C_in of 16, any H.
+    assert fmc.supported_shape((2, 48, 7, 136), (128, 48, 3, 3))
+    assert not pmc.supported_shape((2, 48, 7, 136), (128, 48, 3, 3))
+
+
+def test_predicate_at_ffhq1024():
+    """At FFHQ-1024 the kernel serves b128.conv1 and b256.conv1."""
+    chans = {4: 512, 8: 512, 16: 512, 32: 512, 64: 512, 128: 256, 256: 128,
+             512: 64}
+    served = [r for r, c in chans.items()
+              if fmc.supported_shape((8, c, r, r), (c, c, 3, 3))]
+    assert served == [128, 256]
+
+
+
+def test_other_devices_are_refused():
+    x = torch.empty((1, 16, 4, 128), device="meta")
+    w = torch.empty((128, 16, 3, 3), device="meta")
+    s = torch.empty((1, 16), device="meta")
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        fmc.fused_modconv_level(x, w, s, torch.empty(128, device="meta"))
+
+
+def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
+    from gagan_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
+    # Libraries are named by a hash of their source and flags.
+    src = tmp_path / "k.cu"
+    src.write_text("// a\n")
+    first = _build._lib_path(str(src))
+    src.write_text("// b\n")
+    assert _build._lib_path(str(src)) != first
