@@ -6,14 +6,19 @@
 Phases, each raising on failure (the script then exits non-zero and prints
 no ok line):
   1. device  - the card's name and power limit from nvidia-smi; no CUDA fails;
-  2. build   - every kernel of the port from csrc/ with nvcc for sm_90a;
+  2. build   - every kernel of the port from csrc/ with nvcc for sm_90a,
+               with ptxas' registers / spills, the shared memory of each
+               conv kernel and the count of wgmma (HGMMA) instructions in
+               the SASS (cuobjdump, where the toolkit has it);
   3. kernels - each hand kernel against its plain PyTorch version on the card
-               at the main path's shapes (TF32 off), timed beside its bound,
-               the plain version and one cuDNN call;
+               (KERNEL_CASES: the main path's shapes and edge cases, TF32
+               off), timed beside its bound, its fold launch alone, the plain
+               version and one cuDNN call;
   4. main    - the FFHQ-1024 generator forward through the port's entry point
                (pallas_level=True, random seeded weights, batch 8): kernel
                launch counts, output shape, finite values, agreement with the
-               composed path; then imgs/s at batch 32;
+               composed path; then imgs/s at batch 32 and one torch.profiler
+               trace of a batch-32 forward (top kernels, fused levels' share);
   5. cli     - a 1024^2 snapshot through cli/generate.py for two seeds;
   6. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
@@ -23,12 +28,14 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import struct
 import subprocess
 import sys
 import tempfile
 import time
 import zlib
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +57,35 @@ PEAKS = {"H100": (989e12, 67e12, 3.35e12)}
 BATCH, TIMED_BATCH = 8, 32
 
 
+class Case(NamedTuple):
+    """One shape of the kernels phase."""
+    label: str
+    n: int
+    c_in: int
+    c_out: int
+    h: int
+    w: int
+    dtype: torch.dtype
+    on_path: bool = False          # a level of the main path
+    noise: bool = True
+    clamp: Optional[float] = 256.0
+    demodulate: bool = True        # else dcoefs are ones
+
+
+# The main path's two levels, the fp32 variant, and edge cases: ragged H,
+# W and C_in off the 64-wide tile, several C_out tiles, no noise / clamp /
+# demodulation.
+KERNEL_CASES = (
+    Case("b128.conv1", BATCH, 256, 256, 128, 128, torch.bfloat16, on_path=True),
+    Case("b256.conv1", BATCH, 128, 128, 256, 256, torch.bfloat16, on_path=True),
+    Case("b128.conv1 fp32", BATCH, 256, 256, 128, 128, torch.float32),
+    Case("edge", 3, 48, 256, 7, 136, torch.bfloat16),
+    Case("plain epilogue", 2, 128, 128, 32, 128, torch.bfloat16, noise=False,
+         clamp=None, demodulate=False),
+    Case("3 C_out tiles", 1, 256, 384, 16, 128, torch.bfloat16),
+)
+
+
 def phase(name):
     print(f"== {name}", flush=True)
 
@@ -59,11 +95,14 @@ def bf16_ulp(v: float) -> float:
 
 
 def time_ms(fn, iters=20, warmup=3) -> float:
+    """Device time per call: the launches are queued behind a spin kernel,
+    so that the host's time to enqueue them is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)      # ~10 ms of spinning at H100 clocks
     start.record()
     for _ in range(iters):
         fn()
@@ -94,54 +133,70 @@ def build_phase():
     phase("build")
     t0 = time.perf_counter()
     libs = _build.build_all()
+    build_s = time.perf_counter() - t0
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     for src, lib in libs.items():
         with open(lib + ".log") as f:
             report = [ln.strip() for ln in f if "registers" in ln
-                      or "spill" in ln or "Compiling entry" in ln]
+                      or "spill" in ln or "Compiling entry" in ln
+                      or "Performance" in ln or "warning" in ln]
         print(f"{src} -> {os.path.relpath(lib, REPO)}")
         for ln in report:
             print("  " + ln)
-    print(f"build_s {time.perf_counter() - t0:.1f}")
+        if not os.path.exists(cuobjdump):
+            print("  HGMMA count: not measured (no cuobjdump)")
+            continue
+        sass = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+        hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+        hmma = sum("HMMA" in ln for ln in sass.splitlines())
+        print(f"  SASS: {hgmma} HGMMA (wgmma), {hmma} HMMA (mma.sync)")
+        if src == "fused_modconv.cu" and (hgmma == 0 or hmma != 0):
+            raise AssertionError("the bf16 kernel must issue wgmma, not mma.sync")
+    for dt in (torch.bfloat16, torch.float32):
+        print(f"fused_modconv conv kernel, {str(dt)[6:]}: "
+              f"{fmc.smem_bytes(dt)} bytes of dynamic shared memory a block")
+    print(f"build_s {build_s:.1f}")
 
 
-def level_inputs(n, c_in, c_out, h, w, dtype, seed):
-    g = torch.Generator(device="cuda").manual_seed(seed)
+def level_inputs(case: Case, seed: int, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
-        return torch.randn(shape, generator=g, device="cuda")
+        return torch.randn(shape, generator=g, device=device)
 
-    x = randn(n, c_in, h, w).to(dtype)
+    n, c_in, c_out, h, w = case.n, case.c_in, case.c_out, case.h, case.w
+    x = randn(n, c_in, h, w).to(case.dtype)
     wt = randn(c_out, c_in, 3, 3)
     s = randn(n, c_in) * 0.3 + 1.0
-    return dict(x=x, w=wt, styles=s, dcoefs=fmc.demod_coefs(wt, s),
-                noise=randn(n, 1, h, w) * 0.1, bias=randn(c_out) * 0.1)
+    noise = randn(n, 1, h, w) * 0.1
+    dcoefs = (fmc.demod_coefs(wt, s) if case.demodulate
+              else torch.ones((n, c_out), device=device))
+    return dict(x=x, w=wt, styles=s, dcoefs=dcoefs,
+                noise=noise if case.noise else None, bias=randn(c_out) * 0.1)
 
 
 def kernel_phase(peaks):
-    """Each main-path level shape, an fp32 shape and a shape at the edge of
-    the predicate: kernel vs plain, then times.  Tolerances: bf16, one bf16
-    ulp of max|y| (kernel and plain fold the taps to bf16 at the same places
-    and sum in fp32, so they differ by summation order and may round one ulp
-    apart); fp32, 1e-4 of max|y| (summation order over 9 * C_in products)."""
+    """Each case of KERNEL_CASES: kernel vs plain, then times.  Tolerances:
+    bf16, one bf16 ulp of max|y| (kernel and plain fold the taps to bf16 at
+    the same places and sum in fp32, so they differ by summation order and
+    may round one ulp apart); fp32, 1e-4 of max|y| (summation order over
+    9 * C_in products)."""
     phase("kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     peak_bf16, peak_f32, hbm = peaks
-    cases = [  # (label, N, C_in, C_out, H, W, dtype, on the main path)
-        ("b128.conv1", BATCH, 256, 256, 128, 128, torch.bfloat16, True),
-        ("b256.conv1", BATCH, 128, 128, 256, 256, torch.bfloat16, True),
-        ("b128.conv1 fp32", BATCH, 256, 256, 128, 128, torch.float32, False),
-        ("edge", 3, 48, 256, 7, 136, torch.bfloat16, False),
-    ]
-    main = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                max_abs_err=0.0, flop_ms=0.0, byte_ms=0.0)
-    for i, (label, n, ci, co, h, w, dt, on_path) in enumerate(cases):
+    main = dict(ms=0.0, fold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                library_ms=0.0, max_abs_err=0.0, flop_ms=0.0, byte_ms=0.0)
+    for i, case in enumerate(KERNEL_CASES):
+        label, n, ci, co, h, w, dt = case[:7]
         if not fmc.supported_shape((n, ci, h, w), (co, ci, 3, 3)):
             raise AssertionError(f"{label}: outside the kernel's predicate")
-        a = level_inputs(n, ci, co, h, w, dt, seed=100 + i)
+        a = level_inputs(case, seed=100 + i)
         args = (a["x"], a["w"], a["styles"], a["dcoefs"], a["noise"], a["bias"])
-        y = fmc.fused_modconv3x3(*args)
-        ref = fmc.fused_modconv3x3_ref(*args)
+        y = fmc.fused_modconv3x3(*args, clamp=case.clamp)
+        ref = fmc.fused_modconv3x3_ref(*args, clamp=case.clamp)
         torch.cuda.synchronize()
         if y.dtype != dt or tuple(y.shape) != (n, co, h, w):
             raise AssertionError(f"{label}: got {y.dtype} {tuple(y.shape)}")
@@ -153,26 +208,33 @@ def kernel_phase(peaks):
 
         xs = (a["x"] * a["styles"].to(dt)[:, :, None, None]).contiguous()
         wl = a["w"].to(dt)
-        kernel_ms = time_ms(lambda: fmc.fused_modconv3x3(*args))
-        plain_ms = time_ms(lambda: fmc.fused_modconv3x3_ref(*args), iters=5)
+        kernel_ms = time_ms(
+            lambda: fmc.fused_modconv3x3(*args, clamp=case.clamp))
+        fold_ms = time_ms(lambda: fmc.fold_taps(a["w"], a["styles"],
+                                                a["dcoefs"], dt))
+        plain_ms = time_ms(lambda: fmc.fused_modconv3x3_ref(
+            *args, clamp=case.clamp), iters=5)
         library_ms = time_ms(lambda: torch.nn.functional.conv2d(
             xs, wl, padding=1))
         flops = 2.0 * n * co * ci * 9 * h * w
         nbytes = (a["x"].numel() * a["x"].element_size()           # x
                   + n * co * h * w * a["x"].element_size()         # y
                   + 4 * (a["w"].numel() + a["styles"].numel()
-                         + a["dcoefs"].numel() + a["noise"].numel() + co))
+                         + a["dcoefs"].numel() + co
+                         + (n * h * w if case.noise else 0)))
         peak_ops = peak_bf16 if dt == torch.bfloat16 else peak_f32
         bound_ms = 1e3 * max(flops / peak_ops, nbytes / hbm)
         bound_by = "operations" if flops / peak_ops >= nbytes / hbm else "bytes"
         print(f"{label}: x {n}x{ci}x{h}x{w} C_out {co} {str(dt)[6:]} "
               f"max|y| {peak:.4g} max_abs_err {err:.4g} (tol {tol:.4g}) "
-              f"kernel_ms {kernel_ms:.4f} plain_ms {plain_ms:.4f} "
+              f"kernel_ms {kernel_ms:.4f} fold_ms {fold_ms:.4f} "
+              f"plain_ms {plain_ms:.4f} "
               f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
               f"({bound_by}) kernel_tflops {flops / kernel_ms / 1e9:.1f}",
               flush=True)
-        if on_path:
+        if case.on_path:
             main["ms"] += kernel_ms
+            main["fold_ms"] += fold_ms
             main["plain_ms"] += plain_ms
             main["library_ms"] += library_ms
             main["bound_ms"] += bound_ms
@@ -269,7 +331,39 @@ def main_phase(card):
           f"{rates['fused']:.2f} imgs/s (pallas_level=True), "
           f"{rates['composed']:.2f} imgs/s (pallas_level=False) "
           f"on {card}")
+    trace_forward(cfg, params, zt)
     return params, launches
+
+
+def trace_forward(cfg, params, z, top=10):
+    """One torch.profiler trace of a forward: the kernels with the most
+    device time and the fused levels' share (fold + conv launches) of the
+    device time of all kernels, copies and fills of that forward."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        sg2.generator_apply(cfg, params, z, noise_mode="const")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sg2.generator_apply(cfg, params, z, noise_mode="const")
+            torch.cuda.synchronize()
+    device_us = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device_us[evt.name] = (device_us.get(evt.name, 0.0)
+                                   + evt.time_range.elapsed_us())
+    total = sum(device_us.values())
+    print(f"trace of one batch-{z.shape[0]} forward (pallas_level=True):")
+    if total <= 0:
+        print("  device time: not measured (the trace holds no CUDA kernels)")
+        return
+    for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:9.4f} ms {100 * us / total:6.2f}%  {name[:110]}")
+    fused = sum(us for name, us in device_us.items()
+                if "modconv_bf16_kernel" in name or "fold_taps_kernel" in name)
+    print(f"  fused levels (fold + conv): {fused / 1e3:.4f} ms of "
+          f"{total / 1e3:.4f} ms device time, {100 * fused / total:.2f}%")
 
 
 def read_png(path):
@@ -325,7 +419,7 @@ def main():
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
         replaces="gagan_tpu/ops/pallas_modconv.py:76",
         launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
-        plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
+        fold_ms=k["fold_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by="operations" if k["flop_ms"] >= k["byte_ms"] else "bytes",
         library_ms=k["library_ms"])]
     print(f"(kernel times: the launches of one batch-{BATCH} forward, "

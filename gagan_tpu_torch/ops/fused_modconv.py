@@ -10,9 +10,11 @@ reading x once and writing y once; modulation and demodulation are folded
 into the weight taps in fp32 and rounded to ``x.dtype`` (as the Pallas
 kernel does), and the products accumulate in fp32.
 
-``fused_modconv3x3`` runs the kernel on CUDA tensors and its plain PyTorch
-version ``fused_modconv3x3_ref`` on CPU tensors; a CUDA tensor never takes the
-plain version.  Forward only: the composed backward
+The kernel is two launches: ``fold_taps`` folds the taps into a scratch
+[N, 9, C_out, C_in], then the convolution reads them (bf16: TMA + wgmma;
+fp32: FFMA).  ``fused_modconv3x3`` runs both on CUDA tensors and its plain
+PyTorch version ``fused_modconv3x3_ref`` on CPU tensors; a CUDA tensor never
+takes the plain version.  Forward only: the composed backward
 (pallas_modconv.py::_bwd) comes with the training slice.
 """
 
@@ -29,7 +31,7 @@ from .modulated_conv2d import demod_coefs
 
 LRELU_SLOPE = 0.2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_K_CHUNK = 16      # input channels per K chunk of the kernel
+_K_CHUNK = 16      # C_in must be a multiple of this (the fp32 K chunk)
 _BM = 128          # output channels per block of the kernel
 
 
@@ -38,17 +40,26 @@ def supported_shape(x_shape, w_shape, up: int = 1, down: int = 1) -> bool:
 
     Accepts every shape that the Pallas kernel's ``supported_shape`` accepts
     and more, since nothing on Hopper needs the TPU's (8, 128) tiling: W >= 128
-    need not be a multiple of 128, C_in need only be a multiple of 16 (the
-    kernel's K chunk), and H is free (ragged pixel tiles are masked).  C_out
-    stays a multiple of 128, the kernel's channel tile, so no level pays for a
-    half-empty tile, and W >= 128 keeps the kernel to the high-resolution
-    levels where its per-sample tap fold is small beside the convolution.
-    At FFHQ-1024 it serves b128.conv1 and b256.conv1, as the Pallas kernel does.
+    need only be a multiple of 8 (16-byte TMA strides and x loads), C_in
+    a multiple of 16 (the fp32 kernel's K chunk), and H is free (ragged pixel
+    tiles read zeros and are clipped on store).  C_out stays a multiple of
+    128, the kernel's channel tile, so no level pays for a half-empty tile,
+    and W >= 128 keeps the kernel to the high-resolution levels where its
+    per-sample tap fold is small beside the convolution.  At FFHQ-1024 it
+    serves b128.conv1 and b256.conv1, as the Pallas kernel does.
     """
     n, c_in, h, w = x_shape
     c_out, c_in2, kh, kw = w_shape
     return (up == 1 and down == 1 and kh == 3 and kw == 3 and c_in == c_in2
-            and c_in % _K_CHUNK == 0 and c_out % _BM == 0 and w >= 128)
+            and c_in % _K_CHUNK == 0 and c_out % _BM == 0 and w >= 128
+            and w % 8 == 0)
+
+
+def _fold_taps_ref(w, styles, dcoefs, dtype) -> torch.Tensor:
+    """taps [N, 9, C_out, C_in] = dtype((w * styles) * dcoefs), in fp32."""
+    taps = w.float()[None] * styles.float()[:, None, :, None, None]
+    taps = taps * dcoefs.float()[:, :, None, None, None]     # [N, O, I, 3, 3]
+    return taps.flatten(3).permute(0, 3, 1, 2).to(dtype)
 
 
 def fused_modconv3x3_ref(x, w, styles, dcoefs, noise, bias,
@@ -57,9 +68,8 @@ def fused_modconv3x3_ref(x, w, styles, dcoefs, noise, bias,
     """Plain PyTorch version of the kernel, rounding at the same places."""
     n, c_in, h, wd = x.shape
     c_out = w.shape[0]
-    taps = w.float()[None] * styles.float()[:, None, :, None, None]
-    taps = taps * dcoefs.float()[:, :, None, None, None]     # [N, O, I, 3, 3]
-    taps = taps.to(x.dtype).float()
+    taps = _fold_taps_ref(w, styles, dcoefs, x.dtype).float()
+    taps = taps.permute(0, 2, 3, 1)                          # [N, O, I, 9]
     y = F.conv2d(x.float().reshape(1, n * c_in, h, wd),
                  taps.reshape(n * c_out, c_in, 3, 3), padding=1, groups=n)
     y = y.reshape(n, c_out, h, wd)
@@ -80,32 +90,79 @@ def _check(x, w, styles, dcoefs, noise, bias):
     c_out = w.shape[0]
     if c_in % _K_CHUNK:
         raise ValueError(f"C_in={c_in} is not a multiple of {_K_CHUNK}")
+    if x.dtype == torch.bfloat16 and (wd % 8 or c_out % _BM):
+        raise ValueError(f"bfloat16 needs W % 8 == 0 and C_out % {_BM} == 0, "
+                         f"got W={wd}, C_out={c_out}")
     want = {"w": (w, (c_out, c_in, 3, 3)), "styles": (styles, (n, c_in)),
             "dcoefs": (dcoefs, (n, c_out)), "bias": (bias, (c_out,))}
     if noise is not None:
         want["noise"] = (noise, (n, 1, h, wd))
+    _check_f32(x.device, want)
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+
+
+def _check_f32(device, want):
+    """Each {name: (tensor, shape)} is a contiguous float32 tensor of that
+    shape on ``device``."""
     for name, (t, shape) in want.items():
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
         if tuple(t.shape) != shape or t.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 {shape}, got "
                              f"{t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
 
 
 def _lib():
     from .. import _build
 
     lib = _build.load("fused_modconv")
-    fn = lib.gagan_fused_modconv3x3
-    if fn.argtypes is None:
+    if lib.gagan_fused_modconv3x3_conv.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [i, p, p, p, p, p, p, p, p, i, i, i, i, i, f, f, f, i, p]
-        fn.restype = i
-    return fn
+        lib.gagan_fused_modconv3x3_fold.argtypes = [i, p, p, p, p, i, i, i, p]
+        lib.gagan_fused_modconv3x3_conv.argtypes = [
+            i, p, p, p, p, p, i, i, i, i, i, f, f, f, i, p]
+        lib.gagan_fused_modconv3x3_smem_bytes.argtypes = [i]
+        for fn in (lib.gagan_fused_modconv3x3_fold,
+                   lib.gagan_fused_modconv3x3_conv,
+                   lib.gagan_fused_modconv3x3_smem_bytes):
+            fn.restype = i
+    return lib
+
+
+def _raise_on(status: int, what: str):
+    if status != 0:
+        raise RuntimeError(f"fused_modconv3x3 {what} launch failed: "
+                           f"CUDA error {status}")
+
+
+def fold_taps(w, styles, dcoefs, dtype) -> torch.Tensor:
+    """The kernel's first launch: the folded taps [N, 9, C_out, C_in] in
+    ``dtype`` (float32 or bfloat16), rounded once after the fp32 fold."""
+    if w.device.type == "cpu":
+        return _fold_taps_ref(w, styles, dcoefs, dtype)
+    if dtype not in _DTYPES:
+        raise TypeError(f"taps are float32 or bfloat16, not {dtype}")
+    n, c_in = styles.shape
+    c_out = w.shape[0]
+    _check_f32(w.device, {"w": (w, (c_out, c_in, 3, 3)),
+                          "styles": (styles, (n, c_in)),
+                          "dcoefs": (dcoefs, (n, c_out))})
+    lib = _lib()
+    with torch.cuda.device(w.device):
+        taps = torch.empty((n, 9, c_out, c_in), dtype=dtype, device=w.device)
+        _raise_on(lib.gagan_fused_modconv3x3_fold(
+            _DTYPES[dtype], w.data_ptr(), styles.data_ptr(), dcoefs.data_ptr(),
+            taps.data_ptr(), n, c_in, c_out,
+            torch.cuda.current_stream(w.device).cuda_stream), "fold")
+    return taps
+
+
+def smem_bytes(dtype) -> int:
+    """Dynamic shared memory of the convolution kernel for ``dtype``."""
+    return _lib().gagan_fused_modconv3x3_smem_bytes(_DTYPES[dtype])
 
 
 def fused_modconv3x3(x, w, styles, dcoefs, noise, bias,
@@ -132,25 +189,22 @@ def fused_modconv3x3(x, w, styles, dcoefs, noise, bias,
     _check(x, w, styles, dcoefs, noise, bias)
     n, c_in, h, wd = x.shape
     c_out = w.shape[0]
-    fn = _lib()
+    taps = fold_taps(w, styles, dcoefs, x.dtype)
     with torch.cuda.device(x.device):
         y = torch.empty((n, c_out, h, wd), dtype=x.dtype, device=x.device)
-        taps = torch.empty((n, 9, c_out, c_in), dtype=x.dtype, device=x.device)
-        status = fn(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(),
-                    styles.data_ptr(), dcoefs.data_ptr(),
-                    noise.data_ptr() if noise is not None else None,
-                    bias.data_ptr(), taps.data_ptr(), y.data_ptr(),
-                    n, c_in, c_out, h, wd, float(act_gain), float(act_slope),
-                    float(clamp) if clamp is not None else 0.0,
-                    int(clamp is not None),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    if status != 0:
-        raise RuntimeError(f"fused_modconv3x3 launch failed: CUDA error {status}")
+        _raise_on(_lib().gagan_fused_modconv3x3_conv(
+            _DTYPES[x.dtype], x.data_ptr(), taps.data_ptr(),
+            noise.data_ptr() if noise is not None else None,
+            bias.data_ptr(), y.data_ptr(), n, c_in, c_out, h, wd,
+            float(act_gain), float(act_slope),
+            float(clamp) if clamp is not None else 0.0,
+            int(clamp is not None),
+            torch.cuda.current_stream(x.device).cuda_stream), "conv")
     fused_modconv3x3.launches += 1
     return y
 
 
-fused_modconv3x3.launches = 0      # kernel launches since the last reset
+fused_modconv3x3.launches = 0      # fused levels launched since the last reset
 
 
 def fused_modconv_level(x, w, styles, bias, noise=None, demodulate=True,

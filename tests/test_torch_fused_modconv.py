@@ -56,6 +56,22 @@ def test_fused_level_matches_pallas(dtype, demodulate, noise):
     np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fold_taps_rounds_once_after_the_fp32_fold(dtype):
+    """The kernel's first launch: taps[n, ky*3+kx, o, i] = dtype((w * s) * d)."""
+    a = _inputs(n=2, c=32, h=4)
+    w = torch.from_numpy(a["w"])
+    s = torch.from_numpy(a["s"])
+    d = fmc.demod_coefs(w, s)
+    taps = fmc.fold_taps(w, s, d, dtype)
+    assert taps.dtype == dtype and tuple(taps.shape) == (2, 9, 32, 32)
+    want = (a["w"][None] * a["s"][:, None, :, None, None]).astype(np.float32)
+    want = want * d.numpy()[:, :, None, None, None]
+    want = torch.from_numpy(want.reshape(2, 32, 32, 9).transpose(0, 3, 1, 2)
+                            .copy()).to(dtype)
+    assert torch.equal(taps, want)
+
+
 def test_raises_on_requires_grad():
     a = _inputs(n=1, h=4)
     x = torch.from_numpy(a["x"]).requires_grad_()
