@@ -13,19 +13,28 @@ no ok line):
   3. kernels - each hand kernel against its plain PyTorch version on the card
                (KERNEL_CASES: the main path's shapes and edge cases, TF32
                off), timed beside its bound, its fold launch alone, the plain
-               version and one cuDNN call;
+               version and one cuDNN call; at the main path's two levels also
+               the level's backward against autograd through the plain
+               version in fp32, timed alone and with the forward;
   4. main    - the FFHQ-1024 generator forward through the port's entry point
                (pallas_level=True, random seeded weights, batch 8): kernel
                launch counts, output shape, finite values, agreement with the
                composed path; then imgs/s at batch 32 and one torch.profiler
                trace of a batch-32 forward (top kernels, fused levels' share);
   5. cli     - a 1024^2 snapshot through cli/generate.py for two seeds;
-  6. a JSON line of the kernels, then the JSON ok line.
+  6. train   - the adversarial train step at FFHQ-1024, global batch 32
+               (gagan_tpu_torch.entry.train_entry): the three scheduled
+               variants, each checked (finite metrics, state moved, kernel
+               launches) then timed with its peak memory, the s/kimg of the
+               schedule, one GA Dmain round, pallas vs composed gradients of
+               one main round (TF32 off), one torch.profiler trace of a step;
+  7. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -45,9 +54,12 @@ sys.path.insert(0, REPO)
 
 from gagan_tpu_torch import _build  # noqa: E402
 from gagan_tpu_torch.cli import generate  # noqa: E402
-from gagan_tpu_torch.entry import entry, entry_config  # noqa: E402
+from gagan_tpu_torch.entry import (entry, entry_config,  # noqa: E402
+                                   train_configs, train_entry)
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
+from gagan_tpu_torch.train import augment, gan_loss  # noqa: E402
+from gagan_tpu_torch.train import train_step as ts  # noqa: E402
 from gagan_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from gagan_tpu_torch.utils import config as config_lib  # noqa: E402
 
@@ -55,6 +67,10 @@ from gagan_tpu_torch.utils import config as config_lib  # noqa: E402
 # bf16 tensor-core FLOP/s, fp32 (non-tensor) FLOP/s, HBM bytes/s.
 PEAKS = {"H100": (989e12, 67e12, 3.35e12)}
 BATCH, TIMED_BATCH = 8, 32
+TRAIN_BATCH = 32
+# The three step variants a run schedules and their weights per 16 batches
+# (Greg every 4, Dreg every 16): 12x none, 3x +Greg, 1x both.
+SCHEDULE = {"none": 12, "greg": 3, "both": 1}
 
 
 class Case(NamedTuple):
@@ -233,6 +249,10 @@ def kernel_phase(peaks):
               f"({bound_by}) kernel_tflops {flops / kernel_ms / 1e9:.1f}",
               flush=True)
         if case.on_path:
+            bwd = backward_case(case, a, peaks)
+            for k, v in bwd.items():
+                main[k] = (max(main.get(k, 0.0), v) if k.endswith("err")
+                           else main.get(k, 0.0) + v)
             main["ms"] += kernel_ms
             main["fold_ms"] += fold_ms
             main["plain_ms"] += plain_ms
@@ -243,6 +263,99 @@ def kernel_phase(peaks):
             main["byte_ms"] += 1e3 * nbytes / hbm
         del a, args, y, ref, xs
     return main
+
+
+def backward_case(case: Case, a, peaks):
+    """The level's backward on the card, against autograd through the plain
+    version in fp32 on the same inputs and output gradient, TF32 off:
+
+    (a) the composed backward run in fp32 (``fused_modconv3x3_bwd`` on fp32
+        copies of the inputs): the same function summed in another order
+        (about 1e-6 relative, measured on the CPU), except where a
+        pre-activation lies so near 0 that the two orders disagree on its
+        slope (a few elements in 10^7; measured on the card: about 4e-4
+        relative L2): each such flip moves one pre-activation gradient by
+        1.13 |g|, up to ~5 where max|g| ~ 4.5, which is up to 9% of
+        max|dnoise| (one pixel's sum over the channels).  Bound, for each
+        of the six gradients: relative L2 error <= 2^-8 and max-abs error
+        <= 2^-3 of its max|.|;
+    (b) the main path's bf16 route (kernel forward, composed bf16
+        backward): it rounds x*s, the weight, u, du and the transposed
+        conv's output to bf16 (2^-9 relative each), and where the bf16 u
+        puts a pre-activation on the other side of 0 than fp32 does (about
+        0.2% of the elements: |ypre| under ~2^-8.5 of its spread), that
+        element's slope flips between sqrt(2) and 0.2 sqrt(2).  Measured on
+        the CPU at these widths: 3.4-3.5% relative L2 and up to 9% of
+        max|.| max-abs (dnoise), 0.6% for ddcoefs.  Bound: relative L2
+        <= 2^-3 and max-abs <= 2^-2 of max|.|; a wrong formula or layout
+        errs by O(100%), and (a) holds the formula tightly.
+
+    Times: the bf16 backward alone, forward + backward through autograd,
+    and the plain fp32 forward + backward; the bound is the backward's
+    three convolutions (u and dx in bf16 on the tensor cores, dW in fp32 as
+    written) at the card's peaks, or its bytes (inputs read once, gradients
+    written once)."""
+    peak_bf16, peak_f32, hbm = peaks
+    n, ci, co, h, w = case.n, case.c_in, case.c_out, case.h, case.w
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    g = torch.randn((n, co, h, w), generator=gen, device="cuda").to(case.dtype)
+    names = ("x", "w", "styles", "dcoefs", "noise", "bias")
+    ins = [a[k].detach().clone().requires_grad_() for k in names]
+    y = fmc.fused_modconv3x3(*ins, clamp=case.clamp)
+    y.backward(g)
+    ref_ins = [a[k].detach().float().clone().requires_grad_() for k in names]
+    fmc.fused_modconv3x3_ref(*ref_ins, clamp=case.clamp).backward(g.float())
+    f32 = fmc.fused_modconv3x3_bwd(*[t.detach() for t in ref_ins], g.float(),
+                                   float(np.sqrt(2.0)), fmc.LRELU_SLOPE,
+                                   case.clamp)
+    torch.cuda.synchronize()
+    worst, worst_l2 = 0.0, 0.0
+    for name, t, r, c in zip(names, ins, ref_ins, f32):
+        want = r.grad
+        if t.grad.dtype != (case.dtype if name == "x" else torch.float32):
+            raise AssertionError(f"d{name} is {t.grad.dtype}")
+        peak = float(want.abs().max())
+        errs = []
+        for got in (c, t.grad.float()):
+            errs += [float((got - want).abs().max()),
+                     float((got - want).norm() / want.norm())]
+        print(f"  {case.label} backward d{name}: max|.| {peak:.4g}; fp32 "
+              f"max_abs_err {errs[0]:.4g} rel_l2 {errs[1]:.4g}; bf16 route "
+              f"max_abs_err {errs[2]:.4g} rel_l2 {errs[3]:.4g}")
+        if not (errs[0] <= 2 ** -3 * peak and errs[1] <= 2 ** -8
+                and errs[2] <= 2 ** -2 * peak and errs[3] <= 2 ** -3):
+            raise AssertionError(f"{case.label}: d{name} disagrees with the "
+                                 f"fp32 autograd of the plain version")
+        worst, worst_l2 = max(worst, errs[2] / peak), max(worst_l2, errs[3])
+    del f32
+
+    bwd_args = [a[k] for k in names]
+    bwd_ms = time_ms(lambda: fmc.fused_modconv3x3_bwd(
+        *bwd_args, g, float(np.sqrt(2.0)), fmc.LRELU_SLOPE, case.clamp))
+
+    def fwd_bwd():
+        fmc.fused_modconv3x3(*ins, clamp=case.clamp).backward(g)
+
+    def plain_fwd_bwd():
+        fmc.fused_modconv3x3_ref(*ref_ins, clamp=case.clamp).backward(
+            g.float())
+
+    fwd_bwd_ms = time_ms(fwd_bwd, iters=10)
+    plain_ms = time_ms(plain_fwd_bwd, iters=3)
+    conv = 2.0 * n * co * ci * 9 * h * w
+    flop_s = 2 * conv / peak_bf16 + conv / peak_f32
+    esize = a["x"].element_size()
+    nbytes = (2 * n * ci * h * w * esize + n * co * h * w * esize    # x, dx, g
+              + 4 * 2 * (co * ci * 9 + n * ci + n * co + co
+                         + (n * h * w if case.noise else 0)))
+    bound = 1e3 * max(flop_s, nbytes / hbm)
+    print(f"  {case.label} backward: bwd_ms {bwd_ms:.4f} fwd_bwd_ms "
+          f"{fwd_bwd_ms:.4f} plain fwd_bwd_ms {plain_ms:.4f} bwd_bound_ms "
+          f"{bound:.4f} ({'operations' if flop_s >= nbytes / hbm else 'bytes'})",
+          flush=True)
+    return dict(bwd_ms=bwd_ms, fwd_bwd_ms=fwd_bwd_ms, bwd_plain_ms=plain_ms,
+                bwd_bound_ms=bound, bwd_max_rel_err=worst,
+                bwd_max_rel_l2_err=worst_l2)
 
 
 def seeded_weights(params, seed=0):
@@ -366,6 +479,209 @@ def trace_forward(cfg, params, z, top=10):
           f"{total / 1e3:.4f} ms device time, {100 * fused / total:.2f}%")
 
 
+def clone_tree(tree):
+    return sg2.tree_map(lambda t: t.detach().clone(), tree)
+
+
+def max_change(after, before) -> float:
+    a, b = ckpt.tree_to_flat_tensors(after), ckpt.tree_to_flat_tensors(before)
+    return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+
+def round_grads(loss_fn, trees):
+    """(loss, metrics, {key: grad}) of ``loss_fn()`` with respect to every
+    leaf of ``trees`` ({name: param tree}); the leaves are flagged for
+    autograd only meanwhile."""
+    leaves = {f"{name}/{k}": t for name, tree in trees.items()
+              for k, t in ckpt.tree_to_flat_tensors(tree).items()
+              if not k.endswith(("w_avg", "noise_const"))}
+    for t in leaves.values():
+        t.requires_grad_(True)
+    try:
+        loss, metrics = loss_fn()
+        grads = torch.autograd.grad(loss, list(leaves.values()),
+                                    allow_unused=True)
+    finally:
+        for t in leaves.values():
+            t.requires_grad_(False)
+    return loss, metrics, {k: (g if g is not None else torch.zeros_like(t))
+                           for (k, t), g in zip(leaves.items(), grads)}
+
+
+def rel_l2(a, b, keys) -> float:
+    num = sum(float((a[k].float() - b[k].float()).square().sum()) for k in keys)
+    den = sum(float(b[k].float().square().sum()) for k in keys)
+    return float(np.sqrt(num / den))
+
+
+def train_phase(card):
+    """The adversarial train step at FFHQ-1024, global batch 32, with the
+    JAX training CLI's 1024^2 configuration (entry.train_configs): rounds of
+    8 live samples (Greg 16), bf16 ADA pipe "bgc" at p = 0.2 (ADA starts at
+    0, which would leave every transform off).  The checked and timed steps
+    run with PyTorch's default math (TF32 convolutions on, TF32 matmuls off);
+    the pallas-vs-composed gradient check runs with TF32 off."""
+    phase("train")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    steps, state, inputs = train_entry("cuda", batch=TRAIN_BATCH, ada_p=0.2)
+    g_cfg, d_cfg, cfg, aug_cfg = train_configs(TRAIN_BATCH)
+    real, _, z, _, key = inputs
+    live = cfg.batch_size // cfg.accum_rounds
+    want = expected_launches(g_cfg, live) * cfg.accum_rounds
+    print(f"rounds: main {cfg.accum_rounds}, g_reg {cfg.g_reg_accum_rounds}, "
+          f"d_reg {cfg.d_reg_accum_rounds}; live batch {live}; "
+          f"r1_gamma {cfg.loss.r1_gamma:.6g}; ada_p {float(state.ada_p)}")
+    seconds, peak_mem, launches_total = {}, {}, 0
+    for i, name in enumerate(SCHEDULE):
+        before = {k: clone_tree(getattr(state, k))
+                  for k in ("g_params", "d_params", "g_ema")}
+        nimg = state.cur_nimg
+        fmc.fused_modconv3x3.launches = 0
+        state, metrics = steps[name](state, real, None, z, None,
+                                     key.fold_in(i))
+        torch.cuda.synchronize()
+        launches = fmc.fused_modconv3x3.launches
+        launches_total += launches
+        shown = {k: round(float(v), 5) for k, v in metrics.items()}
+        print(f"{name}: fused_modconv3x3 launches {launches} (expected "
+              f"{want}: 2 levels x {cfg.accum_rounds} main rounds); {shown}")
+        if launches != want:
+            raise AssertionError(f"{name}: {launches} launches, not {want}")
+        bad = [k for k, v in metrics.items()
+               if not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError(f"{name}: non-finite metrics {bad}")
+        if state.cur_nimg != nimg + TRAIN_BATCH:
+            raise AssertionError(f"{name}: cur_nimg {state.cur_nimg}")
+        for k, tree in before.items():
+            moved = max_change(getattr(state, k), tree)
+            if not moved > 0:
+                raise AssertionError(f"{name}: {k} did not change")
+        del before
+        if name != "none" and not float(state.pl_mean) > 0:
+            raise AssertionError(f"{name}: pl_mean {float(state.pl_mean)}")
+        # The timed run of the same variant (allocator and cuDNN warm).
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = steps[name](state, real, None, z, None,
+                                     key.fold_in(10 + i))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        peak_mem[name] = torch.cuda.max_memory_allocated()
+        print(f"{name}: {seconds[name]:.4f} s/step, peak memory "
+              f"{peak_mem[name] / 2 ** 30:.3f} GiB, pl_mean "
+              f"{float(state.pl_mean):.5g} on {card}", flush=True)
+    new_p = ts.ada_update(cfg, state.ada_p,
+                          float(metrics["Loss/signs/real"]))
+    state.ada_p = torch.tensor(new_p, device=state.ada_p.device)
+    print(f"ada_update: p {new_p:.6f} (signs/real "
+          f"{float(metrics['Loss/signs/real']):.4f}, target {cfg.ada_target})")
+    sec_per_batch = sum(SCHEDULE[k] * seconds[k] for k in SCHEDULE) / 16
+    print(f"train FFHQ-1024 batch {TRAIN_BATCH}: "
+          f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg "
+          f"((12 none + 3 greg + 1 both) / 16 = {sec_per_batch:.4f} s/batch) "
+          f"on {card}")
+
+    augment_fn = augment.make_augment_fn(aug_cfg)
+    real8, z8 = real[:live], z[:live]
+
+    # One Dmain round with the GA splice.
+    fmc.fused_modconv3x3.launches = 0
+    _, m, grads = round_grads(lambda: gan_loss.d_main_loss(
+        cfg.loss, g_cfg, d_cfg, state.g_params, state.d_params, real8, None,
+        z8, None, key.fold_in(20), augment_fn, state.ada_p, ga_threshold=0.5,
+        ga_mutation_rate=cfg.ga_mutation_rate), {"D": state.d_params})
+    torch.cuda.synchronize()
+    ga_launches = fmc.fused_modconv3x3.launches
+    launches_total += ga_launches
+    replaced = float(m["Loss/ga/replaced"])
+    print(f"GA Dmain round (threshold 0.5, live batch {live}): "
+          f"Loss/ga/replaced {replaced:.4f}, fused_modconv3x3 launches "
+          f"{ga_launches} (expected {2 * want // cfg.accum_rounds}: the fakes' "
+          f"G forward and the offspring's synthesis)")
+    if not 0.0 <= replaced <= 1.0 or ga_launches != 2 * want // cfg.accum_rounds:
+        raise AssertionError("GA round failed")
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()):
+        raise AssertionError("GA round: non-finite D gradients")
+    del grads
+
+    grads_check(g_cfg, d_cfg, cfg, state, real8, z8, key.fold_in(30),
+                augment_fn)
+    torch.backends.cudnn.allow_tf32 = True
+    trace_train_step(steps["none"], state, inputs, key.fold_in(40))
+    return launches_total, seconds, peak_mem, sec_per_batch
+
+
+def grads_check(g_cfg, d_cfg, cfg, state, real, z, key, augment_fn):
+    """One simultaneous main round at live batch 8 with pallas_level=True
+    and False on the same state and draws, TF32 off.  The fused levels
+    round at other places than the composed path (see main_phase), so the
+    fakes differ by about 1% RMS and every gradient downstream of them by
+    about as much; bounds: relative L2 over all G (all D) gradients
+    <= 2^-4, and <= 2^-2 for each leaf of the two fused levels.  A wrong
+    backward formula or layout errs by O(100%) there."""
+    torch.backends.cudnn.allow_tf32 = False
+    plain = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+        g_cfg.synthesis, pallas_level=False))
+    grads = {}
+    for label, gc in (("pallas", g_cfg), ("composed", plain)):
+        _, _, grads[label] = round_grads(lambda: gan_loss.gd_main_loss(
+            cfg.loss, gc, d_cfg, state.g_params, state.d_params, real, None,
+            z, None, key, augment_fn, state.ada_p),
+            {"G": state.g_params, "D": state.d_params})
+    torch.cuda.synchronize()
+    a, b = grads["pallas"], grads["composed"]
+    g_keys = [k for k in a if k.startswith("G/")]
+    d_keys = [k for k in a if k.startswith("D/")]
+    level_keys = [k for k in g_keys
+                  if ".b128.conv1." in k or ".b256.conv1." in k]
+    g_err, d_err = rel_l2(a, b, g_keys), rel_l2(a, b, d_keys)
+    level_err = {k: rel_l2(a, b, [k]) for k in level_keys}
+    print(f"pallas vs composed gradients (TF32 off, live batch {len(z)}): "
+          f"G rel_l2 {g_err:.4g}, D rel_l2 {d_err:.4g}")
+    for k, v in level_err.items():
+        print(f"  {k}: rel_l2 {v:.4g}")
+    if not (g_err <= 2 ** -4 and d_err <= 2 ** -4
+            and all(v <= 2 ** -2 for v in level_err.values())):
+        raise AssertionError("pallas and composed gradients disagree")
+
+
+def trace_train_step(step, state, inputs, key, top=12):
+    """One torch.profiler trace of a "none" step: the kernels with the most
+    device time, the fused level's forward launches (fold + conv) and its
+    backward (the kernels under the fused_modconv3x3_bwd range) as shares
+    of the device time of all kernels, copies and fills."""
+    from torch.profiler import ProfilerActivity, profile
+
+    real, _, z, _, _ = inputs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, real, None, z, None, key)
+        torch.cuda.synchronize()
+    device_us, bwd_us = {}, 0.0
+    for evt in prof.events():
+        if evt.name == "fused_modconv3x3_bwd":
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                bwd_us += evt.device_time_total
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
+            device_us[evt.name] = (device_us.get(evt.name, 0.0)
+                                   + evt.time_range.elapsed_us())
+    total = sum(device_us.values())
+    print(f"trace of one batch-{len(z)} 'none' train step (pallas_level=True):")
+    if total <= 0:
+        print("  device time: not measured (the trace holds no CUDA kernels)")
+        return
+    for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:9.4f} ms {100 * us / total:6.2f}%  {name[:110]}")
+    fwd = sum(us for name, us in device_us.items()
+              if "modconv_bf16_kernel" in name or "fold_taps_kernel" in name)
+    print(f"  device time {total / 1e3:.4f} ms; fused level forward "
+          f"{fwd / 1e3:.4f} ms ({100 * fwd / total:.2f}%), its backward "
+          f"{bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)")
+
+
 def read_png(path):
     """(width, height, raw scanlines) of an 8-bit RGB PNG."""
     with open(path, "rb") as f:
@@ -414,16 +730,28 @@ def main():
     k = kernel_phase(peaks)
     params, launches = main_phase(card)
     cli_phase(params)
+    del params
+    torch.cuda.empty_cache()
+    train_launches, seconds, peak_mem, sec_per_batch = train_phase(card)
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
         replaces="gagan_tpu/ops/pallas_modconv.py:76",
-        launches=launches, max_abs_err=k["max_abs_err"], ms=k["ms"],
+        launches=launches + train_launches,
+        launches_by_path={"forward": launches, "train": train_launches},
+        max_abs_err=k["max_abs_err"], ms=k["ms"],
         fold_ms=k["fold_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by="operations" if k["flop_ms"] >= k["byte_ms"] else "bytes",
-        library_ms=k["library_ms"])]
+        library_ms=k["library_ms"], bwd_ms=k["bwd_ms"],
+        fwd_bwd_ms=k["fwd_bwd_ms"], bwd_plain_ms=k["bwd_plain_ms"],
+        bwd_bound_ms=k["bwd_bound_ms"], bwd_max_rel_err=k["bwd_max_rel_err"],
+        bwd_max_rel_l2_err=k["bwd_max_rel_l2_err"])]
     print(f"(kernel times: the launches of one batch-{BATCH} forward, "
-          f"b128.conv1 + b256.conv1, on {card})")
+          f"b128.conv1 + b256.conv1, on {card}; bwd_*: the level's composed "
+          f"backward at the same shapes; train: s/step "
+          f"{ {n: round(v, 4) for n, v in seconds.items()} }, peak GiB "
+          f"{ {n: round(v / 2 ** 30, 3) for n, v in peak_mem.items()} }, "
+          f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""StyleGAN2 generator (port of the generator half of
+"""StyleGAN2 generator and discriminator (port of
 gagan_tpu/models/stylegan2.py).
 
 As in the JAX module, configs are frozen dataclasses with the same field
@@ -6,16 +6,19 @@ names (so a ``g_cfg`` dict written by either package builds either config),
 and every forward is a plain function over a nested dict of tensors keyed as
 the JAX parameter pytree.  :class:`Generator` holds those tensors as an
 ``nn.Module`` whose ``state_dict()`` keys are exactly the dotted keys of
-``gagan_tpu.utils.checkpoint.tree_to_flat``.
+``gagan_tpu.utils.checkpoint.tree_to_flat``; :class:`Discriminator` likewise.
 
 Levels that the JAX package sends to its Pallas kernel under
 ``SynthesisConfig.pallas_level`` go to the port's fused CUDA op
 (ops/fused_modconv.py) under the same flag and conditions, by shape only.
 
-Not in this module yet: layer hooks (adaptation), ``remat`` (a training
-memory option; the fields stay so configs round-trip) and the discriminator.
-``noise_mode="random"`` draws from a caller-supplied ``torch.Generator``,
-which cannot reproduce JAX's threefry noise.
+Not in this module yet: layer hooks (adaptation), the discriminator's
+``spatial_constraint`` (multi-device) and ``remat``: the remat fields stay so
+that configs round-trip, and setting either raises ``NotImplementedError``.
+``noise_mode="random"`` draws each layer's noise from a key of the
+caller's :class:`~gagan_tpu_torch.utils.rng.Rng` (or a key drawn from a
+``torch.Generator``), folded with the layer name as the JAX package folds
+its key; torch cannot reproduce JAX's threefry numbers.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ from .. import resolve_device
 from ..ops import fused_modconv as fmc
 from ..ops import packed as pk
 from ..ops.bias_act import activation_funcs, bias_act
+from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv2d import demod_coefs, modulated_conv2d
-from ..ops.upfirdn2d import setup_filter, upsample2d
+from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..utils.rng import Rng, name_fold
 
 Params = Dict[str, Any]
 
@@ -89,11 +94,12 @@ class SynthesisConfig:
     # The port runs the packed tail with these two at their defaults only.
     packed_fused_torgb: bool = True
     packed_tail_blocks: int = 1
-    # Training memory options of the JAX package; no effect on a forward.
+    # Training memory options of the JAX package (block rematerialization);
+    # not ported yet: synthesis_apply raises when either is set.
     remat: bool = False
     remat_min_res: Optional[int] = None
     # Route eligible stride-1 3x3 levels through the fused modconv op
-    # (ops/fused_modconv.py, a CUDA kernel on the card); forward only.
+    # (ops/fused_modconv.py, a CUDA kernel on the card); differentiable once.
     pallas_level: bool = False
 
     @property
@@ -141,6 +147,55 @@ class GeneratorConfig:
         return self.synthesis.num_ws
 
 
+@dataclasses.dataclass(frozen=True)
+class DiscriminatorConfig:
+    c_dim: int = 0
+    img_resolution: int = 1024
+    img_channels: int = 3
+    architecture: str = "resnet"
+    channel_base: int = 32768
+    channel_max: int = 512
+    num_fp16_res: int = 0
+    conv_clamp: Optional[float] = None
+    cmap_dim: Optional[int] = None
+    activation: str = "lrelu"
+    resample_filter: Tuple[int, ...] = (1, 3, 3, 1)
+    mbstd_group_size: Optional[int] = 4
+    mbstd_num_channels: int = 1
+    freeze_layers: int = 0
+    # Not ported yet (see SynthesisConfig.remat): discriminator_apply raises.
+    remat: bool = False
+    remat_min_res: Optional[int] = None
+    # Space-to-depth first block(s) (resnet only), as in the JAX package.
+    packed_first_block: bool = False
+    packed_head_blocks: int = 1
+    mapping: MappingConfig = dataclasses.field(default_factory=MappingConfig)
+
+    @property
+    def block_resolutions(self) -> List[int]:
+        return [2 ** i for i in range(int(np.log2(self.img_resolution)), 2, -1)]
+
+    def channels(self, res: int) -> int:
+        return min(self.channel_base // res, self.channel_max)
+
+    @property
+    def bf16_resolution(self) -> int:
+        return max(
+            2 ** (int(np.log2(self.img_resolution)) + 1 - self.num_fp16_res), 8)
+
+    @property
+    def resolved_cmap_dim(self) -> int:
+        if self.c_dim == 0:
+            return 0
+        return self.cmap_dim if self.cmap_dim is not None else self.channels(4)
+
+    def cmap_mapping(self) -> MappingConfig:
+        """The conditioning mapping network's config (z_dim 0)."""
+        return dataclasses.replace(
+            self.mapping, z_dim=0, c_dim=self.c_dim,
+            w_dim=self.resolved_cmap_dim, num_ws=None, w_avg_beta=None)
+
+
 # ----------------------------------------------------------------------------
 # Initialization (same shapes and rules as the JAX init; torch draws)
 
@@ -155,9 +210,12 @@ def _init_fc(gen, in_features: int, out_features: int,
             "bias": torch.full((out_features,), float(bias_init))}
 
 
-def _init_conv(gen, in_channels: int, out_channels: int, kernel: int) -> Params:
-    return {"weight": _normal(gen, (out_channels, in_channels, kernel, kernel)),
-            "bias": torch.zeros((out_channels,))}
+def _init_conv(gen, in_channels: int, out_channels: int, kernel: int,
+               bias: bool = True) -> Params:
+    p = {"weight": _normal(gen, (out_channels, in_channels, kernel, kernel))}
+    if bias:
+        p["bias"] = torch.zeros((out_channels,))
+    return p
 
 
 def init_mapping(gen: torch.Generator, cfg: MappingConfig) -> Params:
@@ -209,11 +267,42 @@ def init_generator(cfg: GeneratorConfig, gen: torch.Generator,
     CPU from ``gen``, then moved to ``device``."""
     params = {"mapping": init_mapping(gen, cfg.mapping),
               "synthesis": init_synthesis(gen, cfg.synthesis)}
-    return _tree_map(lambda t: t.to(device), params)
+    return tree_map(lambda t: t.to(device), params)
 
 
-def _tree_map(fn, tree: Params) -> Params:
-    return {k: _tree_map(fn, v) if isinstance(v, dict) else fn(v)
+def init_discriminator(cfg: DiscriminatorConfig, gen: torch.Generator,
+                       device) -> Params:
+    """Random discriminator parameters (JAX init shapes and rules) drawn on
+    the CPU from ``gen``, then moved to ``device``."""
+    params: Params = {}
+    for res in cfg.block_resolutions:
+        block: Params = {}
+        in_ch = cfg.channels(res) if res < cfg.img_resolution else 0
+        tmp_ch = cfg.channels(res)
+        out_ch = cfg.channels(res // 2)
+        if in_ch == 0 or cfg.architecture == "skip":
+            block["fromrgb"] = _init_conv(gen, cfg.img_channels, tmp_ch, 1)
+        block["conv0"] = _init_conv(gen, tmp_ch, tmp_ch, 3)
+        block["conv1"] = _init_conv(gen, tmp_ch, out_ch, 3)
+        if cfg.architecture == "resnet":
+            block["skip"] = _init_conv(gen, tmp_ch, out_ch, 1, bias=False)
+        params[f"b{res}"] = block
+    if cfg.c_dim > 0:
+        params["mapping"] = init_mapping(gen, cfg.cmap_mapping())
+    ch4 = cfg.channels(4)
+    epilogue: Params = {}
+    if cfg.architecture == "skip":
+        epilogue["fromrgb"] = _init_conv(gen, cfg.img_channels, ch4, 1)
+    epilogue["conv"] = _init_conv(gen, ch4 + cfg.mbstd_num_channels, ch4, 3)
+    epilogue["fc"] = _init_fc(gen, ch4 * 16, ch4)
+    epilogue["out"] = _init_fc(gen, ch4, 1 if cfg.resolved_cmap_dim == 0
+                               else cfg.resolved_cmap_dim)
+    params["b4"] = epilogue
+    return tree_map(lambda t: t.to(device), params)
+
+
+def tree_map(fn, tree: Params) -> Params:
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
 
 
@@ -231,6 +320,24 @@ def fc_apply(p: Params, x: torch.Tensor, activation: str = "linear",
     if b is not None and lr_multiplier != 1.0:
         b = b * lr_multiplier
     return bias_act(x, b, act=activation)
+
+
+def conv2d_layer_apply(p: Params, x: torch.Tensor, activation: str = "linear",
+                       up: int = 1, down: int = 1,
+                       resample_filter: Optional[torch.Tensor] = None,
+                       conv_clamp: Optional[float] = None,
+                       gain: float = 1.0) -> torch.Tensor:
+    """Conv2dLayer forward (equalized learning rate)."""
+    w = p["weight"]
+    out_ch, in_ch, kh, kw = w.shape
+    w = w * (1.0 / np.sqrt(in_ch * kh * kw))
+    x = conv2d_resample(x, w.to(x.dtype), f=resample_filter, up=up,
+                        down=down, padding=kh // 2, flip_weight=(up == 1))
+    act_gain = activation_funcs[activation].def_gain * gain
+    act_clamp = conv_clamp * gain if conv_clamp is not None else None
+    b = p.get("bias")
+    return bias_act(x, b.to(x.dtype) if b is not None else None,
+                    act=activation, gain=act_gain, clamp=act_clamp)
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = 1,
@@ -276,29 +383,28 @@ def _layer_styles(lp: Params, w: torch.Tensor,
 
 
 def _noise(cfg: SynthesisConfig, lp: Params, noise_mode: str, shape,
-           generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
-    """Scaled layer noise: [H, W] for const, ``shape`` for random."""
+           rng: Optional[Rng], name: str) -> Optional[torch.Tensor]:
+    """Scaled layer noise: [H, W] for const, ``shape`` for random (drawn
+    from ``rng`` folded with the layer name)."""
     if not cfg.use_noise or noise_mode == "none":
         return None
     if noise_mode == "const":
         return lp["noise_const"] * lp["noise_strength"]
     strength = lp["noise_strength"]
-    nz = torch.randn(shape, generator=generator, dtype=torch.float32,
-                     device=generator.device)
+    nz = rng.fold_in(name_fold(name)).normal(shape, device=strength.device)
     return nz.to(strength.device) * strength
 
 
 def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
                           w: torch.Tensor, resolution: int, up: int,
-                          resample_filter: torch.Tensor,
+                          resample_filter: torch.Tensor, layer_name: str,
                           noise_mode: str = "const",
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
+                          rng: Optional[Rng] = None) -> torch.Tensor:
     """SynthesisLayer forward."""
     styles = _layer_styles(lp, w)
     weight = lp["weight"]
     noise = _noise(cfg, lp, noise_mode, (x.shape[0], 1, resolution, resolution),
-                   generator)
+                   rng, layer_name)
 
     if (cfg.pallas_level and up == 1 and cfg.activation == "lrelu"
             and fmc.supported_shape(tuple(x.shape), tuple(weight.shape))):
@@ -334,8 +440,7 @@ def torgb_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
 def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
                  block_ws: List[torch.Tensor], x: torch.Tensor,
                  img: Optional[torch.Tensor], noise_mode: str,
-                 generator: Optional[torch.Generator],
-                 dtype: torch.dtype) -> torch.Tensor:
+                 rng: Optional[Rng], dtype: torch.dtype) -> torch.Tensor:
     """The last synthesis block on the 2x2-packed grid (exact; ops/packed.py),
     ending in the fused torgb + depth-to-space: returns the image."""
     taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
@@ -345,8 +450,9 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
     batch = x.shape[0]
     x = x.to(dtype)
 
-    def add_noise_act(lp, h, out_ch):
-        nz = _noise(cfg, lp, noise_mode, (batch, 1, res, res), generator)
+    def add_noise_act(lp, name, h, out_ch):
+        nz = _noise(cfg, lp, noise_mode, (batch, 1, res, res), rng,
+                    f"b{res}.{name}")
         if nz is not None:
             nz = pk.pack(nz[None, None] if nz.ndim == 2 else nz)
             h = h + nz.repeat_interleave(out_ch, dim=1).to(h.dtype)
@@ -362,7 +468,7 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
     h = x * styles.to(x.dtype)[:, :, None, None]
     h = pk.conv_packed(h, wp.to(dtype))
     h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-    h = add_noise_act(lp, h, lp["weight"].shape[0])
+    h = add_noise_act(lp, "conv0", h, lp["weight"].shape[0])
 
     # conv1: packed -> packed.
     lp = block["conv1"]
@@ -372,7 +478,7 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
     h = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
     h = pk.conv_packed(h, wp.to(dtype))
     h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-    h = add_noise_act(lp, h, lp["weight"].shape[0])
+    h = add_noise_act(lp, "conv1", h, lp["weight"].shape[0])
 
     # torgb 1x1 + depth-to-space as one input-dilated conv to the image.
     lp = block["torgb"]
@@ -386,16 +492,31 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
     return upsample2d(img, taps) + y
 
 
+def _refuse_remat(cfg):
+    if cfg.remat or cfg.remat_min_res is not None:
+        raise NotImplementedError(
+            "remat / remat_min_res are not ported yet (block "
+            "rematerialization, a training memory option); unset them")
+
+
 def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                     noise_mode: str = "const",
-                    generator: Optional[torch.Generator] = None,
+                    generator: "Optional[torch.Generator | Rng]" = None,
                     force_fp32: bool = False) -> torch.Tensor:
-    """SynthesisNetwork forward: ws [N, num_ws, w_dim] -> img [N, C, R, R]."""
+    """SynthesisNetwork forward: ws [N, num_ws, w_dim] -> img [N, C, R, R].
+    ``noise_mode="random"`` draws from ``generator``: an :class:`Rng` key,
+    or a ``torch.Generator`` that one key is drawn from."""
     if noise_mode not in ("random", "const", "none"):
         raise ValueError(f"noise_mode must be random, const or none, "
                          f"got {noise_mode!r}")
-    if noise_mode == "random" and generator is None:
-        raise ValueError("noise_mode='random' needs a torch.Generator")
+    _refuse_remat(cfg)
+    rng = generator
+    if noise_mode == "random":
+        if generator is None:
+            raise ValueError("noise_mode='random' needs a torch.Generator "
+                             "or an Rng")
+        if isinstance(generator, torch.Generator):
+            rng = Rng.from_generator(generator)
     if cfg.architecture != "skip":
         raise NotImplementedError(
             f"architecture={cfg.architecture!r}: the port has 'skip' only")
@@ -423,15 +544,16 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
 
         if res == tail_res:
             return _packed_tail(cfg, block, res, block_ws, x, img, noise_mode,
-                                generator, dtype)
+                                rng, dtype)
         if res == 4:
             x = block["const"].to(dtype)[None].repeat(batch, 1, 1, 1)
         else:
             x = synthesis_layer_apply(cfg, block["conv0"], x.to(dtype),
                                       block_ws[0], res, 2, resample_filter,
-                                      noise_mode, generator)
+                                      f"b{res}.conv0", noise_mode, rng)
         x = synthesis_layer_apply(cfg, block["conv1"], x, block_ws[num_conv - 1],
-                                  res, 1, resample_filter, noise_mode, generator)
+                                  res, 1, resample_filter, f"b{res}.conv1",
+                                  noise_mode, rng)
         if img is not None:
             img = upsample2d(img, resample_filter)
         y = torgb_layer_apply(cfg, block["torgb"], x, block_ws[num_conv]).float()
@@ -444,7 +566,7 @@ def generator_apply(cfg: GeneratorConfig, params: Params, z: torch.Tensor,
                     truncation_psi: float = 1.0,
                     truncation_cutoff: Optional[int] = None,
                     noise_mode: str = "const",
-                    generator: Optional[torch.Generator] = None,
+                    generator: "Optional[torch.Generator | Rng]" = None,
                     force_fp32: bool = False) -> torch.Tensor:
     """z [N, z_dim] -> img [N, img_channels, R, R] in float32."""
     ws = mapping_apply(cfg.mapping, params["mapping"], z, c,
@@ -456,7 +578,146 @@ def generator_apply(cfg: GeneratorConfig, params: Params, z: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
-# nn.Module holder
+# Discriminator
+
+
+def minibatch_std(x: torch.Tensor, group_size: Optional[int],
+                  num_channels: int = 1) -> torch.Tensor:
+    """MinibatchStdLayer: append the per-group feature stddev channels."""
+    n, c, h, w = x.shape
+    g = min(group_size, n) if group_size is not None else n
+    f = num_channels
+    y = x.reshape(g, -1, f, c // f, h, w).float()
+    y = y - y.mean(dim=0)
+    y = y.square().mean(dim=0)
+    y = torch.sqrt(y + 1e-8)
+    y = y.mean(dim=(2, 3, 4))
+    y = y.reshape(-1, f, 1, 1).to(x.dtype)
+    y = y.repeat(g, 1, h, w)
+    return torch.cat([x, y], dim=1)
+
+
+def _equalized(w: torch.Tensor) -> torch.Tensor:
+    o, i, kh, kw = w.shape
+    return w * (1.0 / np.sqrt(i * kh * kw))
+
+
+def _packed_res_core(cfg: DiscriminatorConfig, block: Params, x: torch.Tensor,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """conv0/conv1/skip of a resnet block on the packed grid (ops/packed.py):
+    ``x`` is the packed input [N, 4C, res/2, res/2]; returns the unpacked
+    [N, C_out, res/2, res/2] block output."""
+    taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
+                           device=x.device)
+    taps = taps / taps.sum()
+    spec = activation_funcs[cfg.activation]
+    y = pk.conv_packed(x, pk.build_packed_conv3x3(
+        _equalized(block["conv0"]["weight"])).to(dtype))
+    y = bias_act(y, pk.pack_channel_tile(block["conv0"]["bias"]).to(y.dtype),
+                 act=cfg.activation, gain=spec.def_gain, clamp=cfg.conv_clamp)
+    y = pk.conv_packed(y, pk.build_packed_downconv(
+        _equalized(block["conv1"]["weight"]), taps).to(dtype))
+    g = float(np.sqrt(0.5))
+    y = bias_act(y, block["conv1"]["bias"].to(y.dtype), act=cfg.activation,
+                 gain=spec.def_gain * g,
+                 clamp=cfg.conv_clamp * g if cfg.conv_clamp else None)
+    sk = pk.conv_packed(x, pk.build_packed_down1x1(
+        _equalized(block["skip"]["weight"]), taps).to(dtype))
+    sk = sk * torch.tensor(g, dtype=sk.dtype, device=sk.device)
+    return sk + y
+
+
+def _d_block(cfg: DiscriminatorConfig, block: Params, x, img,
+             resample_filter, dtype):
+    if x is not None:
+        x = x.to(dtype)
+    if "fromrgb" in block:
+        y = conv2d_layer_apply(block["fromrgb"], img.to(dtype), cfg.activation,
+                               conv_clamp=cfg.conv_clamp)
+        x = x + y if x is not None else y
+        img = (downsample2d(img, resample_filter)
+               if cfg.architecture == "skip" else None)
+    if cfg.architecture == "resnet":
+        y = conv2d_layer_apply(block["skip"], x, "linear", down=2,
+                               resample_filter=resample_filter,
+                               gain=float(np.sqrt(0.5)))
+        x = conv2d_layer_apply(block["conv0"], x, cfg.activation,
+                               conv_clamp=cfg.conv_clamp)
+        x = conv2d_layer_apply(block["conv1"], x, cfg.activation, down=2,
+                               resample_filter=resample_filter,
+                               conv_clamp=cfg.conv_clamp,
+                               gain=float(np.sqrt(0.5)))
+        x = y + x
+    else:
+        x = conv2d_layer_apply(block["conv0"], x, cfg.activation,
+                               conv_clamp=cfg.conv_clamp)
+        x = conv2d_layer_apply(block["conv1"], x, cfg.activation, down=2,
+                               resample_filter=resample_filter,
+                               conv_clamp=cfg.conv_clamp)
+    return x, img
+
+
+def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
+                        img: torch.Tensor, c: Optional[torch.Tensor] = None,
+                        force_fp32: bool = False,
+                        spatial_constraint=None) -> torch.Tensor:
+    """Discriminator forward: img [N, C, R, R] -> logits [N, 1] in float32.
+
+    ``spatial_constraint`` belongs to the JAX package's spatial sharding
+    over a device mesh; the port takes it only as None."""
+    if spatial_constraint is not None:
+        raise NotImplementedError(
+            "spatial_constraint (spatial sharding over several devices) is "
+            "not ported")
+    _refuse_remat(cfg)
+    resample_filter = setup_filter(cfg.resample_filter, device=img.device)
+    spec = activation_funcs[cfg.activation]
+    x = None
+    for bi, res in enumerate(cfg.block_resolutions):
+        block = params[f"b{res}"]
+        dtype = (torch.bfloat16 if res >= cfg.bf16_resolution and not force_fp32
+                 else torch.float32)
+        packed_ok = (cfg.packed_first_block and res > 4
+                     and cfg.architecture == "resnet"
+                     and bi < cfg.packed_head_blocks)
+        if packed_ok and res == cfg.img_resolution:
+            # First block: fromrgb 1x1 as a cell-diagonal conv on pack(img).
+            w = pk.build_packed_conv1x1(_equalized(block["fromrgb"]["weight"]))
+            h = pk.conv_packed(pk.pack(img.to(dtype)), w.to(dtype))
+            h = bias_act(h, pk.pack_channel_tile(
+                block["fromrgb"]["bias"]).to(h.dtype), act=cfg.activation,
+                gain=spec.def_gain, clamp=cfg.conv_clamp)
+            x = _packed_res_core(cfg, block, h, dtype)
+            img = None
+        elif packed_ok:
+            x = _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype)
+        else:
+            x, img = _d_block(cfg, block, x, img, resample_filter, dtype)
+
+    cmap = None
+    if cfg.c_dim > 0:
+        cmap = mapping_apply(cfg.cmap_mapping(), params["mapping"], None, c,
+                             broadcast=False)
+
+    # Epilogue.
+    ep = params["b4"]
+    x = x.float()
+    if cfg.architecture == "skip":
+        x = x + conv2d_layer_apply(ep["fromrgb"], img.float(), cfg.activation)
+    if cfg.mbstd_num_channels > 0:
+        x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels)
+    x = conv2d_layer_apply(ep["conv"], x, cfg.activation,
+                           conv_clamp=cfg.conv_clamp)
+    x = fc_apply(ep["fc"], x.reshape(x.shape[0], -1), activation=cfg.activation)
+    x = fc_apply(ep["out"], x)
+    if cfg.resolved_cmap_dim > 0:
+        x = (x * cmap).sum(dim=1, keepdim=True) * (
+            1.0 / np.sqrt(cfg.resolved_cmap_dim))
+    return x
+
+
+# ----------------------------------------------------------------------------
+# nn.Module holders
 
 
 # Leaves that StyleGAN2 keeps as buffers rather than trainable parameters.
@@ -483,28 +744,21 @@ class _Tree(nn.Module):
         return out
 
 
-class Generator(nn.Module):
-    """The generator's parameters as a module; ``forward`` is
-    :func:`generator_apply` over them.  ``state_dict()`` keys equal the keys
-    of the JAX package's ``tree_to_flat(init_generator(...))``."""
+class _Network(nn.Module):
+    """A parameter tree as a module: its top-level keys are child modules,
+    ``state_dict()`` keys are the JAX package's ``tree_to_flat`` keys."""
 
-    def __init__(self, cfg: GeneratorConfig, device, seed: int = 0,
-                 params: Optional[Params] = None):
+    def __init__(self, cfg, device, params: Params):
         super().__init__()
-        device = resolve_device(device)
         self.cfg = cfg
-        if params is None:
-            params = init_generator(cfg, torch.Generator().manual_seed(seed),
-                                    "cpu")
-        self.mapping = _Tree(params["mapping"])
-        self.synthesis = _Tree(params["synthesis"])
-        self.to(device)
+        for k, v in params.items():
+            self.add_module(k, _Tree(v))
+        self.to(resolve_device(device))
 
     def params(self) -> Params:
-        return {"mapping": self.mapping.tree(),
-                "synthesis": self.synthesis.tree()}
+        return {k: m.tree() for k, m in self.named_children()}
 
-    def load_flat(self, flat: Dict[str, np.ndarray]) -> "Generator":
+    def load_flat(self, flat: Dict[str, np.ndarray]) -> "_Network":
         """Copy a flat {dotted key: array} dict in; the key sets must match."""
         own = self.state_dict()
         missing, extra = set(own) - set(flat), set(flat) - set(own)
@@ -520,6 +774,39 @@ class Generator(nn.Module):
                 t.copy_(src)
         return self
 
+
+
+class Generator(_Network):
+    """The generator's parameters as a module; ``forward`` is
+    :func:`generator_apply` over them.  ``state_dict()`` keys equal the keys
+    of the JAX package's ``tree_to_flat(init_generator(...))``."""
+
+    def __init__(self, cfg: GeneratorConfig, device, seed: int = 0,
+                 params: Optional[Params] = None):
+        resolve_device(device)
+        if params is None:
+            params = init_generator(cfg, torch.Generator().manual_seed(seed),
+                                    "cpu")
+        super().__init__(cfg, device, params)
+
     def forward(self, z: torch.Tensor, c: Optional[torch.Tensor] = None,
                 **kwargs) -> torch.Tensor:
         return generator_apply(self.cfg, self.params(), z, c, **kwargs)
+
+
+class Discriminator(_Network):
+    """The discriminator's parameters as a module; ``forward`` is
+    :func:`discriminator_apply` over them.  ``state_dict()`` keys equal the
+    keys of the JAX package's ``tree_to_flat(init_discriminator(...))``."""
+
+    def __init__(self, cfg: DiscriminatorConfig, device, seed: int = 0,
+                 params: Optional[Params] = None):
+        resolve_device(device)
+        if params is None:
+            params = init_discriminator(
+                cfg, torch.Generator().manual_seed(seed), "cpu")
+        super().__init__(cfg, device, params)
+
+    def forward(self, img: torch.Tensor, c: Optional[torch.Tensor] = None,
+                **kwargs) -> torch.Tensor:
+        return discriminator_apply(self.cfg, self.params(), img, c, **kwargs)

@@ -4,9 +4,10 @@
 Same dispatch as the JAX module: zero-insert upsample -> pad -> FIR ->
 correlate with the weight -> downsample.  Where JAX runs an input-dilated
 (``lhs_dilation``) convolution, torch runs the equivalent
-``F.conv_transpose2d`` with the kernel spatially flipped and its in/out axes
+``conv_transpose2d`` with the kernel spatially flipped and its in/out axes
 swapped; ``flip_weight`` keeps its meaning (True: correlation, as
-``torch.conv2d``; False: true convolution).
+``torch.conv2d``; False: true convolution).  The convolutions are
+ops/conv2d_gradfix.py's, differentiable to any order on the fast kernels.
 """
 
 from __future__ import annotations
@@ -14,8 +15,8 @@ from __future__ import annotations
 from typing import Optional, Sequence, Union
 
 import torch
-import torch.nn.functional as F
 
+from . import conv2d_gradfix
 from . import upfirdn2d as _updown
 
 
@@ -24,8 +25,8 @@ def _conv2d(x: torch.Tensor, w: torch.Tensor, *, stride=1, padding=(0, 0),
     """Correlation (flip_weight=True) or convolution (False) over NCHW."""
     if not flip_weight:
         w = w.flip([2, 3])
-    return F.conv2d(x, w.to(x.dtype), stride=stride, padding=padding,
-                    groups=groups)
+    return conv2d_gradfix.conv2d(x, w.to(x.dtype), stride=stride,
+                                 padding=padding, groups=groups)
 
 
 def _transpose_groups(w: torch.Tensor, groups: int) -> torch.Tensor:
@@ -46,9 +47,9 @@ def lhs_dilated_conv2d(x: torch.Tensor, w: torch.Tensor, dilation: int,
     if py > kh - 1 or px > kw - 1:
         raise ValueError(f"padding {padding} exceeds kernel {(kh, kw)} - 1")
     wt = _transpose_groups(w.flip([2, 3]), groups).to(x.dtype)
-    return F.conv_transpose2d(x, wt, stride=dilation,
-                              padding=(kh - 1 - py, kw - 1 - px),
-                              groups=groups)
+    return conv2d_gradfix.conv_transpose2d(
+        x, wt, stride=dilation, padding=(kh - 1 - py, kw - 1 - px),
+        groups=groups)
 
 
 def conv2d_resample(

@@ -26,6 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from .modulated_conv2d import demod_coefs
 
@@ -165,22 +166,7 @@ def smem_bytes(dtype) -> int:
     return _lib().gagan_fused_modconv3x3_smem_bytes(_DTYPES[dtype])
 
 
-def fused_modconv3x3(x, w, styles, dcoefs, noise, bias,
-                     act_gain=float(np.sqrt(2.0)), act_slope=LRELU_SLOPE,
-                     clamp: Optional[float] = 256.0) -> torch.Tensor:
-    """act(dcoef * conv3x3(styles * x, w) + noise + bias), fused.
-
-    x [N,C_in,H,W] float32 or bfloat16; w [C_out,C_in,3,3]; styles [N,C_in];
-    dcoefs [N,C_out] (ones for demodulate=False); noise [N,1,H,W] already
-    scaled by noise_strength, or None; bias [C_out]; all but x float32.
-    """
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (x, w, styles, dcoefs, noise, bias)):
-        raise NotImplementedError(
-            "fused_modconv3x3 is forward-only; its backward comes with the "
-            "training slice (run under torch.no_grad(), or set "
-            "pallas_level=False)")
+def _forward(x, w, styles, dcoefs, noise, bias, act_gain, act_slope, clamp):
     if x.device.type == "cpu":
         return fused_modconv3x3_ref(x, w, styles, dcoefs, noise, bias,
                                     act_gain, act_slope, clamp)
@@ -202,6 +188,88 @@ def fused_modconv3x3(x, w, styles, dcoefs, noise, bias,
             torch.cuda.current_stream(x.device).cuda_stream), "conv")
     fused_modconv3x3.launches += 1
     return y
+
+
+def _act_grad(ypre, act_gain, act_slope, clamp):
+    """d act(ypre) / d ypre for the clamped scaled leaky ReLU."""
+    slope = torch.where(ypre >= 0, act_gain, act_gain * act_slope)
+    if clamp is not None:
+        a = act_gain * (torch.clamp_min(ypre, 0) + act_slope
+                        * torch.clamp_max(ypre, 0))
+        slope = torch.where(a.abs() < clamp, slope, 0.0)
+    return slope
+
+
+def fused_modconv3x3_bwd(x, w, styles, dcoefs, noise, bias, g, act_gain,
+                         act_slope, clamp, needs=(True,) * 6):
+    """The composed backward (pallas_modconv.py::_bwd) on the forward's
+    inputs and the output gradient ``g``: (dx, dw, dstyles, ddcoefs, dnoise,
+    dbias), dx in x's dtype and the rest in float32; a gradient whose
+    ``needs`` flag is False is None."""
+    f32 = torch.float32
+    s = styles.to(x.dtype)[:, :, None, None]
+    sx = x * s
+    # Recompute the pre-demodulation conv output u (flops for bytes).
+    u = F.conv2d(sx, w.to(x.dtype), padding=1)
+    ypre = u.to(f32) * dcoefs[:, :, None, None]
+    if noise is not None:
+        ypre = ypre + noise
+    ypre = ypre + bias.to(f32)[None, :, None, None]
+    gpre = g.to(f32) * _act_grad(ypre, act_gain, act_slope, clamp)
+    del ypre
+    dbias = gpre.sum(dim=(0, 2, 3)) if needs[5] else None
+    dnoise = (gpre.sum(dim=1, keepdim=True)
+              if noise is not None and needs[4] else None)
+    ddcoefs = (gpre * u.to(f32)).sum(dim=(2, 3)) if needs[3] else None
+    del u
+    du = (gpre * dcoefs[:, :, None, None]).to(x.dtype)
+    del gpre
+    dx = dstyles = dw = None
+    if needs[0] or needs[2]:
+        # dx through the conv: the transposed conv (stride 1, pad 1).
+        dsx = F.conv_transpose2d(du, w.to(x.dtype), padding=1)
+        dx = dsx * s if needs[0] else None
+        if needs[2]:
+            dstyles = (dsx.to(f32) * x.to(f32)).sum(dim=(2, 3))
+        del dsx
+    if needs[1]:
+        # dW[o,i,ky,kx] = sum_{n,h,w} sx[n,i,h+ky-1,w+kx-1] du[n,o,h,w], fp32.
+        dw = torch.nn.grad.conv2d_weight(sx.to(f32), tuple(w.shape),
+                                         du.to(f32), padding=1)
+    return dx, dw, dstyles, ddcoefs, dnoise, dbias
+
+
+class _FusedModconv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, styles, dcoefs, noise, bias, act_gain, act_slope,
+                clamp):
+        ctx.save_for_backward(x, w, styles, dcoefs, noise, bias)
+        ctx.consts = (act_gain, act_slope, clamp)
+        return _forward(x, w, styles, dcoefs, noise, bias, act_gain,
+                        act_slope, clamp)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        # Named for profiler traces (the backward's kernels are stock ones).
+        with torch.profiler.record_function("fused_modconv3x3_bwd"):
+            grads = fused_modconv3x3_bwd(*ctx.saved_tensors, g, *ctx.consts,
+                                         needs=ctx.needs_input_grad[:6])
+        return grads + (None, None, None)
+
+
+def fused_modconv3x3(x, w, styles, dcoefs, noise, bias,
+                     act_gain=float(np.sqrt(2.0)), act_slope=LRELU_SLOPE,
+                     clamp: Optional[float] = 256.0) -> torch.Tensor:
+    """act(dcoef * conv3x3(styles * x, w) + noise + bias), fused.
+
+    x [N,C_in,H,W] float32 or bfloat16; w [C_out,C_in,3,3]; styles [N,C_in];
+    dcoefs [N,C_out] (ones for demodulate=False); noise [N,1,H,W] already
+    scaled by noise_strength, or None; bias [C_out]; all but x float32.
+    Differentiable once (the composed backward above).
+    """
+    return _FusedModconv3x3.apply(x, w, styles, dcoefs, noise, bias,
+                                  act_gain, act_slope, clamp)
 
 
 fused_modconv3x3.launches = 0      # fused levels launched since the last reset

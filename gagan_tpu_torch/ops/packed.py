@@ -1,6 +1,8 @@
 """Space-to-depth ("packed") convolutions for the highest-resolution synthesis
-block (port of the parts of gagan_tpu/ops/packed.py that the packed tail
-runs with ``packed_fused_torgb=True`` and ``packed_tail_blocks=1``).
+block and the discriminator's first blocks (port of the parts of
+gagan_tpu/ops/packed.py that the packed tail runs with
+``packed_fused_torgb=True`` and ``packed_tail_blocks=1``, and that the
+packed discriminator head runs).
 
 The tail is reformulated exactly on a 2x2-packed grid, [N, C, H, W] ->
 [N, 4C, H/2, W/2] with channel index (cell_row*2 + cell_col)*C + c:
@@ -9,7 +11,9 @@ The tail is reformulated exactly on a 2x2-packed grid, [N, C, H, W] ->
   * up=2 3x3 conv + FIR        -> one 3x3 conv from the unpacked low-res
     input straight to the packed high-res output;
   * torgb 1x1 + depth-to-space -> one input-dilated 2x2 conv to the image;
-  * FIR 2x upsample            -> grouped 3x3 conv to packed cells.
+  * FIR 2x upsample            -> grouped 3x3 conv to packed cells;
+  * FIR + stride-2 3x3 / 1x1 conv (discriminator) -> one 3x3 conv from the
+    packed input to the unpacked output; fromrgb 1x1 -> cell-diagonal 1x1.
 
 The kernels are built from the ordinary weights by static index arithmetic
 (see the JAX module for the derivations).
@@ -18,8 +22,8 @@ The kernels are built from the ordinary weights by static index arithmetic
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from . import conv2d_gradfix
 from .conv2d_resample import lhs_dilated_conv2d
 
 
@@ -137,7 +141,8 @@ def build_packed_fir_upsample(f: torch.Tensor, channels: int) -> torch.Tensor:
 def conv_packed(x: torch.Tensor, wp: torch.Tensor,
                 groups: int = 1) -> torch.Tensor:
     pad = (wp.shape[-1] - 1) // 2
-    return F.conv2d(x, wp.to(x.dtype), padding=pad, groups=groups)
+    return conv2d_gradfix.conv2d(x, wp.to(x.dtype), padding=pad,
+                                 groups=groups)
 
 
 def fir_upsample_packed(img: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
@@ -166,3 +171,61 @@ def conv_transposed_unpack(h: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """Apply a :func:`build_torgb_transposed` kernel: packed [N,4C,H,W] ->
     unpacked [N, img_ch, 2H, 2W] (input dilation 2, padding 1)."""
     return lhs_dilated_conv2d(h, k, 2, (1, 1))
+
+
+def _cell_slices(in_ch: int, p: int, q: int) -> slice:
+    return slice((p * 2 + q) * in_ch, (p * 2 + q + 1) * in_ch)
+
+
+def build_packed_downconv(w: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Composed (FIR + stride-2 3x3 conv) kernel, packed -> unpacked:
+    Wp [O, 4I, 3, 3] with conv(pack(x), Wp, pad 1) ==
+    conv2d_resample(x, w, f, down=2, padding=1, flip_weight=True)."""
+    if f.ndim != 1 or f.shape[0] != 4:
+        raise ValueError("4-tap separable FIR expected")
+    out_ch, in_ch = w.shape[0], w.shape[1]
+    f_flip = f.flip(0)
+    g = _kernel_conv2d(w, torch.outer(f_flip, f_flip))      # [O, I, 6, 6]
+    wp = w.new_zeros((out_ch, 4 * in_ch, 3, 3))
+    for p in range(2):
+        for q in range(2):
+            for d in (-1, 0, 1):
+                for e in (-1, 0, 1):
+                    cy, cx = 2 * d + p + 2, 2 * e + q + 2
+                    if 0 <= cy < 6 and 0 <= cx < 6:
+                        wp[:, _cell_slices(in_ch, p, q), d + 1, e + 1] = \
+                            g[:, :, cy, cx]
+    return wp
+
+
+def build_packed_down1x1(w: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Composed (FIR + down-2) kernel of a 1x1 conv (the resnet skip),
+    packed -> unpacked: Wp [O, 4I, 3, 3] with conv(pack(x), Wp, pad 1) ==
+    conv2d_resample(x, w, f, down=2, padding=0)."""
+    if f.ndim != 1 or f.shape[0] != 4:
+        raise ValueError("4-tap separable FIR expected")
+    out_ch, in_ch = w.shape[0], w.shape[1]
+    f_flip = f.flip(0)
+    g2 = torch.outer(f_flip, f_flip).to(w.dtype)             # [4, 4]
+    wp = w.new_zeros((out_ch, 4 * in_ch, 3, 3))
+    w11 = w[:, :, 0, 0]
+    for p in range(2):
+        for q in range(2):
+            for d in (-1, 0, 1):
+                for e in (-1, 0, 1):
+                    by, bx = 2 * d + p + 1, 2 * e + q + 1
+                    if 0 <= by < 4 and 0 <= bx < 4:
+                        wp[:, _cell_slices(in_ch, p, q), d + 1, e + 1] = \
+                            w11 * g2[by, bx]
+    return wp
+
+
+def build_packed_conv1x1(w: torch.Tensor) -> torch.Tensor:
+    """Cell-diagonal packed kernel of a 1x1 conv (fromrgb): w [O, I, 1, 1]
+    -> Wp [4O, 4I, 1, 1]."""
+    out_ch, in_ch = w.shape[0], w.shape[1]
+    wp = w.new_zeros((4 * out_ch, 4 * in_ch, 1, 1))
+    for cell in range(4):
+        wp[cell * out_ch:(cell + 1) * out_ch,
+           cell * in_ch:(cell + 1) * in_ch] = w
+    return wp

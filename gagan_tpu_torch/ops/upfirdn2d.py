@@ -2,7 +2,7 @@
 (port of gagan_tpu/ops/upfirdn2d.py).
 
 Each pass is zero-insert upsampling, padding (negative = crop) and one
-depthwise ``F.conv2d`` whose stride does the downsampling.  A separable
+depthwise convolution (ops/conv2d_gradfix.py) whose stride downsamples.  A separable
 filter runs as a width pass then a height pass, as in the JAX module, so the
 two packages sum in the same order.
 """
@@ -13,6 +13,8 @@ from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
+
+from . import conv2d_gradfix
 
 Filter = Optional[torch.Tensor]
 
@@ -86,7 +88,7 @@ def _depthwise_pass(x: torch.Tensor, k: torch.Tensor, up=(1, 1),
         x = x.reshape(n, c, h * upy, w * upx)
     x = F.pad(x, list(pad))
     k = k.to(x.dtype)[None, None].repeat(c, 1, 1, 1)
-    return F.conv2d(x, k, stride=down, groups=c)
+    return conv2d_gradfix.conv2d(x, k, stride=down, groups=c)
 
 
 def upfirdn2d(

@@ -34,6 +34,17 @@ def tree_to_flat(tree: Any) -> Dict[str, np.ndarray]:
     return out
 
 
+def tree_to_flat_tensors(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Nested dict of tensors -> {dotted key: the same tensor} (no copy)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(tree_to_flat_tensors(v, prefix + k + "."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
 def flat_to_tree(flat: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
     """{dotted key: array} -> nested dict of tensors on ``device``."""
     tree: Dict[str, Any] = {}

@@ -1,6 +1,7 @@
 """Config (de)serialization for the port's config dataclasses (port of
 gagan_tpu/utils/config.py).  The field names are the JAX package's, so a
-``g_cfg`` dict written by either package builds either config."""
+``g_cfg`` or ``d_cfg`` dict written by either package builds either
+config."""
 
 from __future__ import annotations
 
@@ -47,3 +48,15 @@ def generator_config_from_dict(data: Dict[str, Any]) -> sg2.GeneratorConfig:
     fields = {f.name for f in dataclasses.fields(sg2.GeneratorConfig)}
     return sg2.GeneratorConfig(**{k: v for k, v in kwargs.items()
                                   if k in fields})
+
+
+def discriminator_config_from_dict(
+        data: Dict[str, Any]) -> sg2.DiscriminatorConfig:
+    kwargs = dict(data)
+    if "mapping" in kwargs and isinstance(kwargs["mapping"], dict):
+        kwargs["mapping"] = from_dict(sg2.MappingConfig, kwargs["mapping"])
+    if "resample_filter" in kwargs:
+        kwargs["resample_filter"] = tuple(kwargs["resample_filter"])
+    fields = {f.name for f in dataclasses.fields(sg2.DiscriminatorConfig)}
+    return sg2.DiscriminatorConfig(**{k: v for k, v in kwargs.items()
+                                      if k in fields})

@@ -106,3 +106,61 @@ def test_config_dicts_are_identical():
     assert jconfig.to_dict(jcfg) == tconfig.to_dict(tcfg)
     assert tconfig.to_dict(tconfig.generator_config_from_dict(
         jconfig.to_dict(jcfg))) == jconfig.to_dict(jcfg)
+
+
+def _d_cfgs():
+    def build(m):
+        return m.DiscriminatorConfig(img_resolution=32, channel_base=512,
+                                     channel_max=32, num_fp16_res=1,
+                                     conv_clamp=256, packed_first_block=True)
+    return build(jsg), build(tsg)
+
+
+def test_training_snapshot_jax_to_torch(jax_flat, tmp_path):
+    """A JAX snapshot with G, D and G_ema loads into the port's modules."""
+    jg, tg = _cfgs()
+    jd, td = _d_cfgs()
+    d_flat = jck.tree_to_flat(jsg.init_discriminator(jax.random.PRNGKey(1),
+                                                     jd))
+    ema = {k: v + np.float32(1) for k, v in jax_flat.items()}
+    path = str(tmp_path / "train.npz")
+    jck.save_snapshot(path, g_params=jck.flat_to_tree(jax_flat),
+                      d_params=jck.flat_to_tree(d_flat),
+                      g_ema=jck.flat_to_tree(ema),
+                      config={"g_cfg": jconfig.to_dict(jg),
+                              "d_cfg": jconfig.to_dict(jd)})
+    trees, config = tck.load_snapshot(path)
+    assert tconfig.discriminator_config_from_dict(config["d_cfg"]) == td
+    G = tsg.Generator(tg, "cpu").load_flat(tck.tree_to_flat(trees["G"]))
+    D = tsg.Discriminator(td, "cpu").load_flat(tck.tree_to_flat(trees["D"]))
+    E = tsg.Generator(tg, "cpu").load_flat(tck.tree_to_flat(trees["G_ema"]))
+    for module, want in ((G, jax_flat), (D, d_flat), (E, ema)):
+        got = module.state_dict()
+        assert set(got) == set(want)
+        for k, v in want.items():
+            assert np.array_equal(got[k].numpy(), v), k
+
+
+def test_training_snapshot_torch_to_jax(tmp_path):
+    jg, tg = _cfgs()
+    jd, td = _d_cfgs()
+    G = tsg.Generator(tg, "cpu", seed=4)
+    D = tsg.Discriminator(td, "cpu", seed=5)
+    path = str(tmp_path / "train.npz")
+    tck.save_snapshot(path, g_params=G.params(), d_params=D.params(),
+                      g_ema=G.params(),
+                      config={"g_cfg": tconfig.to_dict(tg),
+                              "d_cfg": tconfig.to_dict(td)})
+    trees, config = jck.load_snapshot(path)
+    assert jconfig.discriminator_config_from_dict(config["d_cfg"]) == jd
+    want_d = jck.tree_to_flat(jsg.init_discriminator(jax.random.PRNGKey(0),
+                                                     jd))
+    for name, module in (("G", G), ("D", D), ("G_ema", G)):
+        got = jck.tree_to_flat(trees[name])
+        sd = module.state_dict()
+        assert set(got) == set(sd)
+        for k, v in got.items():
+            assert np.array_equal(v, sd[k].numpy()), k
+    assert set(jck.tree_to_flat(trees["D"])) == set(want_d)
+    for k, v in want_d.items():
+        assert jck.tree_to_flat(trees["D"])[k].shape == v.shape, k

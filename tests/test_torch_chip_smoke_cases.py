@@ -1,12 +1,15 @@
 """The kernel cases of chip_smoke.py, checked on the CPU: each lies inside
 the fused kernel's predicate, together they reach the kernel's edges, and
-the plain version runs at each case's shape (shrunk to one sample)."""
+the plain version runs at each case's shape (shrunk to one sample).  Also
+the train phase's configuration (the JAX training CLI's 1024^2 plan) and
+its control flow at a small size."""
 
 import pytest
 import torch
 
 import chip_smoke as cs
 from gagan_tpu_torch.ops import fused_modconv as fmc
+from gagan_tpu_torch.train import augment
 
 torch.set_num_threads(2)
 
@@ -47,3 +50,77 @@ def test_plain_version_runs_on_cpu(case):
     assert y.dtype == case.dtype
     assert tuple(y.shape) == (1, case.c_out, case.h, case.w)
     assert bool(torch.isfinite(y.float()).all())
+
+
+# ----------------------------------------------------------------------------
+# The train phase's configuration and control flow
+
+
+def test_train_configs_are_the_clis_1024_plan():
+    """entry.train_configs(32) is what the JAX training CLI builds for a
+    1024^2 run on one device (cli/train.py, --cfg auto, the defaults)."""
+    from gagan_tpu_torch import entry
+
+    g, d, t, a = entry.train_configs(cs.TRAIN_BATCH)
+    assert g == entry.entry_config() and g.synthesis.pallas_level
+    assert (d.architecture, d.channel_base, d.channel_max, d.num_fp16_res,
+            d.conv_clamp, d.mbstd_group_size, d.packed_first_block,
+            d.packed_head_blocks) == ("resnet", 32768, 512, 4, 256, 4, True, 1)
+    assert (t.g_lr, t.d_lr, t.ema_kimg, t.ema_rampup, t.ada_target,
+            t.batch_size, t.simultaneous_main) == (
+        0.002, 0.002, 10.0, 0.05, 0.6, 32, True)
+    assert t.loss.r1_gamma == pytest.approx(0.0002 * 1024 ** 2 / 32)
+    assert (t.accum_rounds, t.g_reg_accum_rounds, t.d_reg_accum_rounds) == (
+        4, 2, 4)
+    assert a == augment.make_config("bgc", compute_dtype="bfloat16")
+    for batch, cap, want in ((32, 8, 4), (32, 16, 2), (24, 16, 2),
+                             (20, 8, 4), (7, 8, 1)):
+        assert entry._rounds_for(batch, cap) == want
+    # Eight fused launches a variant: 2 levels a G forward x 4 rounds.
+    live = t.batch_size // t.accum_rounds
+    assert cs.expected_launches(g, live) * t.accum_rounds == 8
+    assert sum(cs.SCHEDULE.values()) == 16
+
+
+def test_train_phase_runs_on_cpu(monkeypatch):
+    """The train phase's control flow at 32x32 on the CPU: every check,
+    the GA round, the gradient comparison and the trace path (no CUDA
+    kernels there: 0 launches expected, device time not measured)."""
+    import dataclasses
+
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.train import train_step as ts
+
+    for fn in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+
+    def configs(batch):
+        g, d, t, a = entry.train_configs(batch, 32, 256)
+        return g, d, dataclasses.replace(
+            t, accum_rounds=2, g_reg_accum_rounds=2, d_reg_accum_rounds=2), a
+
+    def small_entry(device, batch, ada_p):
+        g, d, t, a = configs(batch)
+        _, state, inputs = entry.train_entry(
+            "cpu", batch=batch, img_resolution=32, channel_base=256,
+            ada_p=ada_p)
+        g_tx, d_tx, _, _ = ts.build_optimizers(t, state.g_params,
+                                               state.d_params)
+        pl = dataclasses.replace(g, synthesis=dataclasses.replace(
+            g.synthesis, pallas_level=False))
+        steps = {n: ts.make_fused_step(t, g, d, g_tx, d_tx,
+                                       augment.make_augment_fn(a),
+                                       do_g_reg=dg, do_d_reg=dd,
+                                       reg_g_cfg=pl if dg else None)
+                 for n, dg, dd in (("none", False, False),
+                                   ("greg", True, False),
+                                   ("both", True, True))}
+        return steps, state, inputs
+
+    monkeypatch.setattr(cs, "TRAIN_BATCH", 16)
+    monkeypatch.setattr(cs, "train_configs", configs)
+    monkeypatch.setattr(cs, "train_entry", small_entry)
+    launches, seconds, peak_mem, sec_per_batch = cs.train_phase("cpu")
+    assert launches == 0 and set(seconds) == set(cs.SCHEDULE)
+    assert sec_per_batch > 0

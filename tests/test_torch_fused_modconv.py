@@ -7,6 +7,7 @@ max|y|, since both sides fold the taps to bf16 and sum in fp32, so the sums
 differ in order only and round at most one ulp apart.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -72,17 +73,72 @@ def test_fold_taps_rounds_once_after_the_fp32_fold(dtype):
     assert torch.equal(taps, want)
 
 
+def _vjp_inputs(a, noise, tdt, jdt):
+    """The level's inputs and an output gradient, for both packages."""
+    rng = np.random.RandomState(7)
+    n, c, h, w = a["x"].shape
+    d = 1.0 / np.sqrt((a["s"][:, None, :] ** 2
+                       * (a["w"] ** 2).sum((2, 3))[None]).sum(-1) + 1e-8)
+    g = rng.randn(n, c, h, w).astype(np.float32)
+    arrays = [a["x"], a["w"], a["s"], d.astype(np.float32),
+              a["nz"] if noise else None, a["b"]]
+    jin = [None if v is None else jnp.asarray(v) for v in arrays]
+    jin[0] = jin[0].astype(jdt)
+    tin = [None if v is None else torch.from_numpy(v).requires_grad_()
+           for v in arrays]
+    tin[0] = torch.from_numpy(a["x"]).to(tdt).requires_grad_()
+    return jin, tin, g
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("noise", [True, False])
+def test_backward_matches_pallas_vjp(dtype, noise):
+    """The level's backward against jax.vjp of the Pallas custom VJP (its
+    forward interpreted).  float32: 1e-3 of each gradient's max|.|, the JAX
+    suite's gradient tolerance.  bfloat16: both sides round u, du and the
+    transposed conv's output to bf16 at the same places but sum the convs
+    in other orders, so a value may land a bf16 rounding (2^-8 relative)
+    apart and carry it into fp32 reductions: 2^-6 of max|.|."""
+    a = _inputs(n=2, c=128, h=6)
+    jdt, tdt = ((jnp.float32, torch.float32) if dtype == "float32"
+                else (jnp.bfloat16, torch.bfloat16))
+    jin, tin, g = _vjp_inputs(a, noise, tdt, jdt)
+    diff = [i for i, v in enumerate(jin) if v is not None]
+
+    def f(*args):
+        full = list(jin)
+        for i, v in zip(diff, args):
+            full[i] = v
+        return pmc.fused_modconv3x3(*full, clamp=3.0)
+
+    y, vjp = jax.vjp(f, *[jin[i] for i in diff])
+    want = vjp(jnp.asarray(g).astype(jdt))
+    got_y = fmc.fused_modconv3x3(*tin, clamp=3.0)
+    got_y.backward(torch.from_numpy(g).to(tdt))
+    assert float(jnp.mean(jnp.abs(y.astype(jnp.float32)) >= 3.0)) > 0.01
+    tol = 1e-3 if dtype == "float32" else 2.0 ** -6
+    for i, wv in zip(diff, want):
+        gt = tin[i].grad
+        assert gt.dtype == (tdt if i == 0 else torch.float32)
+        wv = np.asarray(wv.astype(jnp.float32))
+        np.testing.assert_allclose(gt.float().numpy(), wv, rtol=0,
+                                   atol=tol * np.abs(wv).max())
+
+
 def test_raises_on_requires_grad():
+    """The backward is first-order only, like the JAX custom VJP: a double
+    backward through the level raises instead of returning a wrong value;
+    a first-order backward and a forward without autograd are fine."""
     a = _inputs(n=1, h=4)
     x = torch.from_numpy(a["x"]).requires_grad_()
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fmc.fused_modconv_level(x, torch.from_numpy(a["w"]),
-                                torch.from_numpy(a["s"]),
-                                torch.from_numpy(a["b"]))
-    with torch.no_grad():       # a forward without autograd is fine
-        fmc.fused_modconv_level(x, torch.from_numpy(a["w"]),
-                                torch.from_numpy(a["s"]),
-                                torch.from_numpy(a["b"]))
+    args = (torch.from_numpy(a["w"]), torch.from_numpy(a["s"]),
+            torch.from_numpy(a["b"]))
+    y = fmc.fused_modconv_level(x, *args)
+    (gx,) = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        gx.sum().backward()
+    with torch.no_grad():
+        fmc.fused_modconv_level(x, *args)
 
 
 def test_cpu_tensors_never_take_the_cuda_path(monkeypatch):

@@ -48,7 +48,11 @@ def test_port_imports_with_jax_blocked():
             "sys.modules['gagan_tpu'] = None\n"
             "import gagan_tpu_torch, gagan_tpu_torch.models.stylegan2, "
             "gagan_tpu_torch.ops.fused_modconv, gagan_tpu_torch.cli.generate, "
-            "gagan_tpu_torch.entry\n"
+            "gagan_tpu_torch.entry, gagan_tpu_torch.train.augment, "
+            "gagan_tpu_torch.train.gan_loss, gagan_tpu_torch.train.masks, "
+            "gagan_tpu_torch.train.train_step, gagan_tpu_torch.ga, "
+            "gagan_tpu_torch.ga.refine, gagan_tpu_torch.utils.rng, "
+            "gagan_tpu_torch.utils.config\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -65,6 +69,8 @@ def test_entry_refuses_cpu_fallback():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.train_entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

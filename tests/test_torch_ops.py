@@ -2,9 +2,11 @@
 (gagan_tpu.ops) on the same numpy-seeded inputs, on the CPU.
 
 Forward tolerance 2e-4 (the JAX suite's own); the two frameworks sum
-convolutions in different orders, nothing else differs in float32.
+convolutions in different orders, nothing else differs in float32.  The
+gradients (end of file) are held to 1e-3 of max|grad|, the suite's own.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -275,3 +277,164 @@ def test_packed_upconv_is_exact_reformulation():
     got = tpk.conv_packed(x, tpk.build_packed_upconv(w, taps))
     np.testing.assert_allclose(got.numpy(), tpk.pack(ref).numpy(),
                                rtol=TOL, atol=TOL)
+
+
+# ----------------------------------------------------------------------------
+# Gradients (the train step differentiates every op above, PL and R1 twice):
+# d sum(w * op(x)) with respect to every input, against jax.grad, 1e-3 of
+# each gradient's max|.| (the JAX suite's gradient tolerance).
+
+
+def _grad_close(fn_t, fn_j, arrays, seed):
+    """Gradients of sum(w * fn(*arrays)) in both packages."""
+    out_shape = np.asarray(fn_j(*[jnp.asarray(a) for a in arrays])).shape
+    wts = np.random.RandomState(seed).randn(*out_shape).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(fn_j(*a) * wts),
+                    argnums=tuple(range(len(arrays))))(
+        *[jnp.asarray(a) for a in arrays])
+    ts = [torch.from_numpy(a).requires_grad_() for a in arrays]
+    (fn_t(*ts) * torch.from_numpy(wts)).sum().backward()
+    for t, w in zip(ts, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=0,
+                                   atol=1e-3 * max(np.abs(w).max(), 1e-12))
+
+
+@pytest.mark.parametrize("up,down,padding", [(1, 1, 1), (2, 1, 1), (1, 2, 1),
+                                             (2, 2, (1, 2, 0, -1))])
+def test_upfirdn2d_grad(up, down, padding):
+    x = np.random.RandomState(20).randn(2, 3, 10, 10).astype(np.float32)
+    f = [1.0, 3.0, 3.0, 1.0]
+    _grad_close(
+        lambda x: tud.upfirdn2d(x, tud.setup_filter(f), up=up, down=down,
+                                padding=padding),
+        lambda x: jops.upfirdn2d(x, jops.setup_filter(f), up=up, down=down,
+                                 padding=padding), [x], 21)
+
+
+@pytest.mark.parametrize("kernel,up,down,flip_weight", [
+    (3, 1, 1, True), (3, 2, 1, False), (3, 1, 2, True), (1, 1, 2, True),
+    (1, 2, 1, False)])
+def test_conv2d_resample_grad(kernel, up, down, flip_weight):
+    rng = np.random.RandomState(22)
+    x = rng.randn(2, 4, 12, 12).astype(np.float32)
+    w = rng.randn(5, 4, kernel, kernel).astype(np.float32)
+    f = [1, 3, 3, 1]
+    _grad_close(
+        lambda x, w: tcr.conv2d_resample(x, w, f=tud.setup_filter(f), up=up,
+                                         down=down, padding=kernel // 2,
+                                         flip_weight=flip_weight),
+        lambda x, w: jops.conv2d_resample(x, w, f=jops.setup_filter(f), up=up,
+                                          down=down, padding=kernel // 2,
+                                          flip_weight=flip_weight),
+        [x, w], 23)
+
+
+@pytest.mark.parametrize("act,clamp", [("lrelu", 0.5), ("lrelu", None),
+                                       ("linear", 0.3)])
+def test_bias_act_grad(act, clamp):
+    rng = np.random.RandomState(24)
+    x = rng.randn(3, 6, 5, 5).astype(np.float32)
+    b = rng.randn(6).astype(np.float32)
+    _grad_close(lambda x, b: tba.bias_act(x, b, act=act, clamp=clamp),
+                lambda x, b: jops.bias_act(x, b, act=act, clamp=clamp),
+                [x, b], 25)
+
+
+@pytest.mark.parametrize("up,demodulate", [(1, True), (2, True), (1, False)])
+def test_modulated_conv2d_grad(up, demodulate):
+    rng = np.random.RandomState(26)
+    x = rng.randn(2, 5, 8, 8).astype(np.float32)
+    w = rng.randn(6, 5, 3, 3).astype(np.float32)
+    s = (rng.randn(2, 5) * 0.3 + 1).astype(np.float32)
+    f = [1, 3, 3, 1]
+    kw = dict(up=up, padding=1, demodulate=demodulate, flip_weight=up == 1)
+    _grad_close(
+        lambda x, w, s: tmc.modulated_conv2d(
+            x, w, s, resample_filter=tud.setup_filter(f) if up > 1 else None,
+            **kw),
+        lambda x, w, s: jops.modulated_conv2d(
+            x, w, s, resample_filter=jops.setup_filter(f) if up > 1 else None,
+            **kw), [x, w, s], 27)
+
+
+@pytest.mark.parametrize("which", ["conv3x3", "upconv", "downconv",
+                                   "down1x1", "conv1x1", "torgb"])
+def test_packed_conv_grad(which):
+    rng = np.random.RandomState(28)
+    f = np.asarray([1, 3, 3, 1], np.float32) / 8
+    tf, jf = torch.from_numpy(f), jnp.asarray(f)
+    x = rng.randn(2, 4, 8, 8).astype(np.float32)
+    if which in ("conv3x3", "downconv"):
+        w = rng.randn(3, 4, 3, 3).astype(np.float32)
+    elif which == "upconv":
+        w = rng.randn(3, 4, 3, 3).astype(np.float32)
+    elif which == "torgb":
+        x = rng.randn(2, 16, 4, 4).astype(np.float32)
+        w = rng.randn(3, 4).astype(np.float32)
+    else:
+        w = rng.randn(3, 4, 1, 1).astype(np.float32)
+    build_t = {"conv3x3": tpk.build_packed_conv3x3,
+               "upconv": lambda w: tpk.build_packed_upconv(w, tf),
+               "downconv": lambda w: tpk.build_packed_downconv(w, tf),
+               "down1x1": lambda w: tpk.build_packed_down1x1(w, tf),
+               "conv1x1": tpk.build_packed_conv1x1,
+               "torgb": tpk.build_torgb_transposed}[which]
+    build_j = {"conv3x3": jpk.build_packed_conv3x3,
+               "upconv": lambda w: jpk.build_packed_upconv(w, jf),
+               "downconv": lambda w: jpk.build_packed_downconv(w, jf),
+               "down1x1": lambda w: jpk.build_packed_down1x1(w, jf),
+               "conv1x1": jpk.build_packed_conv1x1,
+               "torgb": jpk.build_torgb_transposed}[which]
+    if which == "torgb":
+        fn_t = lambda x, w: tpk.conv_transposed_unpack(x, build_t(w))  # noqa
+        fn_j = lambda x, w: jpk.conv_transposed_unpack(x, build_j(w))  # noqa
+    elif which == "upconv":
+        fn_t = lambda x, w: tpk.conv_packed(x, build_t(w))  # noqa
+        fn_j = lambda x, w: jpk.conv_packed(x, build_j(w))  # noqa
+    else:
+        fn_t = lambda x, w: tpk.conv_packed(tpk.pack(x), build_t(w))  # noqa
+        fn_j = lambda x, w: jpk.conv_packed(jpk.pack(x), build_j(w))  # noqa
+    _grad_close(fn_t, fn_j, [x, w], 29)
+
+
+# ----------------------------------------------------------------------------
+# conv2d_gradfix: the stock convolution's values and gradients, to second
+# order (float64, so only the algorithm could differ: 1e-10).
+
+
+@pytest.mark.parametrize("transposed,stride,padding,groups", [
+    (False, 1, 1, 1), (False, 2, 1, 1), (False, 1, 0, 3), (True, 2, 1, 1),
+    (True, 2, 0, 3), (True, 1, 1, 1)])
+def test_conv2d_gradfix_matches_stock_to_second_order(transposed, stride,
+                                                      padding, groups):
+    from gagan_tpu_torch.ops import conv2d_gradfix as gf
+
+    rng = np.random.RandomState(30)
+    x = torch.from_numpy(rng.randn(2, 6, 7, 7)).requires_grad_()
+    # [C_out, C_in / groups, 3, 3], or [C_in, C_out / groups, 3, 3]
+    # transposed: 6 channels in and out either way.
+    w = torch.from_numpy(rng.randn(6, 6 // groups, 3, 3)).requires_grad_()
+    if transposed:
+        ours = lambda x, w: gf.conv_transpose2d(  # noqa: E731
+            x, w, stride=stride, padding=padding, output_padding=stride - 1,
+            groups=groups)
+        stock = lambda x, w: torch.nn.functional.conv_transpose2d(  # noqa
+            x, w, stride=stride, padding=padding, output_padding=stride - 1,
+            groups=groups)
+    else:
+        ours = lambda x, w: gf.conv2d(x, w, stride=stride, padding=padding,  # noqa
+                                      groups=groups)
+        stock = lambda x, w: torch.nn.functional.conv2d(  # noqa: E731
+            x, w, stride=stride, padding=padding, groups=groups)
+    results = []
+    for fn in (ours, stock):
+        y = fn(x, w)
+        gx, gw = torch.autograd.grad(y.square().sum(), (x, w),
+                                     create_graph=True)
+        hx, hw = torch.autograd.grad(gx.square().sum() + gw.sin().sum(),
+                                     (x, w))
+        results.append((y, gx, gw, hx, hw))
+    for a, b in zip(*results):
+        np.testing.assert_allclose(a.detach().numpy(), b.detach().numpy(),
+                                   rtol=1e-10, atol=1e-10)
