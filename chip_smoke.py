@@ -28,7 +28,18 @@ no ok line):
                launches) then timed with its peak memory, the s/kimg of the
                schedule, one GA Dmain round, pallas vs composed gradients of
                one main round (TF32 off), one torch.profiler trace of a step;
-  7. a JSON line of the kernels, then the JSON ok line.
+  7. loop    - a training run as users start it, at FFHQ-1024 on 32 random
+               1024^2 PNGs (gagan_tpu_torch.cli.train, --cfg auto --batch 32
+               --kimg 1: 32 batches, R1 with a remat'd D): stats.jsonl, the
+               image grid, the network snapshot, the fused launches, the
+               loop's own sec/kimg and its wait on the loader; the PNG
+               decode rate (filter 0 and Paeth) on this host;
+  8. remat   - one Gmain+Dmain round and one R1 round at live batch 8 (TF32
+               off) with G and D remat'd and not: gradients against each
+               other, times, peak memory, fused launches;
+  9. cli     - on the loop's snapshot: generate --projected-w and
+               style_mixing, their PNGs and launch counts;
+ 10. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -38,12 +49,10 @@ import dataclasses
 import json
 import os
 import shutil
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -53,15 +62,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from gagan_tpu_torch import _build  # noqa: E402
-from gagan_tpu_torch.cli import generate  # noqa: E402
+from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
+from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
 from gagan_tpu_torch.entry import (entry, entry_config,  # noqa: E402
                                    train_configs, train_entry)
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
 from gagan_tpu_torch.train import augment, gan_loss  # noqa: E402
+from gagan_tpu_torch.train import loop as loop_lib  # noqa: E402
 from gagan_tpu_torch.train import train_step as ts  # noqa: E402
 from gagan_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from gagan_tpu_torch.utils import config as config_lib  # noqa: E402
+from gagan_tpu_torch.utils import png  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet, at 700 W):
 # bf16 tensor-core FLOP/s, fp32 (non-tensor) FLOP/s, HBM bytes/s.
@@ -71,6 +83,10 @@ TRAIN_BATCH = 32
 # The three step variants a run schedules and their weights per 16 batches
 # (Greg every 4, Dreg every 16): 12x none, 3x +Greg, 1x both.
 SCHEDULE = {"none": 12, "greg": 3, "both": 1}
+# The loop phase: a run of --kimg 1 at --batch 32 on this many 1024^2 PNGs.
+LOOP_RES, LOOP_BATCH, LOOP_IMAGES, LOOP_KIMG = 1024, 32, 32, 1
+REMAT_BATCH = 8
+DEVICE = "cuda"
 
 
 class Case(NamedTuple):
@@ -682,24 +698,6 @@ def trace_train_step(step, state, inputs, key, top=12):
           f"{bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)")
 
 
-def read_png(path):
-    """(width, height, raw scanlines) of an 8-bit RGB PNG."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
-        raise AssertionError(f"{path}: not a PNG")
-    pos, idat, size = 8, b"", None
-    while pos < len(data):
-        length, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        if tag == b"IHDR":
-            size = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + length
-    return size[0], size[1], zlib.decompress(idat)
-
-
 def cli_phase(params):
     phase("cli")
     with tempfile.TemporaryDirectory() as tmp:
@@ -714,14 +712,302 @@ def cli_phase(params):
         names = sorted(os.listdir(out))
         if names != ["seed0000.png", "seed0001.png"]:
             raise AssertionError(f"cli wrote {names}")
-        for name in names:
-            w, h, raw = read_png(os.path.join(out, name))
-            pixels = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)[:, 1:]
-            if (w, h) != (1024, 1024) or pixels.std() == 0:
-                raise AssertionError(f"{name}: {w}x{h}, std {pixels.std()}")
+        check_pngs(out, names, (1024, 1024, 3))
         print(f"cli: {names}, fused_modconv3x3 launches {launches}")
         if launches != 4:
             raise AssertionError(f"cli made {launches} kernel launches, not 4")
+    return launches
+
+
+def check_pngs(out, names, shape):
+    """Each PNG reads back at ``shape`` with some spread of values."""
+    for name in names:
+        img = png.read_png(os.path.join(out, name))
+        if img.shape != shape or img.std() == 0:
+            raise AssertionError(f"{name}: {img.shape}, std {img.std()}")
+
+
+class TimedLoader:
+    """The loop's loader with the host time spent waiting in ``next``."""
+
+    def __init__(self, inner):
+        self.inner, self.wait_s, self.batches = inner, 0.0, 0
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.inner)
+        self.wait_s += time.perf_counter() - t0
+        self.batches += 1
+        return batch
+
+    def close(self):
+        self.inner.close()
+
+
+def png_decode_rate(tmp, card):
+    """ms to decode one 1024^2 RGB PNG with filter 0 and with Paeth on every
+    row (utils/png.read_png, on this host's CPU)."""
+    img = np.random.RandomState(1).randint(0, 256, (1024, 1024, 3)).astype(
+        np.uint8)
+    for ft, label in ((0, "filter 0"), (4, "Paeth")):
+        path = os.path.join(tmp, f"decode{ft}.png")
+        png.write_png(path, img, level=1, filter_type=ft)
+        t0 = time.perf_counter()
+        got = png.read_png(path)
+        ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, img):
+            raise AssertionError(f"read_png ({label}) changed the pixels")
+        print(f"PNG decode, 1024x1024 RGB, {label}: {ms:.2f} ms "
+              f"({3 * 2 ** 20 / ms / 1e3:.2f} MB/s) on the host of {card}")
+
+
+def loop_phase(tmp, card, train_sec_per_kimg):
+    """A training run through the command users start, at FFHQ-1024 on
+    LOOP_IMAGES random PNGs, --kimg 1 at --batch 32: the loop's plan gives
+    main rounds of 8 (fused level in G's forward, 2 levels a round), Greg
+    rounds of 16 (pallas_level off) and R1 with a remat'd D.  Returns the
+    run dir, the fused launches and the loop's own sec/kimg."""
+    phase("loop")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    data, run_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
+    os.makedirs(data)
+    rng = np.random.RandomState(0)
+    for i in range(LOOP_IMAGES):
+        png.write_png(os.path.join(data, f"{i:05d}.png"), rng.randint(
+            0, 256, (LOOP_RES, LOOP_RES, 3)).astype(np.uint8), level=1)
+    loaders = []
+    orig_loader = loop_lib.data_loader
+
+    def timed_loader(*a, **k):
+        loaders.append(TimedLoader(orig_loader(*a, **k)))
+        return loaders[-1]
+
+    loop_lib.data_loader = timed_loader
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = train_cli.main([
+            "--data", data, "--outdir", run_dir, "--gpus", "1", "--cfg",
+            "auto", "--batch", str(LOOP_BATCH), "--kimg", str(LOOP_KIMG),
+            "--aug", "ada",
+            "--augpipe", "bgc", "--snap", "1", "--seed", "0", "--device",
+            DEVICE])
+        torch.cuda.synchronize()
+    finally:
+        loop_lib.data_loader = orig_loader
+    wall = time.perf_counter() - t0
+    launches = fmc.fused_modconv3x3.launches
+
+    run = train_cli.build_run(LOOP_RES, batch=LOOP_BATCH, kimg=LOOP_KIMG)
+    batches = state.cur_nimg // LOOP_BATCH
+    if (state.cur_nimg < 1000 * LOOP_KIMG or batches != loaders[0].batches
+            or state.cur_nimg != batches * LOOP_BATCH):
+        raise AssertionError(f"loop ended at {state.cur_nimg} images after "
+                             f"{loaders[0].batches} batches")
+    rounds = run.train_cfg.accum_rounds
+    live = LOOP_BATCH // rounds
+    grid_n = run.loop_cfg.grid_size[0] * run.loop_cfg.grid_size[1]
+    want = (expected_launches(run.g_cfg, live) * rounds * batches
+            + expected_launches(run.g_cfg, grid_n))
+    print(f"loop: {batches} batches, plan {json.dumps(run.plan())}, "
+          f"reg_remat {run.reg_remat}; fused_modconv3x3 launches {launches} "
+          f"(expected {want}: 2 levels x {rounds} main rounds x {batches} "
+          f"batches + 2 for the grid)")
+    if launches != want:
+        raise AssertionError(f"loop: {launches} launches, not {want}")
+
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    last = lines[-1]
+    need = ("Loss/G/loss", "Loss/D/loss", "Loss/signs/real",
+            "Progress/kimg", "Timing/sec_per_kimg", "Progress/augment")
+    if len(lines) != 1 or any(not np.isfinite(last.get(k, np.nan))
+                              for k in need):
+        raise AssertionError(f"stats.jsonl: {len(lines)} lines, {last}")
+    if (last["Progress/kimg"] != state.cur_nimg / 1e3
+            or not 0.0 <= last["Progress/augment"] <= 1.0):
+        raise AssertionError(f"stats.jsonl: {last}")
+    kimg = state.cur_nimg // 1000
+    gw, gh = run.loop_cfg.grid_size
+    check_pngs(run_dir, [f"fakes{kimg:06d}.png"],
+               (gh * LOOP_RES, gw * LOOP_RES, 3))
+    snap = os.path.join(run_dir, f"network-snapshot-{kimg:06d}.npz")
+    trees, config = ckpt.load_snapshot(snap)
+    for name, tree in (("G", state.g_params), ("D", state.d_params),
+                       ("G_ema", state.g_ema)):
+        if set(ckpt.tree_to_flat(trees[name])) != set(ckpt.tree_to_flat(tree)):
+            raise AssertionError(f"snapshot: {name} keys differ")
+    if (config_lib.generator_config_from_dict(config["g_cfg"]) != run.g_cfg
+            or config_lib.discriminator_config_from_dict(config["d_cfg"])
+            != run.d_cfg):
+        raise AssertionError("snapshot: configs differ from the run's")
+    wait = loaders[0].wait_s
+    sec_per_kimg = last["Timing/sec_per_kimg"]
+    print(f"loop {LOOP_RES}^2 batch {LOOP_BATCH}, one tick of {batches} "
+          f"batches: {sec_per_kimg:.4f} s/kimg (the loop's Timing/"
+          f"sec_per_kimg; the train phase's schedule: "
+          f"{train_sec_per_kimg:.4f} s/kimg); waited {wait:.4f} s on the "
+          f"loader ({100 * wait / wall:.2f}% of the command's {wall:.2f} s); "
+          f"the tick includes the first steps' warm-up; on {card}",
+          flush=True)
+    png_decode_rate(tmp, card)
+    return snap, launches, sec_per_kimg
+
+
+def remat_phase(card):
+    """One simultaneous Gmain+Dmain round and one R1 round at FFHQ-1024,
+    live batch 8, TF32 off, with G and D remat'd and not, on the same state
+    (noise strengths and biases non-zero, so the layer noise counts) and
+    the same draws.
+
+    Gradients: each variant runs twice with PyTorch's deterministic
+    algorithms asked for (``use_deterministic_algorithms``, warn only: an
+    op without a deterministic version runs as before).  A remat'd block
+    recomputes its forward with the same kernels on the same inputs (layer
+    noise from the same Rng key), so its gradients can differ from the
+    plain path's only as much as two runs of one variant differ: by the
+    summation order of the atomics that remain.  The bound is four times
+    the larger run-to-run difference plus 2^-14 (6e-5), relative L2 over
+    all G (all D) gradients; a recomputation on other values (other noise,
+    another block's input) errs by percents.  Then two runs of each
+    variant with the default algorithms, in the order plain, remat, remat,
+    plain, give its time and peak memory."""
+    import warnings
+
+    phase("remat")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, state, (real, _, z, _, key) = train_entry(DEVICE, batch=REMAT_BATCH,
+                                                 ada_p=0.2)
+    seeded_weights(state.g_params)
+    g_cfg, d_cfg, cfg, aug_cfg = train_configs(REMAT_BATCH)
+    augment_fn = augment.make_augment_fn(aug_cfg)
+    variants = {"plain": (g_cfg, d_cfg)}
+    variants["remat"] = (
+        dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+            g_cfg.synthesis, remat=True)),
+        dataclasses.replace(d_cfg, remat=True))
+    rounds = {
+        "main": lambda g, d: round_grads(lambda: gan_loss.gd_main_loss(
+            cfg.loss, g, d, state.g_params, state.d_params, real, None, z,
+            None, key, augment_fn, state.ada_p),
+            {"G": state.g_params, "D": state.d_params}),
+        "r1": lambda g, d: round_grads(lambda: gan_loss.d_r1_loss(
+            cfg.loss, d, state.d_params, real, None, key.fold_in(1),
+            augment_fn, state.ada_p), {"D": state.d_params}),
+    }
+    live = REMAT_BATCH
+    want_launches = {("main", "plain"): expected_launches(g_cfg, live),
+                     ("main", "remat"): 2 * expected_launches(g_cfg, live),
+                     ("r1", "plain"): 0, ("r1", "remat"): 0}
+    total_launches = 0
+
+    def run(rname, vname):
+        nonlocal total_launches
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fmc.fused_modconv3x3.launches = 0
+        t0 = time.perf_counter()
+        _, _, grads = rounds[rname](*variants[vname])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = fmc.fused_modconv3x3.launches
+        total_launches += launches
+        if launches != want_launches[rname, vname]:
+            raise AssertionError(f"remat {rname} {vname}: {launches} "
+                                 f"launches, not {want_launches[rname, vname]}")
+        return grads, seconds, torch.cuda.max_memory_allocated()
+
+    for rname in rounds:
+        grads = {}
+        cudnn_det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                for vname in variants:
+                    for rep in range(2):
+                        grads[vname, rep] = run(rname, vname)[0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+            torch.backends.cudnn.deterministic = cudnn_det
+        for group in ("G", "D"):
+            keys = [k for k in grads["plain", 0] if k.startswith(group + "/")]
+            if not keys:
+                continue
+            floor = max(rel_l2(grads[v, 1], grads[v, 0], keys)
+                        for v in variants)
+            err = rel_l2(grads["remat", 0], grads["plain", 0], keys)
+            bound = 4 * floor + 2 ** -14
+            print(f"remat {rname} round, {group} gradients (deterministic "
+                  f"algorithms): remat vs plain rel_l2 {err:.4g}; "
+                  f"run-to-run {floor:.4g}; bound {bound:.4g}")
+            if not err <= bound:
+                raise AssertionError(f"remat {rname}: {group} gradients "
+                                     f"differ from the plain path's")
+        del grads
+        timed = {v: [] for v in variants}
+        for vname in ("plain", "remat", "remat", "plain"):
+            timed[vname].append(run(rname, vname)[1:])
+        for vname, runs in timed.items():
+            secs = [t for t, _ in runs]
+            mem = max(m for _, m in runs)
+            print(f"remat {rname} round, {vname}: {np.mean(secs):.4f} s "
+                  f"(runs {', '.join(f'{t:.4f}' for t in secs)}), peak "
+                  f"memory {mem / 2 ** 30:.3f} GiB, fused launches "
+                  f"{want_launches[rname, vname]} (live batch {live}, TF32 "
+                  f"off, default algorithms) on {card}", flush=True)
+    return total_launches
+
+
+def cli_snapshot_phase(snap):
+    """generate --projected-w and style_mixing on the loop's snapshot."""
+    phase("cli (loop snapshot)")
+    tmp = os.path.dirname(snap)
+    trees, config = ckpt.load_snapshot(snap, device=DEVICE)
+    g_cfg = config_lib.generator_config_from_dict(config["g_cfg"])
+    z = torch.randn((2, g_cfg.z_dim), generator=torch.Generator().manual_seed(
+        4)).to(DEVICE)
+    with torch.no_grad():
+        ws = sg2.mapping_apply(g_cfg.mapping, trees["G_ema"]["mapping"], z)
+    wpath = os.path.join(tmp, "w.npz")
+    np.savez(wpath, w=ws.cpu().numpy())
+    res = g_cfg.img_resolution
+    one = expected_launches(g_cfg, 1)
+    styles = f"0-{min(6, g_cfg.num_ws - 1)}"          # 0-6 at 1024^2
+    total = 0
+    # generate: one forward a w; style mixing: the 3 seeds in one batch,
+    # then one forward per (row, col) pair.
+    for label, fn, args, names, want in (
+            ("generate --projected-w", generate.main,
+             ["--projected-w", wpath], ["proj00.png", "proj01.png"], 2 * one),
+            ("style_mixing --rows 0,1 --cols 2 --styles " + styles,
+             style_mixing.main,
+             ["--rows", "0,1", "--cols", "2", "--styles", styles],
+             ["0-0.png", "0-2.png", "1-1.png", "1-2.png", "2-2.png",
+              "grid.png"], expected_launches(g_cfg, 3) + 2 * one)):
+        out = os.path.join(tmp, label.split()[0])
+        fmc.fused_modconv3x3.launches = 0
+        fn(["--network", snap, "--outdir", out, "--device", DEVICE] + args)
+        torch.cuda.synchronize()
+        launches = fmc.fused_modconv3x3.launches
+        total += launches
+        if sorted(os.listdir(out)) != sorted(names):
+            raise AssertionError(f"{label} wrote {sorted(os.listdir(out))}")
+        check_pngs(out, [n for n in names if n != "grid.png"],
+                   (res, res, 3))
+        if "grid.png" in names:
+            check_pngs(out, ["grid.png"], (3 * res, 2 * res, 3))
+        print(f"{label}: {sorted(names)}, fused_modconv3x3 launches "
+              f"{launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"{label}: {launches} launches, not {want}")
+    return total
 
 
 def main():
@@ -729,16 +1015,26 @@ def main():
     build_phase()
     k = kernel_phase(peaks)
     params, launches = main_phase(card)
-    cli_phase(params)
+    cli_launches = cli_phase(params)
     del params
     torch.cuda.empty_cache()
     train_launches, seconds, peak_mem, sec_per_batch = train_phase(card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        snap, loop_launches, loop_sec_per_kimg = loop_phase(
+            tmp, card, sec_per_batch / TRAIN_BATCH * 1000)
+        torch.cuda.empty_cache()
+        remat_launches = remat_phase(card)
+        torch.cuda.empty_cache()
+        cli_launches += cli_snapshot_phase(snap)
+    by_path = {"forward": launches, "cli": cli_launches,
+               "train": train_launches, "loop": loop_launches,
+               "remat": remat_launches}
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
         replaces="gagan_tpu/ops/pallas_modconv.py:76",
-        launches=launches + train_launches,
-        launches_by_path={"forward": launches, "train": train_launches},
+        launches=sum(by_path.values()), launches_by_path=by_path,
         max_abs_err=k["max_abs_err"], ms=k["ms"],
         fold_ms=k["fold_ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by="operations" if k["flop_ms"] >= k["byte_ms"] else "bytes",
@@ -751,7 +1047,8 @@ def main():
           f"backward at the same shapes; train: s/step "
           f"{ {n: round(v, 4) for n, v in seconds.items()} }, peak GiB "
           f"{ {n: round(v / 2 ** 30, 3) for n, v in peak_mem.items()} }, "
-          f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg)")
+          f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg; loop: "
+          f"{loop_sec_per_kimg:.4f} s/kimg)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,24 @@
-"""Generate images from a snapshot (port of gagan_tpu/cli/generate.py, seeds
-path).
+"""Generate images from a snapshot (port of gagan_tpu/cli/generate.py).
 
     python -m gagan_tpu_torch.cli.generate --network snap.npz --seeds 0-3 \\
-        --outdir out [--trunc 0.7] [--noise-mode const] [--device cuda]
+        --outdir out [--trunc 0.7] [--noise-mode const] [--class 2] \\
+        [--device cuda]
+    python -m gagan_tpu_torch.cli.generate --network snap.npz \\
+        --projected-w w.npz --outdir out
 
 Per-seed ``z`` comes from ``np.random.RandomState(seed)`` as in the JAX CLI,
-so const-noise images match it.  PNGs are written by a small stdlib
-(zlib/struct) encoder.  Runs on CUDA unless ``--device cpu`` is given.
+so const-noise images match it; ``--noise-mode random`` draws each seed's
+noise from a generator seeded with the seed (torch cannot reproduce JAX's
+numbers).  ``--projected-w`` replays the ``w`` [N, num_ws, w_dim] array of an
+npz.  ``--s-direction`` / ``--s-scale`` (StyleSpace directions) are parsed
+and refused: the offsets hooks are not ported yet (ROADMAP item 11).  PNGs
+are written by utils/png.py.  Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import struct
-import zlib
 from typing import List, Optional
 
 import numpy as np
@@ -24,28 +28,9 @@ from .. import resolve_device
 from ..models import stylegan2 as sg2
 from ..utils import checkpoint as ckpt
 from ..utils import config as config_lib
+from ..utils.png import write_png
+from ..utils.rng import Rng
 from . import num_range
-
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """Write an [H, W, 3] uint8 array as an 8-bit RGB PNG."""
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
-        raise ValueError(f"expected [H, W, 3] uint8, got {img.dtype} "
-                         f"{img.shape}")
-    h, w, _ = img.shape
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body) & 0xFFFFFFFF))
-
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)],
-                          axis=1)                   # filter type 0 per row
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(chunk(b"IEND", b""))
 
 
 def to_uint8(img: torch.Tensor) -> np.ndarray:
@@ -63,28 +48,63 @@ def load_generator(network: str, device):
     return config_lib.generator_config_from_dict(config["g_cfg"]), params
 
 
+def refuse_directions() -> None:
+    """StyleSpace directions need the offsets hooks (ROADMAP item 11)."""
+    raise NotImplementedError(
+        "--s-direction / --s-scale (StyleSpace directions) need the offsets "
+        "hooks, which are not ported yet (ROADMAP item 11)")
+
+
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser(
         description="Generate images from a gagan snapshot (PyTorch port).")
-    ap.add_argument("--network", required=True, help="snapshot .npz")
-    ap.add_argument("--seeds", type=num_range, required=True,
-                    help="list of random seeds, e.g. 0,1,4-6")
+    ap.add_argument("--network", required=True, help="Snapshot .npz")
+    ap.add_argument("--seeds", type=num_range, default=None,
+                    help="List of random seeds, e.g. 0,1,4-6")
     ap.add_argument("--trunc", dest="truncation_psi", type=float, default=1.0)
+    ap.add_argument("--class", dest="class_idx", type=int, default=None)
     ap.add_argument("--noise-mode", choices=["const", "random", "none"],
                     default="const")
+    ap.add_argument("--projected-w", default=None,
+                    help="Replay projected W .npz")
+    ap.add_argument("--s-direction", default=None,
+                    help="StyleSpace direction (adaptation npz) to apply")
+    ap.add_argument("--s-scale", type=float, default=1.0)
     ap.add_argument("--outdir", required=True)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.s_direction is not None or args.s_scale != 1.0:
+        refuse_directions()
 
     device = resolve_device(args.device)
     g_cfg, params = load_generator(args.network, device)
-    if g_cfg.c_dim != 0:
-        raise NotImplementedError("conditional generators are not ported yet")
+    if args.projected_w is None and args.seeds is None:
+        ap.error("--seeds required without --projected-w")
+    label = None
+    if args.projected_w is None and g_cfg.c_dim != 0:
+        if args.class_idx is None:
+            ap.error("--class required for conditional nets")
+        label = torch.zeros((1, g_cfg.c_dim), device=device)
+        label[0, args.class_idx] = 1
     os.makedirs(args.outdir, exist_ok=True)
 
     with torch.no_grad():
+        if args.projected_w is not None:
+            ws = np.load(args.projected_w)["w"]
+            if ws.shape[1:] != (g_cfg.num_ws, g_cfg.w_dim):
+                raise ValueError(f"{args.projected_w}: w is {ws.shape}, not "
+                                 f"[N, {g_cfg.num_ws}, {g_cfg.w_dim}]")
+            for idx, w in enumerate(ws):
+                img = sg2.synthesis_apply(
+                    g_cfg.synthesis, params["synthesis"],
+                    torch.from_numpy(np.asarray(w, np.float32))[None].to(
+                        device), noise_mode=args.noise_mode,
+                    generator=Rng(0))
+                write_png(os.path.join(args.outdir, f"proj{idx:02d}.png"),
+                          to_uint8(img)[0])
+            return
         for seed_idx, seed in enumerate(args.seeds):
             print(f"Generating image for seed {seed} "
                   f"({seed_idx}/{len(args.seeds)}) ...")
@@ -92,7 +112,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                 np.random.RandomState(seed).randn(1, g_cfg.z_dim)).float()
             gen = torch.Generator(device).manual_seed(seed)
             img = sg2.generator_apply(
-                g_cfg, params, z.to(device),
+                g_cfg, params, z.to(device), c=label,
                 truncation_psi=args.truncation_psi,
                 noise_mode=args.noise_mode, generator=gen)
             write_png(os.path.join(args.outdir, f"seed{seed:04d}.png"),

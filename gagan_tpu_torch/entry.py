@@ -6,8 +6,8 @@
   (``pallas_level=True``).
 * :func:`train_entry`: the adversarial train step at FFHQ-1024 on one card,
   the one-device counterpart of ``__graft_entry__.dryrun_multichip`` at
-  full width, configured as the JAX package's training CLI configures a
-  1024^2 run (``cli/train.py``, ``--cfg auto``).
+  full width, configured by the port's training CLI's plan for a 1024^2 run
+  (``cli/train.py::build_run``, ``--cfg auto``).
 """
 
 from __future__ import annotations
@@ -19,7 +19,8 @@ import torch
 
 from . import resolve_device
 from .models import stylegan2 as sg2
-from .train import augment, gan_loss, train_step as ts
+from .cli import train as train_cli
+from .train import augment, train_step as ts
 from .utils.rng import Rng
 
 
@@ -50,48 +51,30 @@ def entry(device="cuda", batch: int = 4):
     return forward, (params, z)
 
 
-def _rounds_for(device_batch: int, cap: int) -> int:
-    """The fewest rounds that divide the batch with at most ``cap`` live
-    samples each (cli/train.py's auto plan)."""
-    r = -(-device_batch // cap)
-    while device_batch % r:
-        r += 1
-    return r
+def train_run(batch: int = 32, img_resolution: int = 1024,
+              channel_base: Optional[int] = None):
+    """The training CLI's run (``cli/train.py::build_run``, ``--cfg auto``,
+    the defaults) for ``batch`` RGB images at ``img_resolution``^2 on one
+    card; ``channel_base`` overrides both networks' (for small CPU runs)."""
+    run = train_cli.build_run(img_resolution, 3, 0, batch=batch)
+    if channel_base:
+        run = dataclasses.replace(
+            run, g_cfg=dataclasses.replace(
+                run.g_cfg, synthesis=dataclasses.replace(
+                    run.g_cfg.synthesis, channel_base=channel_base)),
+            d_cfg=dataclasses.replace(run.d_cfg, channel_base=channel_base))
+    return run
 
 
 def train_configs(batch: int = 32, img_resolution: int = 1024,
                   channel_base: Optional[int] = None):
-    """(g_cfg, d_cfg, train_cfg, augment_cfg) of a one-card ADA run, as the
-    JAX training CLI builds them (``--cfg auto``, simultaneous phases,
-    ``bgc`` augment): G is :func:`entry_config`; D is resnet with the packed
-    first block, bf16 in its 4 highest resolutions and conv_clamp 256; at
-    1024^2 and up the phases run in rounds of at most 8 live samples (Greg
-    16).  ``channel_base`` overrides both networks' (for small CPU runs)."""
-    res = img_resolution
-    cb = channel_base or int((1 if res >= 512 else 0.5) * 32768)
-    g_cfg = entry_config()
-    g_cfg = dataclasses.replace(
-        g_cfg, img_resolution=res, synthesis=dataclasses.replace(
-            g_cfg.synthesis, channel_base=cb, packed_last_block=res >= 64))
-    d_cfg = sg2.DiscriminatorConfig(
-        img_resolution=res, channel_base=cb, channel_max=512, num_fp16_res=4,
-        conv_clamp=256, mbstd_group_size=min(batch, 4),
-        packed_first_block=res >= 64)
-    rounds = (1, None, None)
-    if res >= 1024:
-        rounds = (_rounds_for(batch, 8), _rounds_for(batch, 16),
-                  _rounds_for(batch, 8))
-    train_cfg = ts.TrainConfig(
-        g_lr=0.002 if res >= 1024 else 0.0025,
-        d_lr=0.002 if res >= 1024 else 0.0025,
-        ema_kimg=batch * 10 / 32, ema_rampup=0.05, ada_target=0.6,
-        batch_size=batch, accum_rounds=rounds[0],
-        g_reg_accum_rounds=rounds[1], d_reg_accum_rounds=rounds[2],
-        loss=gan_loss.GANLossConfig(r1_gamma=0.0002 * res ** 2 / batch),
-        simultaneous_main=True)
-    augment_cfg = augment.make_config(
-        "bgc", compute_dtype="bfloat16" if res >= 256 else None)
-    return g_cfg, d_cfg, train_cfg, augment_cfg
+    """(g_cfg, d_cfg, train_cfg, augment_cfg) of :func:`train_run`: at
+    FFHQ-1024 and batch 32, G is :func:`entry_config` with the CLI's 2
+    mapping layers; D is resnet with the packed first block, bf16 in its 4
+    highest resolutions and conv_clamp 256; the phases run in rounds of at
+    most 8 live samples (Greg 16); the ADA pipe is ``bgc`` in bf16."""
+    run = train_run(batch, img_resolution, channel_base)
+    return run.g_cfg, run.d_cfg, run.train_cfg, run.augment_cfg
 
 
 def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
@@ -101,8 +84,10 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
     * ``steps``: the three step variants a run schedules, {"none": Gmain +
       Dmain, "greg": + Greg, "both": + Greg + Dreg} (Greg every 4 batches,
       Dreg every 16), each ``step(state, real, real_c, z, gen_c, key) ->
-      (state, metrics)``.  Greg runs with ``pallas_level=False``: the fused
-      level is differentiable once and the path length needs twice.
+      (state, metrics)``, as the training loop builds them.  Greg runs with
+      ``pallas_level=False``: the fused level is differentiable once and
+      the path length needs twice.  At 1024^2 the R1 phase runs a remat'd
+      D (the CLI's ``reg_remat``).
     * ``state``: random weights (G from seed 0, D from seed 1), Adam state,
       ``ada_p`` as given.
     * ``inputs``: (real images in [-1, 1], None, z, None, key), from seeds
@@ -110,8 +95,10 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
 
     Raises without CUDA unless ``device`` is 'cpu'."""
     device = resolve_device(device)
-    g_cfg, d_cfg, cfg, aug_cfg = train_configs(batch, img_resolution,
-                                               channel_base)
+    run = train_run(batch, img_resolution, channel_base)
+    g_cfg, d_cfg, cfg, aug_cfg = (run.g_cfg, run.d_cfg, run.train_cfg,
+                                  run.augment_cfg)
+    r1_d_cfg = dataclasses.replace(d_cfg, remat=True) if run.reg_remat else None
     g_params = sg2.init_generator(g_cfg, torch.Generator().manual_seed(0),
                                   device)
     d_params = sg2.init_discriminator(d_cfg, torch.Generator().manual_seed(1),
@@ -127,7 +114,8 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
                              ("both", True, True)):
         steps[name] = ts.make_fused_step(
             cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
-            do_g_reg=do_g, do_d_reg=do_d, reg_g_cfg=pl_g_cfg if do_g else None)
+            do_g_reg=do_g, do_d_reg=do_d, reg_g_cfg=pl_g_cfg if do_g else None,
+            reg_d_cfg=r1_d_cfg if do_d else None)
     gen = torch.Generator().manual_seed(2)
     res = g_cfg.img_resolution
     real = (torch.rand((batch, g_cfg.img_channels, res, res), generator=gen)

@@ -12,9 +12,12 @@ Levels that the JAX package sends to its Pallas kernel under
 ``SynthesisConfig.pallas_level`` go to the port's fused CUDA op
 (ops/fused_modconv.py) under the same flag and conditions, by shape only.
 
-Not in this module yet: layer hooks (adaptation), the discriminator's
-``spatial_constraint`` (multi-device) and ``remat``: the remat fields stay so
-that configs round-trip, and setting either raises ``NotImplementedError``.
+Block rematerialization (``remat`` / ``remat_min_res``) runs each chosen
+block under ``torch.utils.checkpoint``, as the JAX package wraps it in
+``jax.checkpoint``: the block's activations are dropped after the forward
+and recomputed in the backward, to first and second order.  Not in this
+module yet: layer hooks (adaptation) and the discriminator's
+``spatial_constraint`` (multi-device).
 ``noise_mode="random"`` draws each layer's noise from a key of the
 caller's :class:`~gagan_tpu_torch.utils.rng.Rng` (or a key drawn from a
 ``torch.Generator``), folded with the layer name as the JAX package folds
@@ -28,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from .. import resolve_device
@@ -94,8 +98,8 @@ class SynthesisConfig:
     # The port runs the packed tail with these two at their defaults only.
     packed_fused_torgb: bool = True
     packed_tail_blocks: int = 1
-    # Training memory options of the JAX package (block rematerialization);
-    # not ported yet: synthesis_apply raises when either is set.
+    # Block rematerialization (torch.utils.checkpoint): trades recompute for
+    # activation memory; remat_min_res remats only blocks at res >= it.
     remat: bool = False
     remat_min_res: Optional[int] = None
     # Route eligible stride-1 3x3 levels through the fused modconv op
@@ -163,7 +167,7 @@ class DiscriminatorConfig:
     mbstd_group_size: Optional[int] = 4
     mbstd_num_channels: int = 1
     freeze_layers: int = 0
-    # Not ported yet (see SynthesisConfig.remat): discriminator_apply raises.
+    # Block rematerialization, as SynthesisConfig.remat / remat_min_res.
     remat: bool = False
     remat_min_res: Optional[int] = None
     # Space-to-depth first block(s) (resnet only), as in the JAX package.
@@ -492,11 +496,21 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
     return upsample2d(img, taps) + y
 
 
-def _refuse_remat(cfg):
-    if cfg.remat or cfg.remat_min_res is not None:
-        raise NotImplementedError(
-            "remat / remat_min_res are not ported yet (block "
-            "rematerialization, a training memory option); unset them")
+def _want_remat(cfg, res: int) -> bool:
+    """Block-level remat decision: cfg.remat remats everything;
+    cfg.remat_min_res remats only blocks at res >= the threshold."""
+    if cfg.remat:
+        return True
+    return cfg.remat_min_res is not None and res >= cfg.remat_min_res
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` with its activations recomputed in the backward.  The
+    blocks draw no random numbers of their own (layer noise comes from an
+    ``Rng`` key fixed before the block), so the recomputation sees the same
+    values without saving the global RNG state."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
@@ -509,7 +523,6 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
     if noise_mode not in ("random", "const", "none"):
         raise ValueError(f"noise_mode must be random, const or none, "
                          f"got {noise_mode!r}")
-    _refuse_remat(cfg)
     rng = generator
     if noise_mode == "random":
         if generator is None:
@@ -543,21 +556,36 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
         w_idx += num_conv
 
         if res == tail_res:
-            return _packed_tail(cfg, block, res, block_ws, x, img, noise_mode,
-                                rng, dtype)
-        if res == 4:
-            x = block["const"].to(dtype)[None].repeat(batch, 1, 1, 1)
+            def tail_fn(block, x, img, block_ws, res=res, dtype=dtype):
+                return _packed_tail(cfg, block, res, block_ws, x, img,
+                                    noise_mode, rng, dtype)
+            if _want_remat(cfg, res):
+                return _remat(tail_fn, block, x, img, block_ws)
+            return tail_fn(block, x, img, block_ws)
+
+        def block_fn(block, x, img, block_ws, res=res, dtype=dtype,
+                     num_conv=num_conv):
+            if res == 4:
+                x = block["const"].to(dtype)[None].repeat(batch, 1, 1, 1)
+            else:
+                x = synthesis_layer_apply(cfg, block["conv0"], x.to(dtype),
+                                          block_ws[0], res, 2,
+                                          resample_filter, f"b{res}.conv0",
+                                          noise_mode, rng)
+            x = synthesis_layer_apply(cfg, block["conv1"], x,
+                                      block_ws[num_conv - 1], res, 1,
+                                      resample_filter, f"b{res}.conv1",
+                                      noise_mode, rng)
+            if img is not None:
+                img = upsample2d(img, resample_filter)
+            y = torgb_layer_apply(cfg, block["torgb"], x,
+                                  block_ws[num_conv]).float()
+            return x, (y if img is None else img + y)
+
+        if _want_remat(cfg, res):
+            x, img = _remat(block_fn, block, x, img, block_ws)
         else:
-            x = synthesis_layer_apply(cfg, block["conv0"], x.to(dtype),
-                                      block_ws[0], res, 2, resample_filter,
-                                      f"b{res}.conv0", noise_mode, rng)
-        x = synthesis_layer_apply(cfg, block["conv1"], x, block_ws[num_conv - 1],
-                                  res, 1, resample_filter, f"b{res}.conv1",
-                                  noise_mode, rng)
-        if img is not None:
-            img = upsample2d(img, resample_filter)
-        y = torgb_layer_apply(cfg, block["torgb"], x, block_ws[num_conv]).float()
-        img = y if img is None else img + y
+            x, img = block_fn(block, x, img, block_ws)
     return img
 
 
@@ -669,30 +697,41 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
         raise NotImplementedError(
             "spatial_constraint (spatial sharding over several devices) is "
             "not ported")
-    _refuse_remat(cfg)
     resample_filter = setup_filter(cfg.resample_filter, device=img.device)
     spec = activation_funcs[cfg.activation]
+
+    def first_block_packed(block, img, dtype):
+        """fromrgb 1x1 as a cell-diagonal conv on pack(img), then the
+        packed conv0/conv1/skip core."""
+        w = pk.build_packed_conv1x1(_equalized(block["fromrgb"]["weight"]))
+        h = pk.conv_packed(pk.pack(img.to(dtype)), w.to(dtype))
+        h = bias_act(h, pk.pack_channel_tile(
+            block["fromrgb"]["bias"]).to(h.dtype), act=cfg.activation,
+            gain=spec.def_gain, clamp=cfg.conv_clamp)
+        return _packed_res_core(cfg, block, h, dtype)
+
+    def head_block_packed(block, x, dtype):
+        return _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype)
+
+    def d_block(block, x, img, dtype):
+        return _d_block(cfg, block, x, img, resample_filter, dtype)
+
     x = None
     for bi, res in enumerate(cfg.block_resolutions):
         block = params[f"b{res}"]
         dtype = (torch.bfloat16 if res >= cfg.bf16_resolution and not force_fp32
                  else torch.float32)
+        run = _remat if _want_remat(cfg, res) else (lambda fn, *a: fn(*a))
         packed_ok = (cfg.packed_first_block and res > 4
                      and cfg.architecture == "resnet"
                      and bi < cfg.packed_head_blocks)
         if packed_ok and res == cfg.img_resolution:
-            # First block: fromrgb 1x1 as a cell-diagonal conv on pack(img).
-            w = pk.build_packed_conv1x1(_equalized(block["fromrgb"]["weight"]))
-            h = pk.conv_packed(pk.pack(img.to(dtype)), w.to(dtype))
-            h = bias_act(h, pk.pack_channel_tile(
-                block["fromrgb"]["bias"]).to(h.dtype), act=cfg.activation,
-                gain=spec.def_gain, clamp=cfg.conv_clamp)
-            x = _packed_res_core(cfg, block, h, dtype)
+            x = run(first_block_packed, block, img, dtype)
             img = None
         elif packed_ok:
-            x = _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype)
+            x = run(head_block_packed, block, x, dtype)
         else:
-            x, img = _d_block(cfg, block, x, img, resample_filter, dtype)
+            x, img = run(d_block, block, x, img, dtype)
 
     cmap = None
     if cfg.c_dim > 0:

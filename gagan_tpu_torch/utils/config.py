@@ -60,3 +60,22 @@ def discriminator_config_from_dict(
     fields = {f.name for f in dataclasses.fields(sg2.DiscriminatorConfig)}
     return sg2.DiscriminatorConfig(**{k: v for k, v in kwargs.items()
                                       if k in fields})
+
+
+def apply_dotlist(data: Dict[str, Any], overrides) -> Dict[str, Any]:
+    """Apply ``key.path=value`` overrides to a nested dict in place (values
+    parsed as Python literals where they parse, else kept as strings)."""
+    import ast
+
+    for item in overrides:
+        key, _, raw = item.partition("=")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        node = data
+        parts = key.split(".")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return data

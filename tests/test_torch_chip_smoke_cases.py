@@ -4,6 +4,8 @@ the plain version runs at each case's shape (shrunk to one sample).  Also
 the train phase's configuration (the JAX training CLI's 1024^2 plan) and
 its control flow at a small size."""
 
+import os
+
 import pytest
 import torch
 
@@ -57,25 +59,39 @@ def test_plain_version_runs_on_cpu(case):
 
 
 def test_train_configs_are_the_clis_1024_plan():
-    """entry.train_configs(32) is what the JAX training CLI builds for a
-    1024^2 run on one device (cli/train.py, --cfg auto, the defaults)."""
+    """entry.train_configs(32) is what the training CLI builds for a
+    1024^2 run on one device (cli/train.py, --cfg auto, the defaults): the
+    forward's G with the CLI's 2 mapping layers."""
+    import dataclasses
+
     from gagan_tpu_torch import entry
+    from gagan_tpu_torch.cli import train as train_cli
+    from gagan_tpu_torch.models import stylegan2 as sg2
 
     g, d, t, a = entry.train_configs(cs.TRAIN_BATCH)
-    assert g == entry.entry_config() and g.synthesis.pallas_level
+    assert g == dataclasses.replace(
+        entry.entry_config(), mapping=sg2.MappingConfig(num_layers=2))
+    assert g.synthesis.pallas_level
+    run = train_cli.build_run(1024, batch=cs.TRAIN_BATCH)
+    assert (g, d, t, a) == (run.g_cfg, run.d_cfg, run.train_cfg,
+                            run.augment_cfg)
+    assert run.reg_remat and not run.main_remat
     assert (d.architecture, d.channel_base, d.channel_max, d.num_fp16_res,
             d.conv_clamp, d.mbstd_group_size, d.packed_first_block,
             d.packed_head_blocks) == ("resnet", 32768, 512, 4, 256, 4, True, 1)
+    # --cfg auto derives gamma and the EMA length from its own batch at
+    # 1024^2 (4096 // 1024 = 4) before --batch 32 replaces the batch, as
+    # the JAX command does (gagan_tpu/cli/train.py:148-158).
     assert (t.g_lr, t.d_lr, t.ema_kimg, t.ema_rampup, t.ada_target,
             t.batch_size, t.simultaneous_main) == (
-        0.002, 0.002, 10.0, 0.05, 0.6, 32, True)
-    assert t.loss.r1_gamma == pytest.approx(0.0002 * 1024 ** 2 / 32)
+        0.002, 0.002, 1.25, 0.05, 0.6, 32, True)
+    assert t.loss.r1_gamma == pytest.approx(0.0002 * 1024 ** 2 / 4)
     assert (t.accum_rounds, t.g_reg_accum_rounds, t.d_reg_accum_rounds) == (
         4, 2, 4)
     assert a == augment.make_config("bgc", compute_dtype="bfloat16")
     for batch, cap, want in ((32, 8, 4), (32, 16, 2), (24, 16, 2),
                              (20, 8, 4), (7, 8, 1)):
-        assert entry._rounds_for(batch, cap) == want
+        assert train_cli.rounds_for(batch, cap) == want
     # Eight fused launches a variant: 2 levels a G forward x 4 rounds.
     live = t.batch_size // t.accum_rounds
     assert cs.expected_launches(g, live) * t.accum_rounds == 8
@@ -124,3 +140,45 @@ def test_train_phase_runs_on_cpu(monkeypatch):
     launches, seconds, peak_mem, sec_per_batch = cs.train_phase("cpu")
     assert launches == 0 and set(seconds) == set(cs.SCHEDULE)
     assert sec_per_batch > 0
+
+
+# ----------------------------------------------------------------------------
+# The loop, remat and snapshot-cli phases' control flow
+
+
+def test_loop_remat_cli_phases_run_on_cpu(monkeypatch, tmp_path):
+    """The three phases after the train phase, on the CPU at a small size:
+    the loop through the training command (16^2, batch 4, --kimg 0: one
+    batch with both reg phases, one tick), the remat comparison on the
+    train phase's small configs, and generate / style_mixing on the loop's
+    snapshot.  No CUDA kernels here: every expected launch count is 0."""
+    import dataclasses
+
+    from gagan_tpu_torch import entry
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    for name, value in (("DEVICE", "cpu"), ("LOOP_RES", 16),
+                        ("LOOP_BATCH", 4), ("LOOP_IMAGES", 5),
+                        ("LOOP_KIMG", 0), ("REMAT_BATCH", 4)):
+        monkeypatch.setattr(cs, name, value)
+
+    def configs(batch):
+        g, d, t, a = entry.train_configs(batch, 32, 256)
+        return g, d, t, a
+
+    monkeypatch.setattr(cs, "train_configs", configs)
+    monkeypatch.setattr(cs, "train_entry", lambda device, batch, ada_p:
+                        entry.train_entry(device, batch=batch,
+                                          img_resolution=32, channel_base=256,
+                                          ada_p=ada_p))
+    snap, launches, sec_per_kimg = cs.loop_phase(str(tmp_path), "cpu", 1.0)
+    assert launches == 0 and sec_per_kimg > 0
+    assert os.path.basename(snap) == "network-snapshot-000000.npz"
+    assert cs.remat_phase("cpu") == 0
+    assert cs.cli_snapshot_phase(snap) == 0
+    assert {"proj00.png", "grid.png"} <= set(
+        os.listdir(tmp_path / "run" / "generate")) | set(
+        os.listdir(tmp_path / "run" / "style_mixing"))

@@ -62,6 +62,40 @@ def test_port_imports_with_jax_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def _port_modules():
+    mods = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)[:-3].replace(os.sep, ".")
+        if rel != "chip_smoke":
+            mods.append(rel[:-len(".__init__")] if rel.endswith(".__init__")
+                        else rel)
+    return mods
+
+
+def test_port_imports_with_pil_and_click_blocked():
+    """The card's machine has neither Pillow nor click: every module of the
+    port imports without them (and without JAX)."""
+    mods = _port_modules()
+    assert {"gagan_tpu_torch.train.loop", "gagan_tpu_torch.cli.train",
+            "gagan_tpu_torch.cli.style_mixing", "gagan_tpu_torch.data.dataset",
+            "gagan_tpu_torch.utils.png", "gagan_tpu_torch.utils.stats",
+            "gagan_tpu_torch.utils.observability",
+            "gagan_tpu_torch.utils.registry"} <= set(mods)
+    code = ("import importlib, sys\n"
+            "for m in ('PIL', 'click', 'jax', 'gagan_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "assert 'triton' not in sys.modules\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_entry_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
