@@ -39,7 +39,20 @@ no ok line):
                other, times, peak memory, fused launches;
   9. cli     - on the loop's snapshot: generate --projected-w and
                style_mixing, their PNGs and launch counts;
- 10. a JSON line of the kernels, then the JSON ok line.
+ 10. adapt   - one-shot CLIP adaptation (StyleGAN-NADA td_single, s_delta
+               offsets) at FFHQ-1024 with a random ViT-B/32 of the real shape
+               and the byte tokenizer: cli/adapt.py on
+               configs/td_nada_sdelta.yaml for 21 steps (losses.jsonl at
+               steps 0, 10, 20, the step-20 checkpoint, 2 fused launches a
+               step, the level's backward asked for no weight gradient, the
+               frozen G and CLIP without .grad); generate --s-direction
+               (scale 0 byte-equal to plain generation, the trained offsets
+               not); pallas vs composed offset gradients of one step (TF32
+               off); steps/s of bench.py's adaptation shape (ViT-B/32 +
+               ViT-B/16, batch 4, direction loss) in blocks of 10 steps with
+               one sync each, its peak memory and a torch.profiler trace of
+               a step (top kernels, fused share, share with no kernel);
+ 11. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -62,10 +75,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from gagan_tpu_torch import _build  # noqa: E402
+from gagan_tpu_torch.cli import adapt as adapt_cli  # noqa: E402
 from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
 from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
-from gagan_tpu_torch.entry import (entry, entry_config,  # noqa: E402
-                                   train_configs, train_entry)
+from gagan_tpu_torch.entry import (adapt_entry, entry,  # noqa: E402
+                                   entry_config, train_configs, train_entry)
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
 from gagan_tpu_torch.train import augment, gan_loss  # noqa: E402
@@ -87,6 +101,14 @@ SCHEDULE = {"none": 12, "greg": 3, "both": 1}
 LOOP_RES, LOOP_BATCH, LOOP_IMAGES, LOOP_KIMG = 1024, 32, 32, 1
 REMAT_BATCH = 8
 DEVICE = "cuda"
+# The adapt phase: cli/adapt.py on this config for ADAPT_ITERS steps with a
+# checkpoint every ADAPT_BACKUP and losses every ADAPT_LOG steps; timing in
+# ADAPT_BLOCKS blocks of 10 steps.  ADAPT_CLIP_OVERRIDES shrinks the random
+# towers (None: the real ViT-B shapes).
+ADAPT_CONFIG = os.path.join("configs", "td_nada_sdelta.yaml")
+ADAPT_ITERS, ADAPT_BACKUP, ADAPT_LOG = 21, 20, 10
+ADAPT_BATCH, ADAPT_BLOCKS = 4, 3
+ADAPT_CLIP_OVERRIDES = None
 
 
 class Case(NamedTuple):
@@ -1010,6 +1032,291 @@ def cli_snapshot_phase(snap):
     return total
 
 
+def leaves_of(trees):
+    return [t for tree in trees
+            for t in ckpt.tree_to_flat_tensors(tree).values()]
+
+
+def adapt_g_config():
+    """The adapt phase's generator: FFHQ-1024 as entry_config() (8 mapping
+    layers, pallas_level=True)."""
+    return entry_config()
+
+
+def adapt_phase(card):
+    """One-shot CLIP adaptation through the command users run, then the
+    checks and times of the module list above.  The CLI run and the timed
+    steps use PyTorch's default math (TF32 convolutions on, TF32 matmuls
+    off); the gradient check runs with TF32 off."""
+    phase("adapt")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    g_cfg = adapt_g_config()
+    params = seeded_weights(sg2.init_generator(
+        g_cfg, torch.Generator().manual_seed(0), DEVICE))
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "ffhq1024.npz")
+        ckpt.save_snapshot(snap, g_ema=params,
+                           config={"g_cfg": config_lib.to_dict(g_cfg)})
+        launches, npz = adapt_cli_run(tmp, snap, g_cfg, card)
+        launches += s_direction_run(tmp, snap, npz, g_cfg, card)
+    torch.cuda.empty_cache()
+    adapt_grads_check(params, card)
+    torch.cuda.empty_cache()
+    rate = adapt_timing(params, card)
+    return launches, rate
+
+
+def adapt_cli_run(tmp, snap, g_cfg, card):
+    """cli/adapt.py on ADAPT_CONFIG with the snapshot; returns the fused
+    launches and the step-ADAPT_BACKUP checkpoint."""
+    out = os.path.join(tmp, "adapt")
+    overrides = [f"training.iter_num={ADAPT_ITERS}",
+                 f"checkpointing.step_backup={ADAPT_BACKUP}",
+                 f"logging.log_every={ADAPT_LOG}"]
+    if ADAPT_CLIP_OVERRIDES:
+        overrides.append(
+            f"training.clip_config_overrides={ADAPT_CLIP_OVERRIDES!r}")
+    needs = []
+    bwd = fmc.fused_modconv3x3_bwd
+
+    def recording_bwd(*args, **kw):
+        needs.append(tuple(kw["needs"]))
+        return bwd(*args, **kw)
+
+    fmc.fused_modconv3x3_bwd = recording_bwd
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer = adapt_cli.main(
+            ["--config", os.path.join(REPO, ADAPT_CONFIG), "--network", snap,
+             "--outdir", out, "--device", DEVICE] + overrides)
+        torch.cuda.synchronize()
+    finally:
+        fmc.fused_modconv3x3_bwd = bwd
+    wall = time.perf_counter() - t0
+    launches = fmc.fused_modconv3x3.launches
+    batch = trainer.cfg.batch_size
+    want = expected_launches(g_cfg, 2 * batch) * ADAPT_ITERS
+    print(f"adapt cli: {ADAPT_ITERS} steps of td_single / s_delta at batch "
+          f"{batch} (joint pass {2 * batch}) in {wall:.2f} s with the build "
+          f"of the towers and the text embeddings; fused_modconv3x3 "
+          f"launches {launches} (expected {want}: 2 levels x "
+          f"{ADAPT_ITERS} joint passes), on {card}", flush=True)
+    if launches != want:
+        raise AssertionError(f"adapt: {launches} launches, not {want}")
+    # The level's backward: dx and d(styles) (the offsets' gradient), never
+    # the weight gradient of the frozen generator.
+    if len(needs) != want or any(n[1] or not (n[0] and n[2]) for n in needs):
+        raise AssertionError(f"adapt: the fused level's backward was asked "
+                             f"for {sorted(set(needs))} in {len(needs)} calls")
+    print(f"adapt: fused backward needs (dx, dW, dstyles, ddcoefs, dnoise, "
+          f"dbias) = {sorted(set(needs))} in {len(needs)} calls: no dW")
+    frozen = leaves_of([trainer.g_params] + [p for _, p in
+                                             trainer.clip_encoders.values()])
+    if any(t.requires_grad or t.grad is not None for t in frozen):
+        raise AssertionError("adapt: a frozen G or CLIP tensor holds a grad")
+    print(f"adapt: {len(frozen)} frozen G and CLIP tensors, none requires "
+          f"grad or holds .grad")
+
+    with open(os.path.join(out, "losses.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    steps = list(range(0, ADAPT_ITERS, ADAPT_LOG))
+    if ([ln["step"] for ln in lines] != steps or not all(
+            np.isfinite(v) for ln in lines for k, v in ln.items())):
+        raise AssertionError(f"adapt: losses.jsonl {lines}")
+    print("adapt losses.jsonl: " + "; ".join(
+        f"step {ln['step']} total {ln['total']:.6f}" for ln in lines)
+        + f", on {card}")
+    npz = os.path.join(out, f"adaptation-{ADAPT_BACKUP:06d}.npz")
+    meta, offsets, _ = ckpt.load_adaptation(npz)
+    moved = max(float(t.abs().max()) for t in leaves_of([offsets]))
+    if (meta["parametrization"] != "s_delta"
+            or sorted(offsets) != sorted(g_cfg.synthesis.layer_names())
+            or not moved > 0):
+        raise AssertionError(f"adapt: {npz} holds {meta} / {moved}")
+    if not os.path.exists(os.path.join(out, "config.yaml")):
+        raise AssertionError("adapt: no config.yaml")
+    print(f"adapt: {os.path.basename(npz)} loads, {len(offsets)} layers, "
+          f"max|offset| {moved:.6f}, on {card}")
+    return launches, npz
+
+
+def s_direction_run(tmp, snap, npz, g_cfg, card):
+    """generate for two seeds plain, with --s-direction at --s-scale 0 and
+    with the trained direction: the first two byte-equal, the third not."""
+    outs = {}
+    launches = 0
+    for label, extra in (("plain", []),
+                         ("scale0", ["--s-direction", npz, "--s-scale", "0"]),
+                         ("trained", ["--s-direction", npz])):
+        outs[label] = os.path.join(tmp, "gen_" + label)
+        fmc.fused_modconv3x3.launches = 0
+        generate.main(["--network", snap, "--seeds", "0,1", "--outdir",
+                       outs[label], "--device", DEVICE] + extra)
+        torch.cuda.synchronize()
+        launches += fmc.fused_modconv3x3.launches
+    names = ["seed0000.png", "seed0001.png"]
+    res = g_cfg.img_resolution
+    for label in outs:
+        check_pngs(outs[label], names, (res, res, 3))
+
+    def data(label, name):
+        with open(os.path.join(outs[label], name), "rb") as f:
+            return f.read()
+
+    same = [data("plain", n) == data("scale0", n) for n in names]
+    differ = [data("plain", n) != data("trained", n) for n in names]
+    want = 3 * 2 * expected_launches(g_cfg, 1)
+    print(f"generate --s-direction: --s-scale 0 byte-equal to plain {same}, "
+          f"trained direction differs {differ}; fused_modconv3x3 launches "
+          f"{launches} (expected {want}), on {card}")
+    if not (all(same) and all(differ)) or launches != want:
+        raise AssertionError("generate --s-direction failed")
+    return launches
+
+
+def adapt_grads_check(params, card):
+    """The offsets' gradient of one td_single step (CLIP in fp32, TF32 off)
+    with pallas_level on and off, on the same offsets (0.2 * N(0, 1), so
+    that the trainable half differs from the frozen one) and the same
+    draws.  The fused level rounds at other places than the composed path
+    (main_phase: about 1% RMS of the image); the loss reads the CLIP edit
+    between the two halves, whose cancellation multiplies a relative error
+    by |embedding| / |edit| (a few at this offset size); so a few percent
+    is expected.  Bound: relative L2 over all offsets' gradients <= 2^-3.
+    A wrong backward formula or layout errs by O(100%)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads, losses = {}, {}
+    for label, pallas in (("pallas", True), ("composed", False)):
+        trainer = adapt_entry(DEVICE, batch=ADAPT_BATCH, pallas_level=pallas,
+                              clip_dtype="float32", g_params=params)
+        gen = torch.Generator().manual_seed(5)
+        for t in leaves_of([trainer.offsets]):
+            t.copy_(0.2 * torch.randn(t.shape, generator=gen))
+        fmc.fused_modconv3x3.launches = 0
+        losses[label], grads[label] = trainer.loss_and_grads(
+            trainer.rng.fold_in(77))
+        torch.cuda.synchronize()
+        print(f"adapt gradient check, {label}: direction loss "
+              f"{float(losses[label]['total']):.6f}, fused launches "
+              f"{fmc.fused_modconv3x3.launches}, on {card}")
+        del trainer
+    a, b = grads["pallas"], grads["composed"]
+    err = rel_l2(a, b, list(a))
+    level = {k: rel_l2(a, b, [k]) for k in a
+             if k.startswith(("b128.conv1", "b256.conv1"))}
+    print(f"pallas vs composed offset gradients (TF32 off, CLIP fp32, batch "
+          f"{ADAPT_BATCH}): rel_l2 {err:.4g} (bound {2 ** -3:.4g}); "
+          + ", ".join(f"{k} {v:.4g}" for k, v in level.items())
+          + f", on {card}")
+    if not err <= 2 ** -3:
+        raise AssertionError("adapt: pallas and composed offset gradients "
+                             "disagree")
+
+
+def adapt_timing(params, card):
+    """bench.py's adaptation shape (td_single, s_delta, direction loss only,
+    ViT-B/32 + ViT-B/16, batch 4) with PyTorch's default math: one synced
+    step, then ADAPT_BLOCKS blocks of 10 steps, each ending in the one host
+    read of its losses; the peak memory of those steps; one profiler trace
+    of a step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    trainer = adapt_entry(DEVICE, batch=ADAPT_BATCH,
+                          visual_encoders=("ViT-B/32", "ViT-B/16"),
+                          loss_funcs=("direction",), loss_coefs=(1.0,),
+                          g_params=params)
+    trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(ADAPT_BLOCKS):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            losses = trainer.train_step_async()
+        host = {k: float(v) for k, v in losses.items()}
+        rates.append(10 / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for v in host.values()):
+        raise AssertionError(f"adapt timing: losses {host}")
+    rate = float(np.mean(rates))
+    res = trainer.g_cfg.img_resolution
+    print(f"adapt td_single {res}^2 batch {ADAPT_BATCH}, ViT-B/32 + "
+          f"ViT-B/16, direction: {rate:.4f} steps/s (blocks of 10: "
+          f"{', '.join(f'{r:.4f}' for r in rates)}), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, on {card}", flush=True)
+    trace_adapt_step(trainer, card, 1e3 / rate)
+    return rate
+
+
+def trace_adapt_step(trainer, card, step_ms, top=12):
+    """One torch.profiler trace of a step: the kernels with the most device
+    time, the fused level's forward (fold + conv) and backward shares, the
+    share of the step's wall time (the "adapt_step" range, which ends in a
+    synchronize) with no kernel, copy or fill running on the card, and that
+    share of the unprofiled step (``step_ms``, from the timed blocks)."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("adapt_step"):
+            trainer.train_step_async()
+            torch.cuda.synchronize()
+    device_us, spans, bwd_us, wall_us = {}, [], 0.0, 0.0
+    launch_us, launches, syncs = 0.0, 0, {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            if evt.name in ("adapt_step", "fused_modconv3x3_bwd"):
+                continue
+            device_us[evt.name] = (device_us.get(evt.name, 0.0)
+                                   + evt.time_range.elapsed_us())
+            spans.append((evt.time_range.start, evt.time_range.end))
+        elif evt.name == "adapt_step":
+            wall_us = evt.time_range.elapsed_us()
+        elif evt.name == "fused_modconv3x3_bwd":
+            bwd_us += evt.device_time_total
+        elif evt.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel", "cuLaunchKernelEx"):
+            launch_us += evt.time_range.elapsed_us()
+            launches += 1
+        elif evt.name in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                          "cudaMemcpyAsync", "cudaMemcpy"):
+            n, us = syncs.get(evt.name, (0, 0.0))
+            syncs[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
+    total = sum(device_us.values())
+    print(f"trace of one adapt step (batch {trainer.cfg.batch_size}, "
+          f"pallas_level=True) on {card}:")
+    if total <= 0 or wall_us <= 0:
+        print("  device time: not measured (the trace holds no CUDA kernels)")
+        return
+    busy, end = 0.0, -np.inf
+    for start, stop in sorted(spans):          # union of the device spans
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    for name, us in sorted(device_us.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {us / 1e3:9.4f} ms {100 * us / total:6.2f}%  {name[:110]}")
+    fwd = sum(us for name, us in device_us.items()
+              if "modconv_bf16_kernel" in name or "fold_taps_kernel" in name)
+    print(f"  step wall {wall_us / 1e3:.4f} ms, device busy {busy / 1e3:.4f} "
+          f"ms: {100 * (1 - busy / wall_us):.2f}% of the step with no kernel "
+          f"on the card; kernel time {total / 1e3:.4f} ms, fused level "
+          f"forward {fwd / 1e3:.4f} ms ({100 * fwd / total:.2f}%), its "
+          f"backward {bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)")
+    print(f"  unprofiled step {step_ms:.4f} ms (timed blocks): "
+          f"{100 * max(0.0, 1 - busy / 1e3 / step_ms):.2f}% of it with no "
+          f"kernel on the card, at this trace's device busy time")
+    print(f"  host: {launches} kernel launches, {launch_us / 1e3:.4f} ms in "
+          f"the launch calls ({len(spans)} kernels, copies and fills on the "
+          f"card); the profiler's own cost is in the step's wall time")
+    print("  host waits and copies: " + (", ".join(
+        f"{name} x{n} {us / 1e3:.4f} ms" for name, (n, us) in sorted(
+            syncs.items())) or "none"))
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -1027,9 +1334,11 @@ def main():
         remat_launches = remat_phase(card)
         torch.cuda.empty_cache()
         cli_launches += cli_snapshot_phase(snap)
+    torch.cuda.empty_cache()
+    adapt_launches, adapt_rate = adapt_phase(card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
-               "remat": remat_launches}
+               "remat": remat_launches, "adapt": adapt_launches}
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
@@ -1048,7 +1357,8 @@ def main():
           f"{ {n: round(v, 4) for n, v in seconds.items()} }, peak GiB "
           f"{ {n: round(v / 2 ** 30, 3) for n, v in peak_mem.items()} }, "
           f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg; loop: "
-          f"{loop_sec_per_kimg:.4f} s/kimg)")
+          f"{loop_sec_per_kimg:.4f} s/kimg; adapt: {adapt_rate:.4f} "
+          f"steps/s)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

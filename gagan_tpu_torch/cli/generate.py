@@ -10,9 +10,10 @@ Per-seed ``z`` comes from ``np.random.RandomState(seed)`` as in the JAX CLI,
 so const-noise images match it; ``--noise-mode random`` draws each seed's
 noise from a generator seeded with the seed (torch cannot reproduce JAX's
 numbers).  ``--projected-w`` replays the ``w`` [N, num_ws, w_dim] array of an
-npz.  ``--s-direction`` / ``--s-scale`` (StyleSpace directions) are parsed
-and refused: the offsets hooks are not ported yet (ROADMAP item 11).  PNGs
-are written by utils/png.py.  Runs on CUDA unless ``--device cpu`` is given.
+npz.  ``--s-direction`` applies an adaptation checkpoint's offsets
+(``cli/adapt.py`` writes them) as layer hooks, scaled by ``--s-scale``.
+PNGs are written by utils/png.py.  Runs on CUDA unless ``--device cpu`` is
+given.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 
 from .. import resolve_device
 from ..models import stylegan2 as sg2
+from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils import config as config_lib
 from ..utils.png import write_png
@@ -48,11 +50,27 @@ def load_generator(network: str, device):
     return config_lib.generator_config_from_dict(config["g_cfg"]), params
 
 
-def refuse_directions() -> None:
-    """StyleSpace directions need the offsets hooks (ROADMAP item 11)."""
-    raise NotImplementedError(
-        "--s-direction / --s-scale (StyleSpace directions) need the offsets "
-        "hooks, which are not ported yet (ROADMAP item 11)")
+def _add(a, b):
+    return {k: _add(v, b[k]) if isinstance(v, dict) else v + b[k]
+            for k, v in a.items()}
+
+
+def direction_hooks(paths: List[str], scales: List[float], device):
+    """The LayerHooks of a sum of adaptation directions (offsets of one
+    parametrization), each scaled by its entry of ``scales`` (1.0 where
+    ``scales`` is shorter)."""
+    scales = list(scales) + [1.0] * (len(paths) - len(scales))
+    spec = combined = None
+    for path, scale in zip(paths, scales):
+        meta, offsets, _ = ckpt.load_adaptation(path, device)
+        cur = offs_lib.OffsetsSpec.from_string(meta["parametrization"])
+        if spec is not None and cur != spec:
+            raise ValueError(f"{path}: directions must share a "
+                             f"parametrization ({cur} != {spec})")
+        spec = cur
+        scaled = sg2.tree_map(lambda t: t * scale, offsets)
+        combined = scaled if combined is None else _add(combined, scaled)
+    return offs_lib.make_hooks(spec, combined)
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -75,11 +93,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.s_direction is not None or args.s_scale != 1.0:
-        refuse_directions()
 
     device = resolve_device(args.device)
     g_cfg, params = load_generator(args.network, device)
+    hooks = None
+    if args.s_direction is not None:
+        hooks = direction_hooks([args.s_direction], [args.s_scale], device)
     if args.projected_w is None and args.seeds is None:
         ap.error("--seeds required without --projected-w")
     label = None
@@ -101,7 +120,7 @@ def main(argv: Optional[List[str]] = None) -> None:
                     g_cfg.synthesis, params["synthesis"],
                     torch.from_numpy(np.asarray(w, np.float32))[None].to(
                         device), noise_mode=args.noise_mode,
-                    generator=Rng(0))
+                    generator=Rng(0), hooks=hooks)
                 write_png(os.path.join(args.outdir, f"proj{idx:02d}.png"),
                           to_uint8(img)[0])
             return
@@ -114,7 +133,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             img = sg2.generator_apply(
                 g_cfg, params, z.to(device), c=label,
                 truncation_psi=args.truncation_psi,
-                noise_mode=args.noise_mode, generator=gen)
+                noise_mode=args.noise_mode, generator=gen, hooks=hooks)
             write_png(os.path.join(args.outdir, f"seed{seed:04d}.png"),
                       to_uint8(img)[0])
 

@@ -7,7 +7,8 @@ Each row seed's ``w`` takes the column seed's ``w`` at the ``--styles``
 indices; writes ``{row}-{col}.png`` for every pair and each seed alone, and
 ``grid.png`` with the column seeds along the top and the row seeds down the
 left.  ``z`` comes from ``np.random.RandomState(seed)`` as in the JAX CLI.
-``--s-direction`` / ``--s-scale`` are parsed and refused (ROADMAP item 11).
+``--s-direction`` (repeatable) adds adaptation directions, each scaled by
+its ``--s-scale`` (1.0 by default), as layer hooks of every synthesis.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ from ..models import stylegan2 as sg2
 from ..utils.png import write_png
 from ..utils.rng import Rng
 from . import num_range
-from .generate import load_generator, refuse_directions, to_uint8
+from .generate import direction_hooks, load_generator, to_uint8
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -47,18 +48,20 @@ def main(argv: Optional[List[str]] = None) -> None:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-    if args.s_directions or args.s_scales:
-        refuse_directions()
 
     device = resolve_device(args.device)
     g_cfg, params = load_generator(args.network, device)
+    hooks = None
+    if args.s_directions:
+        hooks = direction_hooks(args.s_directions, args.s_scales or [],
+                                device)
     os.makedirs(args.outdir, exist_ok=True)
     row_seeds, col_seeds = args.row_seeds, args.col_seeds
 
     def synth(w):
         img = sg2.synthesis_apply(g_cfg.synthesis, params["synthesis"], w,
                                   noise_mode=args.noise_mode,
-                                  generator=Rng(0))
+                                  generator=Rng(0), hooks=hooks)
         return to_uint8(img)
 
     with torch.no_grad():

@@ -12,7 +12,7 @@ The dataset is always an :class:`ImageFolderDataset` (folder or zip).
 
 Not ported yet, each raising ``NotImplementedError``: ``--gpus`` other than 1
 and ``--spatial-shard-min-res`` (ROADMAP item 10), ``--use-domain-modulation``
-(item 11), and ``--packed-tail-blocks`` above 1 (the port's packed tail is
+(item 11b), and ``--packed-tail-blocks`` above 1 (the port's packed tail is
 one block).
 """
 
@@ -104,7 +104,7 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
     if use_domain_modulation:
         raise NotImplementedError(
             "--use-domain-modulation (offsets adaptation) is not ported yet "
-            "(ROADMAP item 11)")
+            "(ROADMAP item 11b)")
     if packed_tail_blocks > 1:
         raise NotImplementedError(
             "the port's packed tail is one block: --packed-tail-blocks 0 or 1")

@@ -8,6 +8,9 @@
   the one-device counterpart of ``__graft_entry__.dryrun_multichip`` at
   full width, configured by the port's training CLI's plan for a 1024^2 run
   (``cli/train.py::build_run``, ``--cfg auto``).
+* :func:`adapt_entry`: a one-shot CLIP adaptation trainer (``td_single``)
+  at FFHQ-1024 with CLIP towers of the real shape, or at a tiny size for
+  the CPU.
 """
 
 from __future__ import annotations
@@ -18,10 +21,14 @@ from typing import Dict, Optional
 import torch
 
 from . import resolve_device
-from .models import stylegan2 as sg2
+from .cli import adapt as adapt_cli
 from .cli import train as train_cli
+from .models import stylegan2 as sg2
+from .train import adapt_losses as al
+from .train import adaptation as ad
 from .train import augment, train_step as ts
 from .utils.rng import Rng
+from .utils.text_templates import imagenet_templates
 
 
 def entry_config(pallas_level: bool = True) -> sg2.GeneratorConfig:
@@ -122,3 +129,50 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
             * 2 - 1).to(device)
     z = torch.randn((batch, g_cfg.z_dim), generator=gen).to(device)
     return steps, state, (real, None, z, None, Rng(3))
+
+
+# The tiny sizes of the CPU adaptation runs: G at 32^2, and every CLIP tower
+# 2 layers of width 64 with 8x8 patches of a 32^2 image.
+TINY_G = sg2.GeneratorConfig(
+    z_dim=32, w_dim=32, img_resolution=32,
+    mapping=sg2.MappingConfig(num_layers=2),
+    synthesis=sg2.SynthesisConfig(channel_base=1024, channel_max=64))
+TINY_CLIP = dict(embed_dim=32, image_resolution=32, vision_layers=2,
+                 vision_width=64, vision_patch_size=8, transformer_width=32,
+                 transformer_heads=4, transformer_layers=2,
+                 vision_heads_override=4)
+
+
+def adapt_entry(device="cuda", batch: int = 4,
+                visual_encoders=("ViT-B/32",),
+                loss_funcs=("direction", "offsets_l2"),
+                loss_coefs=(1.0, 0.1), pallas_level: bool = True,
+                clip_dtype: str = "bfloat16",
+                g_params=None) -> ad.AdaptationTrainer:
+    """A ``td_single`` trainer as ``cli/adapt.py`` builds it from
+    ``configs/td_nada_sdelta.yaml`` (s_delta offsets, lr 0.08): "Photo" ->
+    "Anime" text embeddings over the ImageNet templates, random CLIP towers
+    (seed 0, byte tokenizer), the trainer's draws from ``Rng(0)``, and a
+    random generator (seed 0) unless ``g_params`` is given.  On CUDA: G is
+    :func:`entry_config` (FFHQ-1024, 8 mapping layers, ``pallas_level``)
+    and the towers have the real ViT-B shapes; on the CPU: :data:`TINY_G`
+    and :data:`TINY_CLIP`.  Raises without CUDA unless ``device`` is
+    'cpu'."""
+    device = resolve_device(device)
+    tiny = device.type == "cpu"
+    g_cfg = TINY_G if tiny else entry_config(pallas_level)
+    if g_params is None:
+        g_params = sg2.init_generator(g_cfg, torch.Generator().manual_seed(0),
+                                      device)
+    encoders = adapt_cli.load_clip_encoders(visual_encoders, device,
+                                            TINY_CLIP if tiny else None)
+    cfg = ad.AdaptationConfig(
+        trainer="td_single", batch_size=batch, lr=0.08,
+        parametrization="s_delta", visual_encoders=tuple(visual_encoders),
+        source_class="Photo", target_class="Anime", clip_dtype=clip_dtype,
+        loss=al.DirectLossConfig(loss_funcs=tuple(loss_funcs),
+                                 loss_coefs=tuple(loss_coefs)))
+    emb = adapt_cli.text_embeddings(encoders, cfg.source_class,
+                                    cfg.target_class, imagenet_templates)
+    return ad.AdaptationTrainer(cfg, g_cfg, g_params, encoders, Rng(0), emb,
+                                device=device)

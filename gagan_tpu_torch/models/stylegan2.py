@@ -15,9 +15,11 @@ Levels that the JAX package sends to its Pallas kernel under
 Block rematerialization (``remat`` / ``remat_min_res``) runs each chosen
 block under ``torch.utils.checkpoint``, as the JAX package wraps it in
 ``jax.checkpoint``: the block's activations are dropped after the forward
-and recomputed in the backward, to first and second order.  Not in this
-module yet: layer hooks (adaptation) and the discriminator's
-``spatial_constraint`` (multi-device).
+and recomputed in the backward, to first and second order.  Layer hooks
+(``LayerHooks``, made by params/offsets.py) transform a synthesis layer's
+w, styles, affine weight, conv weight or output, as in the JAX package.
+Not in this module yet: the discriminator's ``spatial_constraint``
+(multi-device).
 ``noise_mode="random"`` draws each layer's noise from a key of the
 caller's :class:`~gagan_tpu_torch.utils.rng.Rng` (or a key drawn from a
 ``torch.Generator``), folded with the layer name as the JAX package folds
@@ -124,6 +126,25 @@ class SynthesisConfig:
         for res in self.block_resolutions:
             n += 1 if res == 4 else 2
         return n + 1
+
+    def layer_names(self) -> List[str]:
+        """Per-layer names in the JAX package's order (conv0, conv1, torgb
+        of each block; the 4x4 block has no conv0)."""
+        names = []
+        for res in self.block_resolutions:
+            if res > 4:
+                names.append(f"b{res}.conv0")
+            names += [f"b{res}.conv1", f"b{res}.torgb"]
+        return names
+
+    def layer_in_channels(self) -> List[int]:
+        """Input channels (= style width) of each layer of layer_names()."""
+        dims = []
+        for res in self.block_resolutions:
+            if res > 4:
+                dims.append(self.channels(res // 2))
+            dims += [self.channels(res), self.channels(res)]
+        return dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,9 +336,16 @@ def tree_map(fn, tree: Params) -> Params:
 
 
 def fc_apply(p: Params, x: torch.Tensor, activation: str = "linear",
-             lr_multiplier: float = 1.0) -> torch.Tensor:
-    """FullyConnectedLayer forward (equalized learning rate)."""
+             lr_multiplier: float = 1.0,
+             weight_offset: Optional[torch.Tensor] = None,
+             weight_offset_mode: str = "none") -> torch.Tensor:
+    """FullyConnectedLayer forward (equalized learning rate).
+    ``weight_offset`` offsets the raw weight before the gain: added
+    (``weight_offset_mode="additive"``) or as ``(1 + offset) * weight``."""
     w = p["weight"]
+    if weight_offset is not None:
+        w = (w + weight_offset if weight_offset_mode == "additive"
+             else (1.0 + weight_offset) * w)
     w = w.to(x.dtype) * (lr_multiplier / np.sqrt(w.shape[1]))
     x = x @ w.T
     b = p.get("bias")
@@ -378,12 +406,37 @@ def mapping_apply(cfg: MappingConfig, params: Params, z: Optional[torch.Tensor],
     return x
 
 
-def _layer_styles(lp: Params, w: torch.Tensor,
-                  weight_gain: float = 1.0) -> torch.Tensor:
-    styles = fc_apply(lp["affine"], w)
+# Per-layer transform hooks: {layer name: {kind: callable}}, the kinds being
+# "w" (the layer's w vectors), "style" (its styles), "weight" (its conv
+# weight), "post" (the conv output, before noise and bias) and
+# "affine_weight", which is an (offset, mode) pair for fc_apply.
+LayerHooks = Dict[str, Dict[str, Any]]
+
+
+def _hook(hooks: Optional[LayerHooks], layer_name: str, kind: str):
+    return hooks.get(layer_name, {}).get(kind) if hooks else None
+
+
+def _layer_styles(lp: Params, w: torch.Tensor, weight_gain: float = 1.0,
+                  layer_name: str = "",
+                  hooks: Optional[LayerHooks] = None) -> torch.Tensor:
+    """w -> styles: the affine layer, with the layer's hooks."""
+    fn = _hook(hooks, layer_name, "w")
+    if fn is not None:
+        w = fn(w)
+    offset, mode = _hook(hooks, layer_name, "affine_weight") or (None, "none")
+    styles = fc_apply(lp["affine"], w, weight_offset=offset,
+                      weight_offset_mode=mode)
     if weight_gain != 1.0:
         styles = styles * weight_gain
-    return styles
+    fn = _hook(hooks, layer_name, "style")
+    return styles if fn is None else fn(styles)
+
+
+def _layer_weight(lp: Params, layer_name: str,
+                  hooks: Optional[LayerHooks]) -> torch.Tensor:
+    fn = _hook(hooks, layer_name, "weight")
+    return lp["weight"] if fn is None else fn(lp["weight"])
 
 
 def _noise(cfg: SynthesisConfig, lp: Params, noise_mode: str, shape,
@@ -403,14 +456,18 @@ def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
                           w: torch.Tensor, resolution: int, up: int,
                           resample_filter: torch.Tensor, layer_name: str,
                           noise_mode: str = "const",
-                          rng: Optional[Rng] = None) -> torch.Tensor:
-    """SynthesisLayer forward."""
-    styles = _layer_styles(lp, w)
-    weight = lp["weight"]
+                          rng: Optional[Rng] = None,
+                          hooks: Optional[LayerHooks] = None) -> torch.Tensor:
+    """SynthesisLayer forward.  The fused level takes the hooked styles and
+    weight; a "post" hook keeps the layer on the composed path."""
+    styles = _layer_styles(lp, w, 1.0, layer_name, hooks)
+    weight = _layer_weight(lp, layer_name, hooks)
     noise = _noise(cfg, lp, noise_mode, (x.shape[0], 1, resolution, resolution),
                    rng, layer_name)
+    post = _hook(hooks, layer_name, "post")
 
     if (cfg.pallas_level and up == 1 and cfg.activation == "lrelu"
+            and post is None
             and fmc.supported_shape(tuple(x.shape), tuple(weight.shape))):
         nz = noise
         if nz is not None and nz.ndim == 2:      # const buffer [H, W]
@@ -424,6 +481,8 @@ def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
                          padding=weight.shape[-1] // 2,
                          resample_filter=resample_filter,
                          flip_weight=(up == 1))
+    if post is not None:
+        x = post(x)
     if noise is not None:
         x = x + noise.to(x.dtype)
     return bias_act(x, lp["bias"].to(x.dtype), act=cfg.activation,
@@ -432,21 +491,29 @@ def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
 
 
 def torgb_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
-                      w: torch.Tensor) -> torch.Tensor:
+                      w: torch.Tensor, layer_name: str = "",
+                      hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """ToRGBLayer forward (1x1, no demodulation)."""
     in_ch = lp["weight"].shape[1]
     kernel = lp["weight"].shape[-1]
-    styles = _layer_styles(lp, w, 1.0 / np.sqrt(in_ch * kernel ** 2))
-    x = modulated_conv2d(x, lp["weight"], styles, demodulate=False)
+    styles = _layer_styles(lp, w, 1.0 / np.sqrt(in_ch * kernel ** 2),
+                           layer_name, hooks)
+    x = modulated_conv2d(x, _layer_weight(lp, layer_name, hooks), styles,
+                         demodulate=False)
+    post = _hook(hooks, layer_name, "post")
+    if post is not None:
+        x = post(x)
     return bias_act(x, lp["bias"].to(x.dtype), clamp=cfg.conv_clamp)
 
 
 def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
                  block_ws: List[torch.Tensor], x: torch.Tensor,
                  img: Optional[torch.Tensor], noise_mode: str,
-                 rng: Optional[Rng], dtype: torch.dtype) -> torch.Tensor:
+                 rng: Optional[Rng], dtype: torch.dtype,
+                 hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """The last synthesis block on the 2x2-packed grid (exact; ops/packed.py),
-    ending in the fused torgb + depth-to-space: returns the image."""
+    ending in the fused torgb + depth-to-space: returns the image.  Takes
+    every hook kind but "post" (which keeps the block unpacked)."""
     taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
                            device=x.device)
     taps = taps / taps.sum()
@@ -464,30 +531,36 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
         return bias_act(h, bias.to(h.dtype), act=cfg.activation,
                         gain=spec.def_gain, clamp=cfg.conv_clamp)
 
+    def styles_weight(name, w, gain=1.0):
+        lp = block[name]
+        return (_layer_styles(lp, w, gain, f"b{res}.{name}", hooks),
+                _layer_weight(lp, f"b{res}.{name}", hooks))
+
     # conv0 (up=2): unpacked input -> packed output, composed up-conv kernel.
     lp = block["conv0"]
-    styles = _layer_styles(lp, block_ws[0])
-    d = demod_coefs(lp["weight"], styles)
-    wp = pk.build_packed_upconv(lp["weight"], taps)
+    styles, weight = styles_weight("conv0", block_ws[0])
+    d = demod_coefs(weight, styles)
+    wp = pk.build_packed_upconv(weight, taps)
     h = x * styles.to(x.dtype)[:, :, None, None]
     h = pk.conv_packed(h, wp.to(dtype))
     h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-    h = add_noise_act(lp, "conv0", h, lp["weight"].shape[0])
+    h = add_noise_act(lp, "conv0", h, weight.shape[0])
 
     # conv1: packed -> packed.
     lp = block["conv1"]
-    styles = _layer_styles(lp, block_ws[1])
-    d = demod_coefs(lp["weight"], styles)
-    wp = pk.build_packed_conv3x3(lp["weight"])
+    styles, weight = styles_weight("conv1", block_ws[1])
+    d = demod_coefs(weight, styles)
+    wp = pk.build_packed_conv3x3(weight)
     h = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
     h = pk.conv_packed(h, wp.to(dtype))
     h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-    h = add_noise_act(lp, "conv1", h, lp["weight"].shape[0])
+    h = add_noise_act(lp, "conv1", h, weight.shape[0])
 
     # torgb 1x1 + depth-to-space as one input-dilated conv to the image.
     lp = block["torgb"]
-    styles = _layer_styles(lp, block_ws[2], 1.0 / np.sqrt(lp["weight"].shape[1]))
-    krgb = pk.build_torgb_transposed(lp["weight"][:, :, 0, 0])
+    styles, weight = styles_weight(
+        "torgb", block_ws[2], 1.0 / np.sqrt(lp["weight"].shape[1]))
+    krgb = pk.build_torgb_transposed(weight[:, :, 0, 0])
     y = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
     y = pk.conv_transposed_unpack(y, krgb.to(dtype))
     y = bias_act(y, lp["bias"].to(y.dtype), clamp=cfg.conv_clamp).float()
@@ -516,10 +589,14 @@ def _remat(fn, *args):
 def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                     noise_mode: str = "const",
                     generator: "Optional[torch.Generator | Rng]" = None,
-                    force_fp32: bool = False) -> torch.Tensor:
+                    force_fp32: bool = False,
+                    hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """SynthesisNetwork forward: ws [N, num_ws, w_dim] -> img [N, C, R, R].
     ``noise_mode="random"`` draws from ``generator``: an :class:`Rng` key,
-    or a ``torch.Generator`` that one key is drawn from."""
+    or a ``torch.Generator`` that one key is drawn from.  ``hooks`` are
+    the layers' transforms; a "post" hook on a layer of the packed tail
+    keeps that block unpacked, and with hooks the packed tail is not
+    rematerialized (other blocks still are), as in the JAX package."""
     if noise_mode not in ("random", "const", "none"):
         raise ValueError(f"noise_mode must be random, const or none, "
                          f"got {noise_mode!r}")
@@ -541,6 +618,9 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                 "the port's packed tail runs packed_tail_blocks=1 with "
                 "packed_fused_torgb=True only")
         tail_res = resolutions[-1]
+        if hooks and any(_hook(hooks, f"b{tail_res}.{name}", "post")
+                         for name in ("conv0", "conv1", "torgb")):
+            tail_res = None
 
     resample_filter = setup_filter(cfg.resample_filter, device=ws.device)
     batch = ws.shape[0]
@@ -558,8 +638,8 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
         if res == tail_res:
             def tail_fn(block, x, img, block_ws, res=res, dtype=dtype):
                 return _packed_tail(cfg, block, res, block_ws, x, img,
-                                    noise_mode, rng, dtype)
-            if _want_remat(cfg, res):
+                                    noise_mode, rng, dtype, hooks)
+            if _want_remat(cfg, res) and hooks is None:
                 return _remat(tail_fn, block, x, img, block_ws)
             return tail_fn(block, x, img, block_ws)
 
@@ -571,15 +651,15 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                 x = synthesis_layer_apply(cfg, block["conv0"], x.to(dtype),
                                           block_ws[0], res, 2,
                                           resample_filter, f"b{res}.conv0",
-                                          noise_mode, rng)
+                                          noise_mode, rng, hooks)
             x = synthesis_layer_apply(cfg, block["conv1"], x,
                                       block_ws[num_conv - 1], res, 1,
                                       resample_filter, f"b{res}.conv1",
-                                      noise_mode, rng)
+                                      noise_mode, rng, hooks)
             if img is not None:
                 img = upsample2d(img, resample_filter)
-            y = torgb_layer_apply(cfg, block["torgb"], x,
-                                  block_ws[num_conv]).float()
+            y = torgb_layer_apply(cfg, block["torgb"], x, block_ws[num_conv],
+                                  f"b{res}.torgb", hooks).float()
             return x, (y if img is None else img + y)
 
         if _want_remat(cfg, res):
@@ -595,14 +675,36 @@ def generator_apply(cfg: GeneratorConfig, params: Params, z: torch.Tensor,
                     truncation_cutoff: Optional[int] = None,
                     noise_mode: str = "const",
                     generator: "Optional[torch.Generator | Rng]" = None,
-                    force_fp32: bool = False) -> torch.Tensor:
+                    force_fp32: bool = False,
+                    hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """z [N, z_dim] -> img [N, img_channels, R, R] in float32."""
     ws = mapping_apply(cfg.mapping, params["mapping"], z, c,
                        truncation_psi=truncation_psi,
                        truncation_cutoff=truncation_cutoff)
     return synthesis_apply(cfg.synthesis, params["synthesis"], ws,
                            noise_mode=noise_mode, generator=generator,
-                           force_fp32=force_fp32)
+                           force_fp32=force_fp32, hooks=hooks)
+
+
+def generator_styles(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
+                     hooks: Optional[LayerHooks] = None) -> List[torch.Tensor]:
+    """Per-layer styles in layer_names() order (S space); the torgb styles
+    include their weight gain, as the forward applies it."""
+    styles = []
+    w_idx = 0
+    for res in cfg.block_resolutions:
+        block = params[f"b{res}"]
+        num_conv = 1 if res == 4 else 2
+        convs = ["conv1"] if res == 4 else ["conv0", "conv1"]
+        for i, name in enumerate(convs):
+            styles.append(_layer_styles(block[name], ws[:, w_idx + i], 1.0,
+                                        f"b{res}.{name}", hooks))
+        lp = block["torgb"]
+        gain = 1.0 / np.sqrt(lp["weight"].shape[1] * lp["weight"].shape[-1] ** 2)
+        styles.append(_layer_styles(lp, ws[:, w_idx + num_conv], gain,
+                                    f"b{res}.torgb", hooks))
+        w_idx += num_conv
+    return styles
 
 
 # ----------------------------------------------------------------------------
@@ -651,7 +753,7 @@ def _packed_res_core(cfg: DiscriminatorConfig, block: Params, x: torch.Tensor,
                  clamp=cfg.conv_clamp * g if cfg.conv_clamp else None)
     sk = pk.conv_packed(x, pk.build_packed_down1x1(
         _equalized(block["skip"]["weight"]), taps).to(dtype))
-    sk = sk * torch.tensor(g, dtype=sk.dtype, device=sk.device)
+    sk = sk * torch.full((), g, dtype=sk.dtype, device=sk.device)
     return sk + y
 
 

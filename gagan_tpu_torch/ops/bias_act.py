@@ -18,8 +18,10 @@ import torch.nn.functional as F
 
 def _scalar(value: float, x: torch.Tensor) -> torch.Tensor:
     """``value`` rounded to ``x.dtype`` first, as JAX treats a Python scalar
-    (torch would multiply a bf16 tensor by the fp32 scalar)."""
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+    (torch would multiply a bf16 tensor by the fp32 scalar).  Made by a fill
+    on x's device: a scalar copied from the host would make the host wait
+    for the card's queue to drain."""
+    return torch.full((), value, dtype=x.dtype, device=x.device)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -8,7 +8,7 @@ draw source on the JAX loop's key tree (``utils/rng.py``): the networks'
 init keys, the grid latents, then per batch a latent key and a step key.
 
 Not ported yet, each raising ``NotImplementedError``: the offsets
-parameterization (``parametrization``; ROADMAP item 11), more than one device
+parameterization (``parametrization``; ROADMAP item 11b), more than one device
 and spatial sharding (item 10), and the native zip loader (item 15).
 """
 
@@ -89,7 +89,7 @@ def _refuse(loop_cfg, dataset, parametrization, spatial_shard_min_res):
     if parametrization:
         raise NotImplementedError(
             "parametrization (offsets domain adaptation) is not ported yet "
-            "(ROADMAP item 11)")
+            "(ROADMAP item 11b)")
     if loop_cfg.n_devices not in (None, 1) or spatial_shard_min_res is not None:
         raise NotImplementedError(
             "the port trains on one card: n_devices other than 1 and "

@@ -1,16 +1,20 @@
-"""Snapshots: the weight bridge between the two packages (port of the flat
-npz <-> tree helpers of gagan_tpu/utils/checkpoint.py).
+"""Snapshots and adaptation checkpoints: the weight bridge between the two
+packages (port of the npz helpers of gagan_tpu/utils/checkpoint.py).
 
 A snapshot is one ``.npz``: every parameter tree flattened to dotted keys
 under a ``G/``, ``D/``, ``G_ema/`` or ``extra/`` prefix, plus the config as
-JSON bytes under ``__config__``.  The format is byte-for-byte the JAX
-package's, so a snapshot written by either package loads in the other.
+JSON bytes under ``__config__``.  An adaptation checkpoint is one ``.npz``
+of an offsets tree under ``state_dict/``, optional ``extra_state/``, and
+``__meta__`` JSON bytes (model_type, parametrization, sg2_params).  Both
+formats are byte-for-byte the JAX package's, so a file written by either
+package loads in the other.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -87,3 +91,45 @@ def load_snapshot(path: str, device="cpu"):
             groups.setdefault(group, {})[rest] = data[key]
     trees = {g: flat_to_tree(flat, device) for g, flat in groups.items()}
     return trees, config
+
+
+def save_adaptation(path: str, *, model_type: str, parametrization: str,
+                    offsets: Any, sg2_config: Dict,
+                    extra_state: Optional[Dict[str, Any]] = None):
+    """model_type in {'original', 'mapper', 'parametrization', 'offsets'}."""
+    arrays = {f"state_dict/{k}": v for k, v in tree_to_flat(offsets).items()}
+    if extra_state:
+        for k, v in tree_to_flat(extra_state).items():
+            arrays[f"extra_state/{k}"] = v
+    meta = {"model_type": model_type, "parametrization": parametrization,
+            "sg2_params": sg2_config}
+    arrays["__meta__"] = np.frombuffer(json.dumps(meta).encode(),
+                                       dtype=np.uint8)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def _merge_layer_keys(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Re-join offsets layer names ('b<res>.<layer>') that dot-flattening
+    split into two levels."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if re.match(r"^b\d+$", k) and isinstance(v, dict):
+            for k2, v2 in v.items():
+                out[f"{k}.{k2}"] = v2
+        else:
+            out[k] = v
+    return out
+
+
+def load_adaptation(path: str, device="cpu"):
+    """(meta, offsets tree, extra_state tree or None), tensors on
+    ``device``."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(bytes(data["__meta__"]).decode())
+        state = {k[len("state_dict/"):]: data[k] for k in data.files
+                 if k.startswith("state_dict/")}
+        extra = {k[len("extra_state/"):]: data[k] for k in data.files
+                 if k.startswith("extra_state/")}
+    offsets = _merge_layer_keys(flat_to_tree(state, device))
+    return meta, offsets, (flat_to_tree(extra, device) if extra else None)

@@ -182,3 +182,48 @@ def test_loop_remat_cli_phases_run_on_cpu(monkeypatch, tmp_path):
     assert {"proj00.png", "grid.png"} <= set(
         os.listdir(tmp_path / "run" / "generate")) | set(
         os.listdir(tmp_path / "run" / "style_mixing"))
+
+
+# ----------------------------------------------------------------------------
+# The adapt phase's control flow
+
+
+def test_adapt_phase_runs_on_cpu(monkeypatch):
+    """The adapt phase on the CPU at the tiny size of entry.adapt_entry:
+    cli/adapt.py on td_nada_sdelta.yaml (3 steps, tiny random towers), the
+    --s-direction images, the gradient check and the timing and trace
+    paths.  No CUDA kernels here: every expected launch count is 0."""
+    from gagan_tpu_torch import entry
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "adapt_g_config", lambda: entry.TINY_G)
+    for name, value in (("DEVICE", "cpu"), ("ADAPT_ITERS", 3),
+                        ("ADAPT_BACKUP", 2), ("ADAPT_LOG", 2),
+                        ("ADAPT_BATCH", 2), ("ADAPT_BLOCKS", 1),
+                        ("ADAPT_CLIP_OVERRIDES", entry.TINY_CLIP)):
+        monkeypatch.setattr(cs, name, value)
+    launches, rate = cs.adapt_phase("cpu")
+    assert launches == 0 and rate > 0
+
+
+def test_adapt_phase_drives_the_full_size_path():
+    """On the card the phase runs FFHQ-1024 with 8 mapping layers and the
+    fused level (2 launches a joint pass of 2 x 4 samples), the real
+    td_nada_sdelta.yaml, and checkpoints at step 20 of 21."""
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.utils import yaml_subset
+
+    g = cs.adapt_g_config()
+    assert g == entry.entry_config() and g.mapping.num_layers == 8
+    assert g.synthesis.pallas_level
+    assert cs.expected_launches(g, 2 * cs.ADAPT_BATCH) == 2
+    cfg = yaml_subset.read(os.path.join(os.path.dirname(cs.__file__),
+                                        cs.ADAPT_CONFIG))
+    assert cfg["training"]["patch_key"] == "s_delta"
+    assert cfg["training"]["batch_size"] == cs.ADAPT_BATCH
+    assert cfg["training"]["visual_encoders"] == ["ViT-B/32"]
+    assert (cs.ADAPT_ITERS, cs.ADAPT_BACKUP, cs.ADAPT_LOG) == (21, 20, 10)
+    assert cs.ADAPT_CLIP_OVERRIDES is None

@@ -280,9 +280,29 @@ def test_generate_class_and_projected_w_match_jax(cond_snapshot, tmp_path):
     with pytest.raises(SystemExit):                      # no --class
         tgen.main(["--network", cond_snapshot, "--seeds", "0", "--outdir",
                    tout, "--device", "cpu"])
-    for extra in (["--s-direction", "d.npz"], ["--s-scale", "2"]):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            tgen.main(args + ["--outdir", tout] + extra)
+    # With a StyleSpace direction (offsets hooks), as the JAX CLI applies it.
+    direction = _s_delta_direction(str(tmp_path / "d.npz"), cond_snapshot)
+    extra = ["--s-direction", direction, "--s-scale", "2"]
+    jgen.main.main(args + extra + ["--outdir", jout + "d"],
+                   standalone_mode=False)
+    tgen.main(args + extra + ["--outdir", tout + "d", "--device", "cpu"])
+    _same_pngs(jout + "d", tout + "d", ["proj00.png", "proj01.png"])
+    assert not np.array_equal(read_png(os.path.join(tout + "d", "proj00.png")),
+                              read_png(os.path.join(tout + "p", "proj00.png")))
+
+
+def _s_delta_direction(path, snapshot):
+    """An s_delta adaptation npz of random offsets for the snapshot's G."""
+    _, config = jck.load_snapshot(snapshot)
+    g_cfg = tconfig.generator_config_from_dict(config["g_cfg"])
+    rng = np.random.RandomState(6)
+    offsets = {name: {"offset": (0.3 * rng.randn(1, ch)).astype(np.float32)}
+               for name, ch in zip(g_cfg.synthesis.layer_names(),
+                                   g_cfg.synthesis.layer_in_channels())}
+    jck.save_adaptation(path, model_type="parametrization",
+                        parametrization="s_delta", offsets=offsets,
+                        sg2_config=config["g_cfg"])
+    return path
 
 
 def test_generate_random_noise_is_per_seed(cond_snapshot, tmp_path):
@@ -325,5 +345,10 @@ def test_style_mixing_matches_jax(uncond_snapshot, tmp_path):
              "grid.png"]
     _same_pngs(jout, tout, names)
     assert read_png(os.path.join(tout, "grid.png")).shape == (96, 64, 3)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tmix.main(args + ["--outdir", tout, "--s-direction", "d.npz"])
+    # With a StyleSpace direction, as the JAX CLI applies it.
+    extra = ["--s-direction", _s_delta_direction(str(tmp_path / "d.npz"),
+                                                 uncond_snapshot)]
+    jmix.main.main(args + extra + ["--outdir", jout + "d"],
+                   standalone_mode=False)
+    tmix.main(args + extra + ["--outdir", tout + "d", "--device", "cpu"])
+    _same_pngs(jout + "d", tout + "d", names)

@@ -52,7 +52,13 @@ def test_port_imports_with_jax_blocked():
             "gagan_tpu_torch.train.gan_loss, gagan_tpu_torch.train.masks, "
             "gagan_tpu_torch.train.train_step, gagan_tpu_torch.ga, "
             "gagan_tpu_torch.ga.refine, gagan_tpu_torch.utils.rng, "
-            "gagan_tpu_torch.utils.config\n"
+            "gagan_tpu_torch.utils.config, gagan_tpu_torch.params.offsets, "
+            "gagan_tpu_torch.clip, gagan_tpu_torch.clip.model, "
+            "gagan_tpu_torch.clip.tokenizer, gagan_tpu_torch.ops.resize, "
+            "gagan_tpu_torch.train.adapt_losses, "
+            "gagan_tpu_torch.train.adaptation, gagan_tpu_torch.cli.adapt, "
+            "gagan_tpu_torch.inference, gagan_tpu_torch.utils.yaml_subset, "
+            "gagan_tpu_torch.utils.text_templates\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -96,6 +102,49 @@ def test_port_imports_with_pil_and_click_blocked():
     assert out.stdout.strip().endswith("ok")
 
 
+def test_adaptation_runs_without_yaml_regex_or_ftfy(tmp_path):
+    """The card's machine is not assumed to have PyYAML, regex or ftfy:
+    with them (and JAX, Pillow, click) blocked, every module imports, the
+    tokenizer encodes, the YAML subset reads every config and the adapt
+    command runs a tiny config on the CPU."""
+    mods = _port_modules()
+    assert {"gagan_tpu_torch.params.offsets", "gagan_tpu_torch.clip.model",
+            "gagan_tpu_torch.clip.tokenizer", "gagan_tpu_torch.ops.resize",
+            "gagan_tpu_torch.train.adapt_losses",
+            "gagan_tpu_torch.train.adaptation", "gagan_tpu_torch.cli.adapt",
+            "gagan_tpu_torch.inference", "gagan_tpu_torch.utils.yaml_subset",
+            "gagan_tpu_torch.utils.text_templates"} <= set(mods)
+    code = ("import glob, importlib, sys\n"
+            "for m in ('yaml', 'regex', 'ftfy', 'PIL', 'click', 'jax', "
+            "'gagan_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "from gagan_tpu_torch.clip.tokenizer import SimpleTokenizer\n"
+            "from gagan_tpu_torch.utils import yaml_subset\n"
+            "from gagan_tpu_torch.cli import adapt\n"
+            "from gagan_tpu_torch.entry import TINY_CLIP\n"
+            "assert SimpleTokenizer().encode('a photo')\n"
+            "for p in glob.glob('configs/*.yaml'):\n"
+            "    yaml_subset.read(p)\n"
+            "adapt.main(['--config', 'configs/td_nada_sdelta.yaml', "
+            f"'--outdir', {str(tmp_path / 'run')!r}, '--device', 'cpu', "
+            "'training.iter_num=1', 'training.batch_size=1', "
+            "'training.img_resolution=8', 'training.generator_args="
+            "{\"z_dim\": 8, \"w_dim\": 8, \"num_mapping_layers\": 1, "
+            "\"channel_base\": 64, \"channel_max\": 16}', "
+            "f'training.clip_config_overrides={TINY_CLIP!r}'])\n"
+            "for m in ('yaml', 'regex', 'ftfy'):\n"
+            "    assert sys.modules[m] is None\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert os.path.exists(tmp_path / "run" / "config.yaml")
+
+
 def test_entry_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -105,6 +154,8 @@ def test_entry_refuses_cpu_fallback():
         entry.entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.train_entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.adapt_entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
