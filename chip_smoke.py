@@ -39,7 +39,20 @@ no ok line):
                other, times, peak memory, fused launches;
   9. cli     - on the loop's snapshot: generate --projected-w and
                style_mixing, their PNGs and launch counts;
- 10. adapt   - one-shot CLIP adaptation (StyleGAN-NADA td_single, s_delta
+ 10. fewshot - few-shot Affine+ adaptation as bench.py::bench_adapt10
+               shapes it: the loop's snapshot saved as NVlabs-layout state
+               dicts and converted by cli/convert_weights.py (bit-equal, no
+               resample filters); cli/train.py --use-domain-modulation
+               (out_in_additive, G's affines and the b64 weight offsets,
+               glrate 0.02) resumed from it for 4 batches: the files, the
+               b64 offsets moved, G's frozen leaves bit-equal, its affines
+               and D moved, the fused level's backward asked for no dW,
+               generate --s-direction with the offsets; the three variants
+               of entry.fewshot_entry checked and timed (s/step, scheduled
+               s/kimg, peak memory); pallas vs composed gradients of the
+               affines and offsets (TF32 off); one adaptive layer probe at
+               FFHQ-1024 (train/auto_layers.py, random ViT-B/32);
+ 11. adapt   - one-shot CLIP adaptation (StyleGAN-NADA td_single, s_delta
                offsets) at FFHQ-1024 with a random ViT-B/32 of the real shape
                and the byte tokenizer: cli/adapt.py on
                configs/td_nada_sdelta.yaml for 21 steps (losses.jsonl at
@@ -52,7 +65,7 @@ no ok line):
                ViT-B/16, batch 4, direction loss) in blocks of 10 steps with
                one sync each, its peak memory and a torch.profiler trace of
                a step (top kernels, fused share, share with no kernel);
- 11. a JSON line of the kernels, then the JSON ok line.
+ 12. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -78,16 +91,22 @@ from gagan_tpu_torch import _build  # noqa: E402
 from gagan_tpu_torch.cli import adapt as adapt_cli  # noqa: E402
 from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
 from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
-from gagan_tpu_torch.entry import (adapt_entry, entry,  # noqa: E402
-                                   entry_config, train_configs, train_entry)
+from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
+                                   adapt_entry, entry, entry_config,
+                                   fewshot_entry, train_configs, train_entry,
+                                   train_run)
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
+from gagan_tpu_torch.params import offsets as offs_lib  # noqa: E402
 from gagan_tpu_torch.train import augment, gan_loss  # noqa: E402
+from gagan_tpu_torch.train import auto_layers  # noqa: E402
 from gagan_tpu_torch.train import loop as loop_lib  # noqa: E402
+from gagan_tpu_torch.train import masks as masks_lib  # noqa: E402
 from gagan_tpu_torch.train import train_step as ts  # noqa: E402
 from gagan_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from gagan_tpu_torch.utils import config as config_lib  # noqa: E402
 from gagan_tpu_torch.utils import png  # noqa: E402
+from gagan_tpu_torch.utils.rng import Rng  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet, at 700 W):
 # bf16 tensor-core FLOP/s, fp32 (non-tensor) FLOP/s, HBM bytes/s.
@@ -109,6 +128,13 @@ ADAPT_CONFIG = os.path.join("configs", "td_nada_sdelta.yaml")
 ADAPT_ITERS, ADAPT_BACKUP, ADAPT_LOG = 21, 20, 10
 ADAPT_BATCH, ADAPT_BLOCKS = 4, 3
 ADAPT_CLIP_OVERRIDES = None
+# The fewshot phase: cli/train.py with bench.py::bench_adapt10's options
+# (Affine+ out_in_additive, G's affines and the weight offsets of block
+# b<FEWSHOT_BLOCK>, glrate 0.02) for FEWSHOT_KIMG (4 batches of 32: one
+# "both", three "none"), resumed from the loop's snapshot converted from
+# NVlabs-layout state dicts; then the adaptive layer probe at FFHQ-1024.
+FEWSHOT_BLOCK, FEWSHOT_KIMG = 64, 0.128
+PROBE_BATCH, PROBE_ITERS, PROBE_K = 2, 2, 10
 
 
 class Case(NamedTuple):
@@ -552,6 +578,62 @@ def rel_l2(a, b, keys) -> float:
     return float(np.sqrt(num / den))
 
 
+def run_variants(label, steps, state, real, z, key, want, cfg, card, trees,
+                 check=None):
+    """Each scheduled variant (SCHEDULE) once checked, then once timed with
+    its peak memory: fused launches ``want`` (2 levels x the main rounds),
+    finite metrics, ``cur_nimg`` advanced by the batch, every state tree of
+    ``trees`` moved, ``pl_mean`` set after a Greg, and ``check(state,
+    name)`` where given.  Returns (seconds, peak memory, launches of the
+    checked runs, the last metrics)."""
+    seconds, peak_mem, launches_total = {}, {}, 0
+    batch = cfg.batch_size
+    for i, name in enumerate(SCHEDULE):
+        before = {k: clone_tree(getattr(state, k)) for k in trees}
+        nimg = state.cur_nimg
+        fmc.fused_modconv3x3.launches = 0
+        state, metrics = steps[name](state, real, None, z, None,
+                                     key.fold_in(i))
+        torch.cuda.synchronize()
+        launches = fmc.fused_modconv3x3.launches
+        launches_total += launches
+        shown = {k: round(float(v), 5) for k, v in metrics.items()}
+        print(f"{label} {name}: fused_modconv3x3 launches {launches} "
+              f"(expected {want}: 2 levels x {cfg.accum_rounds} main "
+              f"rounds); {shown}")
+        if launches != want:
+            raise AssertionError(f"{label} {name}: {launches} launches, "
+                                 f"not {want}")
+        bad = [k for k, v in metrics.items()
+               if not bool(torch.isfinite(v).all())]
+        if bad:
+            raise AssertionError(f"{label} {name}: non-finite metrics {bad}")
+        if state.cur_nimg != nimg + batch:
+            raise AssertionError(f"{label} {name}: cur_nimg {state.cur_nimg}")
+        for k, tree in before.items():
+            moved = max_change(getattr(state, k), tree)
+            if not moved > 0:
+                raise AssertionError(f"{label} {name}: {k} did not change")
+        del before
+        if name != "none" and not float(state.pl_mean) > 0:
+            raise AssertionError(f"{label} {name}: pl_mean "
+                                 f"{float(state.pl_mean)}")
+        if check is not None:
+            check(state, name)
+        # The timed run of the same variant (allocator and cuDNN warm).
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = steps[name](state, real, None, z, None,
+                                     key.fold_in(10 + i))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        peak_mem[name] = torch.cuda.max_memory_allocated()
+        print(f"{label} {name}: {seconds[name]:.4f} s/step, peak memory "
+              f"{peak_mem[name] / 2 ** 30:.3f} GiB, pl_mean "
+              f"{float(state.pl_mean):.5g} on {card}", flush=True)
+    return seconds, peak_mem, launches_total, metrics
+
+
 def train_phase(card):
     """The adversarial train step at FFHQ-1024, global batch 32, with the
     JAX training CLI's 1024^2 configuration (entry.train_configs): rounds of
@@ -570,46 +652,9 @@ def train_phase(card):
     print(f"rounds: main {cfg.accum_rounds}, g_reg {cfg.g_reg_accum_rounds}, "
           f"d_reg {cfg.d_reg_accum_rounds}; live batch {live}; "
           f"r1_gamma {cfg.loss.r1_gamma:.6g}; ada_p {float(state.ada_p)}")
-    seconds, peak_mem, launches_total = {}, {}, 0
-    for i, name in enumerate(SCHEDULE):
-        before = {k: clone_tree(getattr(state, k))
-                  for k in ("g_params", "d_params", "g_ema")}
-        nimg = state.cur_nimg
-        fmc.fused_modconv3x3.launches = 0
-        state, metrics = steps[name](state, real, None, z, None,
-                                     key.fold_in(i))
-        torch.cuda.synchronize()
-        launches = fmc.fused_modconv3x3.launches
-        launches_total += launches
-        shown = {k: round(float(v), 5) for k, v in metrics.items()}
-        print(f"{name}: fused_modconv3x3 launches {launches} (expected "
-              f"{want}: 2 levels x {cfg.accum_rounds} main rounds); {shown}")
-        if launches != want:
-            raise AssertionError(f"{name}: {launches} launches, not {want}")
-        bad = [k for k, v in metrics.items()
-               if not bool(torch.isfinite(v).all())]
-        if bad:
-            raise AssertionError(f"{name}: non-finite metrics {bad}")
-        if state.cur_nimg != nimg + TRAIN_BATCH:
-            raise AssertionError(f"{name}: cur_nimg {state.cur_nimg}")
-        for k, tree in before.items():
-            moved = max_change(getattr(state, k), tree)
-            if not moved > 0:
-                raise AssertionError(f"{name}: {k} did not change")
-        del before
-        if name != "none" and not float(state.pl_mean) > 0:
-            raise AssertionError(f"{name}: pl_mean {float(state.pl_mean)}")
-        # The timed run of the same variant (allocator and cuDNN warm).
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        state, metrics = steps[name](state, real, None, z, None,
-                                     key.fold_in(10 + i))
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-        peak_mem[name] = torch.cuda.max_memory_allocated()
-        print(f"{name}: {seconds[name]:.4f} s/step, peak memory "
-              f"{peak_mem[name] / 2 ** 30:.3f} GiB, pl_mean "
-              f"{float(state.pl_mean):.5g} on {card}", flush=True)
+    seconds, peak_mem, launches_total, metrics = run_variants(
+        "train", steps, state, real, z, key, want, cfg, card,
+        ("g_params", "d_params", "g_ema"))
     new_p = ts.ada_update(cfg, state.ada_p,
                           float(metrics["Loss/signs/real"]))
     state.ada_p = torch.tensor(new_p, device=state.ada_p.device)
@@ -1077,23 +1122,13 @@ def adapt_cli_run(tmp, snap, g_cfg, card):
     if ADAPT_CLIP_OVERRIDES:
         overrides.append(
             f"training.clip_config_overrides={ADAPT_CLIP_OVERRIDES!r}")
-    needs = []
-    bwd = fmc.fused_modconv3x3_bwd
-
-    def recording_bwd(*args, **kw):
-        needs.append(tuple(kw["needs"]))
-        return bwd(*args, **kw)
-
-    fmc.fused_modconv3x3_bwd = recording_bwd
     fmc.fused_modconv3x3.launches = 0
     t0 = time.perf_counter()
-    try:
+    with BackwardNeeds() as needs:
         trainer = adapt_cli.main(
             ["--config", os.path.join(REPO, ADAPT_CONFIG), "--network", snap,
              "--outdir", out, "--device", DEVICE] + overrides)
         torch.cuda.synchronize()
-    finally:
-        fmc.fused_modconv3x3_bwd = bwd
     wall = time.perf_counter() - t0
     launches = fmc.fused_modconv3x3.launches
     batch = trainer.cfg.batch_size
@@ -1107,11 +1142,7 @@ def adapt_cli_run(tmp, snap, g_cfg, card):
         raise AssertionError(f"adapt: {launches} launches, not {want}")
     # The level's backward: dx and d(styles) (the offsets' gradient), never
     # the weight gradient of the frozen generator.
-    if len(needs) != want or any(n[1] or not (n[0] and n[2]) for n in needs):
-        raise AssertionError(f"adapt: the fused level's backward was asked "
-                             f"for {sorted(set(needs))} in {len(needs)} calls")
-    print(f"adapt: fused backward needs (dx, dW, dstyles, ddcoefs, dnoise, "
-          f"dbias) = {sorted(set(needs))} in {len(needs)} calls: no dW")
+    needs.check("adapt", want)
     frozen = leaves_of([trainer.g_params] + [p for _, p in
                                              trainer.clip_encoders.values()])
     if any(t.requires_grad or t.grad is not None for t in frozen):
@@ -1317,6 +1348,353 @@ def trace_adapt_step(trainer, card, step_ms, top=12):
             syncs.items())) or "none"))
 
 
+def fewshot_parts():
+    """entry.FEWSHOT_OPTIONS' G parts, with the weight offsets on block
+    b<FEWSHOT_BLOCK>."""
+    return FEWSHOT_OPTIONS["generator_requires_grad_parts"].replace(
+        ".b64", f".b{FEWSHOT_BLOCK}")
+
+
+def fewshot_flags():
+    """cli/train.py's few-shot options (entry.FEWSHOT_OPTIONS)."""
+    return ["--use-domain-modulation", "--domain-modulation-parametrization",
+            FEWSHOT_OPTIONS["domain_modulation_parametrization"],
+            "--generator-requires-grad-parts", fewshot_parts(),
+            "--glrate", str(FEWSHOT_OPTIONS["glrate"])]
+
+
+def fewshot_run(batch):
+    """entry.fewshot_entry's run (its configs and parts)."""
+    return train_run(batch, **FEWSHOT_OPTIONS)
+
+
+class BackwardNeeds:
+    """Records what each call of the fused level's backward is asked for:
+    (dx, dW, dstyles, ddcoefs, dnoise, dbias)."""
+
+    def __init__(self):
+        self.calls = []
+        self._bwd = None
+
+    def __enter__(self):
+        self._bwd = fmc.fused_modconv3x3_bwd
+
+        def recording_bwd(*args, **kw):
+            self.calls.append(tuple(kw["needs"]))
+            return self._bwd(*args, **kw)
+
+        fmc.fused_modconv3x3_bwd = recording_bwd
+        return self
+
+    def __exit__(self, *exc):
+        fmc.fused_modconv3x3_bwd = self._bwd
+
+    def check(self, label, want_calls):
+        """Every call asked for dx and d(styles), none for dW."""
+        if len(self.calls) != want_calls or any(
+                n[1] or not (n[0] and n[2]) for n in self.calls):
+            raise AssertionError(
+                f"{label}: the fused level's backward was asked for "
+                f"{sorted(set(self.calls))} in {len(self.calls)} calls "
+                f"(expected {want_calls}, never dW)")
+        print(f"{label}: fused backward needs (dx, dW, dstyles, ddcoefs, "
+              f"dnoise, dbias) = {sorted(set(self.calls))} in "
+              f"{len(self.calls)} calls: no dW")
+
+
+def fewshot_phase(tmp, snap, card):
+    """Few-shot Affine+ adaptation (cli/train.py --use-domain-modulation),
+    as bench.py::bench_adapt10 shapes it: the conversion, the command, the
+    timed variants, pallas vs composed gradients and the layer probe.
+    Returns (fused launches, s/step by variant, peak memory by variant,
+    scheduled s/kimg)."""
+    phase("fewshot")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    resume = convert_snapshot(tmp, snap)
+    launches = fewshot_cli_run(tmp, resume, card)
+    torch.cuda.empty_cache()
+    steps, state, (real, _, z, _, key) = fewshot_entry(
+        DEVICE, batch=TRAIN_BATCH, ada_p=0.2)
+    run = fewshot_run(TRAIN_BATCH)
+    cfg = run.train_cfg
+    live = cfg.batch_size // cfg.accum_rounds
+    want = expected_launches(run.g_cfg, live) * cfg.accum_rounds
+    gmask = ckpt.tree_to_flat_tensors(masks_lib.generator_mask(
+        state.g_params, run.parts))
+    frozen = {k: t.clone() for k, t in ckpt.tree_to_flat_tensors(
+        state.g_params).items()
+        if not gmask[k] and not k.endswith("w_avg")}
+
+    def g_frozen_unchanged(state, name):
+        flat = ckpt.tree_to_flat_tensors(state.g_params)
+        moved = [k for k, t in frozen.items() if not torch.equal(flat[k], t)]
+        if moved:
+            raise AssertionError(f"fewshot {name}: frozen G leaves moved: "
+                                 f"{moved[:4]}")
+
+    seconds, peak_mem, n, _ = run_variants(
+        "fewshot", steps, state, real, z, key, want, cfg, card,
+        ("g_params", "d_params", "g_ema", "offsets", "offsets_ema"),
+        check=g_frozen_unchanged)
+    launches += n
+    sec_per_batch = sum(SCHEDULE[k] * seconds[k] for k in SCHEDULE) / 16
+    print(f"fewshot {run.parametrization} FFHQ-1024 batch {TRAIN_BATCH}: "
+          f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg ((12 none + 3 "
+          f"greg + 1 both) / 16 = {sec_per_batch:.4f} s/batch); "
+          f"{len(frozen)} frozen G leaves bit-equal after every variant, on "
+          f"{card}", flush=True)
+    launches += fewshot_grads_check(run, state, real[:live], z[:live],
+                                    key.fold_in(30))
+    launches += probe_check(run.g_cfg, state.g_params, card)
+    return launches, seconds, peak_mem, sec_per_batch / TRAIN_BATCH * 1000
+
+
+def nvlabs_buffers(flat):
+    """The resample-filter buffers NVlabs modules carry beside these
+    weights: one per block and one per conv layer."""
+    taps = torch.tensor([1.0, 3.0, 3.0, 1.0])
+    f = torch.outer(taps, taps) / 64
+    out = {}
+    for k, v in flat.items():
+        parts = k.split(".")
+        if (parts[-1] == "weight" and v.dim() == 4
+                and parts[-2] in ("conv0", "conv1", "fromrgb", "skip")):
+            out[".".join(parts[:-1] + ["resample_filter"])] = f
+            out[".".join(parts[:-2] + ["resample_filter"])] = f
+    return out
+
+
+def convert_snapshot(tmp, snap):
+    """The loop's snapshot as NVlabs-layout state dicts (torch.save of
+    {"G", "G_ema", "D"}, resample filters added) through the converter
+    command; the npz must hold every tensor bit for bit and no filter."""
+    trees, _ = ckpt.load_snapshot(snap)
+    nets, dropped = {}, {}
+    for name in ("G", "G_ema", "D"):
+        flat = ckpt.tree_to_flat_tensors(trees[name])
+        dropped[name] = nvlabs_buffers(flat)
+        nets[name] = {**flat, **dropped[name]}
+    src = os.path.join(tmp, "nvlabs_nets.pt")
+    dest = os.path.join(tmp, "converted.npz")
+    torch.save(nets, src)
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "gagan_tpu_torch.cli.convert_weights",
+                    "nvlabs", "--src", src, "--dest", dest], cwd=REPO,
+                   check=True, timeout=600)
+    wall = time.perf_counter() - t0
+    with np.load(dest) as data:
+        files = set(data.files)
+        for name, tensors in nets.items():
+            for k, t in tensors.items():
+                key = f"{name}/{k}"
+                if k in dropped[name]:
+                    if key in files:
+                        raise AssertionError(f"convert: {key} kept")
+                elif key not in files or not np.array_equal(
+                        data[key], t.numpy()):
+                    raise AssertionError(f"convert: {key} differs")
+    n_kept = sum(len(v) - len(dropped[k]) for k, v in nets.items())
+    n_drop = sum(len(v) for v in dropped.values())
+    print(f"convert nvlabs: {n_kept} tensors bit-equal, {n_drop} resample "
+          f"filters dropped, in {wall:.2f} s (the command's process)")
+    return dest
+
+
+def fewshot_cli_run(tmp, resume, card):
+    """cli/train.py with the few-shot options on the loop phase's PNGs,
+    resumed from ``resume``, the loop's length cut to FEWSHOT_KIMG.
+    Checks the files, the offsets, the frozen and moved leaves, the fused
+    launches and their backward's flags, and generate --s-direction on the
+    result.  Returns the fused launches."""
+    data, run_dir = os.path.join(tmp, "data"), os.path.join(tmp, "fewshot")
+    orig = loop_lib.training_loop
+
+    def cut(loop_cfg, *a, **k):
+        loop_cfg.total_kimg = FEWSHOT_KIMG
+        return orig(loop_cfg, *a, **k)
+
+    loop_lib.training_loop = cut
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    try:
+        with BackwardNeeds() as needs:
+            state = train_cli.main([
+                "--data", data, "--outdir", run_dir, "--gpus", "1", "--cfg",
+                "auto", "--batch", str(LOOP_BATCH), "--kimg", "1", "--snap",
+                "1", "--resume", resume, "--seed", "0", "--device", DEVICE]
+                + fewshot_flags())
+            torch.cuda.synchronize()
+    finally:
+        loop_lib.training_loop = orig
+    wall = time.perf_counter() - t0
+    launches = fmc.fused_modconv3x3.launches
+    run = train_cli.build_run(LOOP_RES, batch=LOOP_BATCH)
+    rounds = run.train_cfg.accum_rounds
+    batches = state.cur_nimg // LOOP_BATCH
+    grid_n = run.loop_cfg.grid_size[0] * run.loop_cfg.grid_size[1]
+    train_launches = (expected_launches(run.g_cfg, LOOP_BATCH // rounds)
+                      * rounds * batches)
+    want = train_launches + expected_launches(run.g_cfg, grid_n)
+    print(f"fewshot cli: {batches} batches in {wall:.2f} s with the resume "
+          f"and the files; fused_modconv3x3 launches {launches} (expected "
+          f"{want}: 2 levels x {rounds} main rounds x {batches} batches + 2 "
+          f"for the grid), on {card}", flush=True)
+    if state.cur_nimg != round(FEWSHOT_KIMG * 1000) or launches != want:
+        raise AssertionError(f"fewshot cli: {state.cur_nimg} images, "
+                             f"{launches} launches")
+    needs.check("fewshot cli", train_launches)
+
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    if len(lines) != 1 or not all(np.isfinite(lines[0].get(k, np.nan)) for k in
+                                  ("Loss/G/loss", "Loss/D/loss",
+                                   "Timing/sec_per_kimg")):
+        raise AssertionError(f"fewshot stats.jsonl: {lines}")
+    kimg = state.cur_nimg // 1000
+    snap = os.path.join(run_dir, f"network-snapshot-{kimg:06d}.npz")
+    adaptation = os.path.join(run_dir, f"adaptation-{kimg:06d}.npz")
+    meta, offsets, _ = ckpt.load_adaptation(adaptation)
+    names = [f"b{FEWSHOT_BLOCK}.{n}" for n in ("conv0", "conv1", "torgb")]
+    if (meta["parametrization"] != "out_in_additive"
+            or sorted(offsets) != names
+            or any(sorted(offsets[n]) != ["weights_offset"] for n in names)
+            or not all(float(offsets[n]["weights_offset"].abs().max()) > 0
+                       for n in names)):
+        raise AssertionError(f"fewshot: {adaptation} holds {meta}, "
+                             f"{ {n: sorted(v) for n, v in offsets.items()} }")
+
+    # G's frozen leaves are the resumed ones; its affines and D moved.
+    resumed, _ = ckpt.load_snapshot(resume)
+    src_g = ckpt.tree_to_flat(resumed["G"])
+    got_g = ckpt.tree_to_flat(state.g_params)
+    gmask = ckpt.tree_to_flat(masks_lib.generator_mask(
+        state.g_params, tuple(fewshot_parts().split(","))))
+    frozen = [k for k in src_g if not gmask[k] and not k.endswith("w_avg")]
+    trained = [k for k in src_g if gmask[k]]
+    if any(not np.array_equal(got_g[k], src_g[k]) for k in frozen):
+        raise AssertionError("fewshot: a frozen G leaf moved")
+    if not all(".affine." in k for k in trained) or not any(
+            not np.array_equal(got_g[k], src_g[k]) for k in trained):
+        raise AssertionError("fewshot: G's affines did not train")
+    if max_change(state.d_params, ckpt.flat_to_tree(
+            ckpt.tree_to_flat(resumed["D"]), DEVICE)) <= 0:
+        raise AssertionError("fewshot: D did not move")
+    print(f"fewshot: {os.path.basename(adaptation)} holds {names} "
+          f"(max|offset| {max(float(offsets[n]['weights_offset'].abs().max()) for n in names):.6f}); "
+          f"{len(frozen)} frozen G leaves bit-equal to the resumed ones, "
+          f"{len(trained)} affine leaves and D moved, on {card}")
+
+    # generate from the snapshot with and without the offsets.
+    outs, gen_launches = {}, 0
+    for label, extra in (("plain", []), ("offsets", ["--s-direction",
+                                                     adaptation])):
+        outs[label] = os.path.join(run_dir, "gen_" + label)
+        fmc.fused_modconv3x3.launches = 0
+        generate.main(["--network", snap, "--seeds", "0", "--outdir",
+                       outs[label], "--device", DEVICE] + extra)
+        torch.cuda.synchronize()
+        gen_launches += fmc.fused_modconv3x3.launches
+        check_pngs(outs[label], ["seed0000.png"], (LOOP_RES, LOOP_RES, 3))
+    differ = not np.array_equal(
+        png.read_png(os.path.join(outs["plain"], "seed0000.png")),
+        png.read_png(os.path.join(outs["offsets"], "seed0000.png")))
+    want_gen = 2 * expected_launches(run.g_cfg, 1)
+    print(f"fewshot generate --s-direction {os.path.basename(adaptation)}: "
+          f"differs from plain {differ}; fused_modconv3x3 launches "
+          f"{gen_launches} (expected {want_gen}), on {card}")
+    if not differ or gen_launches != want_gen:
+        raise AssertionError("fewshot generate --s-direction failed")
+    return launches + gen_launches
+
+
+def fewshot_grads_check(run, state, real, z, key):
+    """One simultaneous main round at the live batch with pallas_level
+    True and False on the same state, offsets and draws, TF32 off: the
+    gradients of G's trainable affines and of the trainable offsets.  As
+    in the train phase's check, the fused levels round at other places
+    than the composed path and the fakes differ by about 1% RMS, so every
+    gradient downstream differs by about as much; bounds: relative L2 over
+    all of them <= 2^-4, and <= 2^-2 for each affine leaf of the two fused
+    levels.  A wrong backward formula or layout errs by O(100%).  Returns
+    the fused launches."""
+    torch.backends.cudnn.allow_tf32 = False
+    g_cfg, d_cfg, cfg = run.g_cfg, run.d_cfg, run.train_cfg
+    spec = offs_lib.OffsetsSpec.from_string(run.parametrization,
+                                            weight_parts=run.parts)
+    gmask = ckpt.tree_to_flat_tensors(masks_lib.generator_mask(
+        state.g_params, run.parts))
+    affines = {k: t for k, t in ckpt.tree_to_flat_tensors(
+        state.g_params).items() if gmask[k]}
+    augment_fn = augment.make_augment_fn(run.augment_cfg)
+    plain = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+        g_cfg.synthesis, pallas_level=False))
+    grads, launches = {}, 0
+    for label, gc in (("pallas", g_cfg), ("composed", plain)):
+        fmc.fused_modconv3x3.launches = 0
+        with BackwardNeeds() as needs:
+            _, _, grads[label] = round_grads(lambda: gan_loss.gd_main_loss(
+                cfg.loss, gc, d_cfg, state.g_params, state.d_params, real,
+                None, z, None, key, augment_fn, state.ada_p,
+                hooks=offs_lib.make_hooks(spec, state.offsets)),
+                {"G": affines, "O": state.offsets})
+            torch.cuda.synchronize()
+        launches += fmc.fused_modconv3x3.launches
+        if label == "pallas":
+            needs.check("fewshot gradient check", expected_launches(
+                g_cfg, len(z)))
+    torch.backends.cudnn.allow_tf32 = True
+    a, b = grads["pallas"], grads["composed"]
+    err = rel_l2(a, b, list(a))
+    o_err = rel_l2(a, b, [k for k in a if k.startswith("O/")])
+    level = {k: rel_l2(a, b, [k]) for k in a
+             if ".b128.conv1." in k or ".b256.conv1." in k}
+    print(f"fewshot pallas vs composed gradients (TF32 off, live batch "
+          f"{len(z)}): G affines + offsets rel_l2 {err:.4g}, offsets alone "
+          f"{o_err:.4g} (bound {2 ** -4:.4g}); "
+          + ", ".join(f"{k} {v:.4g}" for k, v in level.items())
+          + f" (bound {2 ** -2:.4g})")
+    if not (err <= 2 ** -4 and all(v <= 2 ** -2 for v in level.values())):
+        raise AssertionError("fewshot: pallas and composed gradients "
+                             "disagree")
+    return launches
+
+
+def probe_check(g_cfg, g_params, card):
+    """One adaptive layer probe (train/auto_layers.py) on the few-shot G:
+    PROBE_ITERS SGD steps on W+ at batch PROBE_BATCH against a random
+    ViT-B/32's global loss; every score finite, PROBE_K names back, and
+    the fused level's backward asked for dx and d(styles) only.  Returns
+    the fused launches."""
+    (ccfg, cparams), = adapt_cli.load_clip_encoders(
+        ("ViT-B/32",), DEVICE, ADAPT_CLIP_OVERRIDES).values()
+    target = torch.randn((1, ccfg.embed_dim),
+                         generator=torch.Generator().manual_seed(6)).to(DEVICE)
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    with BackwardNeeds() as needs:
+        chosen, scores = auto_layers.determine_opt_layers(
+            Rng(21), g_cfg, g_params, ccfg, cparams, target,
+            auto_layer_iters=PROBE_ITERS, auto_layer_batch=PROBE_BATCH,
+            auto_layer_k=PROBE_K)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fmc.fused_modconv3x3.launches
+    want = PROBE_ITERS * expected_launches(g_cfg, PROBE_BATCH)
+    print(f"auto-layer probe ({PROBE_ITERS} iterations, batch {PROBE_BATCH}) "
+          f"in {wall:.2f} s: {len(scores)} scores "
+          f"{[round(float(v), 6) for v in scores]}, chosen {chosen}; "
+          f"fused_modconv3x3 launches {launches} (expected {want}), on {card}")
+    if (tuple(scores.shape) != (g_cfg.num_ws,)
+            or not bool(torch.isfinite(scores).all())
+            or len(chosen) != PROBE_K
+            or not set(chosen) <= set(g_cfg.synthesis.layer_names())
+            or launches != want):
+        raise AssertionError("auto-layer probe failed")
+    needs.check("auto-layer probe", want)
+    return launches
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -1334,11 +1712,15 @@ def main():
         remat_launches = remat_phase(card)
         torch.cuda.empty_cache()
         cli_launches += cli_snapshot_phase(snap)
+        torch.cuda.empty_cache()
+        (fewshot_launches, fewshot_seconds, fewshot_mem,
+         fewshot_sec_per_kimg) = fewshot_phase(tmp, snap, card)
     torch.cuda.empty_cache()
     adapt_launches, adapt_rate = adapt_phase(card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
-               "remat": remat_launches, "adapt": adapt_launches}
+               "remat": remat_launches, "adapt": adapt_launches,
+               "fewshot": fewshot_launches}
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
@@ -1358,7 +1740,10 @@ def main():
           f"{ {n: round(v / 2 ** 30, 3) for n, v in peak_mem.items()} }, "
           f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg; loop: "
           f"{loop_sec_per_kimg:.4f} s/kimg; adapt: {adapt_rate:.4f} "
-          f"steps/s)")
+          f"steps/s; fewshot: s/step "
+          f"{ {n: round(v, 4) for n, v in fewshot_seconds.items()} }, peak "
+          f"GiB { {n: round(v / 2 ** 30, 3) for n, v in fewshot_mem.items()} }, "
+          f"{fewshot_sec_per_kimg:.4f} s/kimg)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,10 +10,15 @@ plan (accumulation rounds, remat), as the JAX command does; the generator
 routes its eligible levels to the fused kernel (``pallas_level=True``).
 The dataset is always an :class:`ImageFolderDataset` (folder or zip).
 
+``--use-domain-modulation --domain-modulation-parametrization P`` trains an
+offsets tree of grammar P (few-shot domain adaptation, e.g.
+``out_in_additive``: Affine+) with the G parts that
+``--generator-requires-grad-parts`` names, and writes the offsets' EMA as
+``adaptation-NNNNNN.npz`` beside every network snapshot.
+
 Not ported yet, each raising ``NotImplementedError``: ``--gpus`` other than 1
-and ``--spatial-shard-min-res`` (ROADMAP item 10), ``--use-domain-modulation``
-(item 11b), and ``--packed-tail-blocks`` above 1 (the port's packed tail is
-one block).
+and ``--spatial-shard-min-res`` (ROADMAP item 10), and
+``--packed-tail-blocks`` above 1 (the port's packed tail is one block).
 """
 
 from __future__ import annotations
@@ -60,6 +65,7 @@ class Run:
     accum_rounds: Tuple[int, Optional[int], Optional[int]]
     main_remat: bool
     reg_remat: bool
+    parametrization: Optional[str] = None    # offsets grammar, or None
 
     def plan(self) -> Dict[str, Any]:
         """The plan the command prints (the JAX command's JSON)."""
@@ -101,10 +107,6 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
         raise NotImplementedError(
             "the port trains on one card: --gpus other than 1 and "
             "--spatial-shard-min-res are not ported yet (ROADMAP item 10)")
-    if use_domain_modulation:
-        raise NotImplementedError(
-            "--use-domain-modulation (offsets adaptation) is not ported yet "
-            "(ROADMAP item 11b)")
     if packed_tail_blocks > 1:
         raise NotImplementedError(
             "the port's packed tail is one block: --packed-tail-blocks 0 or 1")
@@ -204,7 +206,9 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
         initial_ada_p=(aug_p or 0.0) if aug == "fixed" else 0.0)
     return Run(g_cfg, d_cfg, train_cfg, augment_cfg, loop_cfg, spec, g_parts,
                phase_schedule, (accum_rounds, g_reg_rounds, d_reg_rounds),
-               main_remat, reg_remat)
+               main_remat, reg_remat,
+               domain_modulation_parametrization if use_domain_modulation
+               else None)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -275,14 +279,18 @@ def main(argv: Optional[List[str]] = None):
     except ValueError as e:
         ap.error(str(e))
 
-    print(f"Run: {dataset.name}-{args['cfg']}-b{run.spec['mb']}")
+    desc = f"{dataset.name}-{args['cfg']}-b{run.spec['mb']}"
+    if args["use_domain_modulation"]:
+        desc += f"-dm-{args['domain_modulation_parametrization']}"
+    print(f"Run: {desc}")
     print(json.dumps(run.plan(), indent=2, default=str))
     if dry_run:
         print("Dry run; exiting.")
         return None
     return loop_lib.training_loop(
         run.loop_cfg, run.train_cfg, run.g_cfg, run.d_cfg, dataset,
-        augment_cfg=run.augment_cfg, weight_parts=run.parts,
+        augment_cfg=run.augment_cfg, parametrization=run.parametrization,
+        weight_parts=run.parts,
         reg_remat=run.reg_remat, device=device)
 
 

@@ -8,6 +8,10 @@
   the one-device counterpart of ``__graft_entry__.dryrun_multichip`` at
   full width, configured by the port's training CLI's plan for a 1024^2 run
   (``cli/train.py::build_run``, ``--cfg auto``).
+* :func:`fewshot_entry`: the few-shot Affine+ adaptation step at
+  FFHQ-1024 (``cli/train.py --use-domain-modulation``, the shape
+  ``bench.py::bench_adapt10`` times): the train step with the b64 weight
+  offsets and G's affines trained, everything else of G frozen.
 * :func:`adapt_entry`: a one-shot CLIP adaptation trainer (``td_single``)
   at FFHQ-1024 with CLIP towers of the real shape, or at a tiny size for
   the CPU.
@@ -24,6 +28,7 @@ from . import resolve_device
 from .cli import adapt as adapt_cli
 from .cli import train as train_cli
 from .models import stylegan2 as sg2
+from .params import offsets as offs_lib
 from .train import adapt_losses as al
 from .train import adaptation as ad
 from .train import augment, train_step as ts
@@ -58,12 +63,24 @@ def entry(device="cuda", batch: int = 4):
     return forward, (params, z)
 
 
+# The few-shot Affine+ protocol of bench.py::bench_adapt10: G's affines and
+# the b64 weight offsets train, at a generator lr of 0.02.
+FEWSHOT_OPTIONS = dict(
+    use_domain_modulation=True,
+    domain_modulation_parametrization="out_in_additive",
+    generator_requires_grad_parts="synt_affine,tRGB_affine,"
+                                  "synt_weights_offset.b64,"
+                                  "tRGB_weights_offset.b64",
+    glrate=0.02)
+
+
 def train_run(batch: int = 32, img_resolution: int = 1024,
-              channel_base: Optional[int] = None):
+              channel_base: Optional[int] = None, **options):
     """The training CLI's run (``cli/train.py::build_run``, ``--cfg auto``,
-    the defaults) for ``batch`` RGB images at ``img_resolution``^2 on one
-    card; ``channel_base`` overrides both networks' (for small CPU runs)."""
-    run = train_cli.build_run(img_resolution, 3, 0, batch=batch)
+    the defaults, then ``options``) for ``batch`` RGB images at
+    ``img_resolution``^2 on one card; ``channel_base`` overrides both
+    networks' (for small CPU runs)."""
+    run = train_cli.build_run(img_resolution, 3, 0, batch=batch, **options)
     if channel_base:
         run = dataclasses.replace(
             run, g_cfg=dataclasses.replace(
@@ -102,7 +119,26 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
 
     Raises without CUDA unless ``device`` is 'cpu'."""
     device = resolve_device(device)
-    run = train_run(batch, img_resolution, channel_base)
+    return _run_steps(train_run(batch, img_resolution, channel_base), device,
+                      batch, ada_p)
+
+
+def fewshot_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
+                  channel_base: Optional[int] = None, ada_p: float = 0.0):
+    """:func:`train_entry` for the run of ``cli/train.py --cfg auto --batch
+    32 --use-domain-modulation --domain-modulation-parametrization
+    out_in_additive --generator-requires-grad-parts synt_affine,tRGB_affine,
+    synt_weights_offset.b64,tRGB_weights_offset.b64 --glrate 0.02``
+    (:data:`FEWSHOT_OPTIONS`): the state also holds the offsets (zeros from
+    ``init_offsets``, their EMA and Adam state), and every G phase trains
+    G's affines and the b64 weight offsets together.  Raises without CUDA
+    unless ``device`` is 'cpu'."""
+    device = resolve_device(device)
+    return _run_steps(train_run(batch, img_resolution, channel_base,
+                                **FEWSHOT_OPTIONS), device, batch, ada_p)
+
+
+def _run_steps(run, device, batch: int, ada_p: float):
     g_cfg, d_cfg, cfg, aug_cfg = (run.g_cfg, run.d_cfg, run.train_cfg,
                                   run.augment_cfg)
     r1_d_cfg = dataclasses.replace(d_cfg, remat=True) if run.reg_remat else None
@@ -113,6 +149,13 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
     g_tx, d_tx, _, _ = ts.build_optimizers(cfg, g_params, d_params)
     state = ts.init_train_state(cfg, g_params, d_params, g_tx, d_tx)
     state.ada_p = torch.tensor(float(ada_p), device=device)
+    spec = offsets_tx = None
+    if run.parametrization:
+        spec = offs_lib.OffsetsSpec.from_string(run.parametrization,
+                                                weight_parts=run.parts)
+        offsets = offs_lib.init_offsets(Rng(4), g_cfg.synthesis, spec, device)
+        offsets_tx = ts.build_offsets_optimizer(cfg, spec, offsets, run.parts)
+        ts.init_offsets_state(state, offsets, offsets_tx)
     pl_g_cfg = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
         g_cfg.synthesis, pallas_level=False))
     augment_fn = augment.make_augment_fn(aug_cfg)
@@ -122,7 +165,8 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
         steps[name] = ts.make_fused_step(
             cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
             do_g_reg=do_g, do_d_reg=do_d, reg_g_cfg=pl_g_cfg if do_g else None,
-            reg_d_cfg=r1_d_cfg if do_d else None)
+            reg_d_cfg=r1_d_cfg if do_d else None, offsets_spec=spec,
+            offsets_tx=offsets_tx)
     gen = torch.Generator().manual_seed(2)
     res = g_cfg.img_resolution
     real = (torch.rand((batch, g_cfg.img_channels, res, res), generator=gen)

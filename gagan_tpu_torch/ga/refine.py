@@ -58,6 +58,7 @@ def apply_genetic_refinement(
     threshold: float = 0.5,
     mutation_rate: float = 0.1,
     encoder_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    hooks: Optional[sg2.LayerHooks] = None,
     return_mask: bool = False,
 ):
     """Fakes with near-boundary samples replaced by GA offspring (and, with
@@ -81,7 +82,7 @@ def apply_genetic_refinement(
         children = dynamic_mutation(k_mut, children, mutation_rate)
         new_imgs = sg2.synthesis_apply(g_cfg.synthesis, g_params["synthesis"],
                                        children, noise_mode="random",
-                                       generator=k_noise)
+                                       generator=k_noise, hooks=hooks)
         out = torch.where(mask[:, None, None, None], new_imgs, fake_img)
     if return_mask:
         return out, mask

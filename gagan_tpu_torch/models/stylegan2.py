@@ -707,6 +707,67 @@ def generator_styles(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
     return styles
 
 
+def synthesis_from_styles(cfg: SynthesisConfig, params: Params,
+                          styles: List[torch.Tensor],
+                          noise_mode: str = "const",
+                          generator: "Optional[torch.Generator | Rng]" = None,
+                          hooks: Optional[LayerHooks] = None) -> torch.Tensor:
+    """The synthesis forward from explicit per-layer styles (S space, in
+    layer_names() order, the torgb styles with their weight gain as
+    :func:`generator_styles` gives them).  Composed ops in float32 on the
+    unpacked blocks, as the JAX function is: the fused level, bf16 and the
+    packed tail are not taken.  Weight hooks apply; the styles are taken
+    as given."""
+    if noise_mode not in ("random", "const", "none"):
+        raise ValueError(f"noise_mode must be random, const or none, "
+                         f"got {noise_mode!r}")
+    if cfg.architecture != "skip":
+        raise NotImplementedError(
+            f"architecture={cfg.architecture!r}: the port has 'skip' only")
+    rng = generator
+    if noise_mode == "random" and isinstance(generator, torch.Generator):
+        rng = Rng.from_generator(generator)
+    styles = list(styles)
+    batch = styles[0].shape[0]
+    resample_filter = setup_filter(cfg.resample_filter,
+                                   device=styles[0].device)
+    spec = activation_funcs[cfg.activation]
+
+    def layer_fwd(lp, x, s, res, up, name, demodulate=True):
+        weight = _layer_weight(lp, name, hooks)
+        noise = (_noise(cfg, lp, noise_mode, (batch, 1, res, res), rng, name)
+                 if demodulate else None)
+        x = modulated_conv2d(x, weight, s, up=up, padding=weight.shape[-1] // 2,
+                             resample_filter=resample_filter if up > 1 else None,
+                             demodulate=demodulate, flip_weight=(up == 1))
+        if noise is not None:
+            x = x + noise.to(x.dtype)
+        if demodulate:
+            return bias_act(x, lp["bias"].to(x.dtype), act=cfg.activation,
+                            gain=spec.def_gain, clamp=cfg.conv_clamp)
+        return bias_act(x, lp["bias"].to(x.dtype), clamp=cfg.conv_clamp)
+
+    idx = 0
+    x = img = None
+    for res in cfg.block_resolutions:
+        block = params[f"b{res}"]
+        if res == 4:
+            x = block["const"].float()[None].repeat(batch, 1, 1, 1)
+        else:
+            x = layer_fwd(block["conv0"], x, styles[idx], res, 2,
+                          f"b{res}.conv0")
+            idx += 1
+        x = layer_fwd(block["conv1"], x, styles[idx], res, 1, f"b{res}.conv1")
+        idx += 1
+        if img is not None:
+            img = upsample2d(img, resample_filter)
+        y = layer_fwd(block["torgb"], x, styles[idx], res, 1,
+                      f"b{res}.torgb", demodulate=False).float()
+        idx += 1
+        img = y if img is None else img + y
+    return img
+
+
 # ----------------------------------------------------------------------------
 # Discriminator
 

@@ -16,10 +16,13 @@ passes on the same noise.  Both CLIP passes run as one batch per tower.
 Losses stay on the device: ``train`` reads them on the host only on the
 log cadence.
 
+With ``auto_layer_iters > 0`` each step first runs the adaptive layer
+probe (train/auto_layers.py) on its own key and trains only the offsets of
+the top ``auto_layer_k`` layers, as the JAX trainer does.
+
 The JAX module's other trainers (``im2im_single``, ``im2im_JoJo``,
-``im2im_difa``), the DiFa SCC loss inside the trainer and the adaptive
-layer freezing (``auto_layer_iters``) are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+``im2im_difa``) and the DiFa SCC loss inside the trainer are not ported yet
+and raise ``NotImplementedError`` naming the ROADMAP item they wait for.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils.config import to_dict
 from . import adapt_losses as al
+from . import auto_layers
 from .train_step import Adam
 
 Params = Dict[str, Any]
@@ -135,6 +139,7 @@ class AdaptationTrainer:
                            ckpt.tree_to_flat_tensors(mask).items())))
         self.opt_state = self.tx.init(self.offsets)
         self.current_step = 0
+        self._auto_score_fn = None
 
     @staticmethod
     def check_config(cfg: AdaptationConfig):
@@ -145,10 +150,6 @@ class AdaptationTrainer:
                 f"{_UNPORTED_TRAINERS[cfg.trainer]}; the port has td_single")
         if cfg.trainer != "td_single":
             raise ValueError(f"unknown trainer {cfg.trainer!r}")
-        if cfg.auto_layer_iters > 0:
-            raise NotImplementedError(
-                "auto_layer_iters > 0 (adaptive layer freezing, "
-                "train/auto_layers.py) is not ported yet (ROADMAP item 11b)")
         if cfg.loss.scc is not None:
             raise NotImplementedError(
                 "difa_w (the SCC loss) needs the e4e image encoder, not "
@@ -238,11 +239,34 @@ class AdaptationTrainer:
                  for (k, t), g in zip(leaves.items(), grads)}
         return {k: v.detach() for k, v in losses.items()}, grads
 
+    def _auto_layer_mask(self, key) -> Dict[str, torch.Tensor]:
+        """The step's 0/1 gradient mask by dotted key: the adaptive layer
+        probe on the first visual encoder, from ``key``'s latents and
+        noise."""
+        cfg = self.cfg
+        enc = cfg.visual_encoders[0]
+        ccfg, cparams = self.clip_encoders[enc]
+        if self._auto_score_fn is None:
+            self._auto_score_fn = auto_layers.make_layer_score_fn(
+                self.g_cfg, ccfg, cfg.auto_layer_iters)
+        k_z, k_opt = key.split(2)
+        z = k_z.normal((cfg.auto_layer_batch, self.g_cfg.z_dim), self.device)
+        scores = self._auto_score_fn(self.g_params, cparams,
+                                     self.domain_embeddings[enc]["trg"], z,
+                                     k_opt)
+        chosen = auto_layers.choose_layers(
+            scores, self.g_cfg.synthesis.layer_names(), cfg.auto_layer_k)
+        return ckpt.tree_to_flat_tensors(
+            auto_layers.layer_grad_mask(self.offsets, chosen))
+
     def train_step_async(self) -> Dict[str, torch.Tensor]:
         """One adaptation step; the losses stay on the device."""
         cfg = self.cfg
-        self.rng, k_step, _ = self.rng.split(3)
+        self.rng, k_step, k_auto = self.rng.split(3)
         losses, grads = self.loss_and_grads(k_step)
+        if cfg.auto_layer_iters > 0:
+            mask = self._auto_layer_mask(k_auto)
+            grads = {k: g * mask[k] for k, g in grads.items()}
         if cfg.weight_decay:
             leaves = self.tx.trainable(self.offsets)
             grads = {k: g + cfg.weight_decay * leaves[k]

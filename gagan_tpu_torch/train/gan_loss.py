@@ -68,13 +68,15 @@ def run_mapping_with_mixing(g_cfg: sg2.GeneratorConfig, g_params: Params,
 
 
 def run_G(g_cfg: sg2.GeneratorConfig, g_params: Params, z: torch.Tensor,
-          c: Optional[torch.Tensor], key, style_mixing_prob: float
+          c: Optional[torch.Tensor], key, style_mixing_prob: float,
+          hooks: Optional[sg2.LayerHooks] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     k_mix, k_noise = key.split(2)
     ws = run_mapping_with_mixing(g_cfg, g_params, z, c, k_mix,
                                  style_mixing_prob)
     img = sg2.synthesis_apply(g_cfg.synthesis, g_params["synthesis"], ws,
-                              noise_mode="random", generator=k_noise)
+                              noise_mode="random", generator=k_noise,
+                              hooks=hooks)
     return img, ws
 
 
@@ -89,10 +91,12 @@ def run_D(d_cfg: sg2.DiscriminatorConfig, d_params: Params,
 def g_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                 d_cfg: sg2.DiscriminatorConfig, g_params: Params,
                 d_params: Params, z: torch.Tensor, c: Optional[torch.Tensor],
-                key, augment_fn: AugmentFn = None, ada_p=None):
+                key, augment_fn: AugmentFn = None, ada_p=None,
+                hooks: Optional[sg2.LayerHooks] = None):
     """Gmain: maximize D's logits on fakes."""
     k_g, k_aug = key.split(2)
-    gen_img, gen_ws = run_G(g_cfg, g_params, z, c, k_g, cfg.style_mixing_prob)
+    gen_img, gen_ws = run_G(g_cfg, g_params, z, c, k_g, cfg.style_mixing_prob,
+                            hooks)
     gen_logits = run_D(d_cfg, d_params, gen_img, c, augment_fn, ada_p, k_aug)
     loss = softplus(-gen_logits).mean()
     metrics = {
@@ -107,7 +111,8 @@ def g_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 
 def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
               g_params: Params, z: torch.Tensor, c: Optional[torch.Tensor],
-              key, pl_mean: torch.Tensor):
+              key, pl_mean: torch.Tensor,
+              hooks: Optional[sg2.LayerHooks] = None):
     """Greg: path-length regularization.  ``metrics['aux/pl_mean']`` is the
     updated moving average (the trainer stores it)."""
     batch = z.shape[0] // cfg.pl_batch_shrink
@@ -117,8 +122,13 @@ def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     k_mix, k_noise, k_pl = key.split(3)
     ws = run_mapping_with_mixing(g_cfg, g_params, z, c, k_mix,
                                  cfg.style_mixing_prob)
+    if not ws.requires_grad:
+        # A frozen mapping net: nothing before ws takes a gradient, so ws
+        # becomes the leaf that the path-length VJP differentiates.
+        ws = ws.detach().requires_grad_(True)
     img = sg2.synthesis_apply(g_cfg.synthesis, g_params["synthesis"], ws,
-                              noise_mode="random", generator=k_noise)
+                              noise_mode="random", generator=k_noise,
+                              hooks=hooks)
     pl_noise = k_pl.normal(img.shape, device=img.device).to(img.dtype) / (
         np.sqrt(img.shape[2] * img.shape[3]))
     # d/dws sum(img * noise): one VJP through the synthesis network, kept
@@ -140,7 +150,7 @@ def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 
 def _ga_refine_fakes(g_cfg, d_cfg, g_params, d_params, real_img, gen_img,
                      gen_ws, key, ga_threshold: float,
-                     ga_mutation_rate: float):
+                     ga_mutation_rate: float, hooks=None):
     """GA refinement of near-boundary fakes before D scores them: fakes
     whose |D(real) - D(fake)| < threshold are replaced by crossed and
     mutated offspring regenerated through G.  A data transformation outside
@@ -150,7 +160,7 @@ def _ga_refine_fakes(g_cfg, d_cfg, g_params, d_params, real_img, gen_img,
     refined, mask = apply_genetic_refinement(
         g_cfg, g_params, d_cfg, d_params, real_img, gen_img, gen_ws, key,
         threshold=ga_threshold, mutation_rate=ga_mutation_rate,
-        return_mask=True)
+        hooks=hooks, return_mask=True)
     return refined, mask.float().mean()
 
 
@@ -160,6 +170,7 @@ def d_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                 real_c: Optional[torch.Tensor], z: torch.Tensor,
                 gen_c: Optional[torch.Tensor], key,
                 augment_fn: AugmentFn = None, ada_p=None,
+                hooks: Optional[sg2.LayerHooks] = None,
                 ga_threshold: Optional[float] = None,
                 ga_mutation_rate: float = 0.1):
     """Dmain: minimize logits on fakes, maximize on reals; with
@@ -168,12 +179,12 @@ def d_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     k_g, k_aug1, k_aug2, k_ga = key.split(4)
     with torch.no_grad():
         gen_img, gen_ws = run_G(g_cfg, g_params, z, gen_c, k_g,
-                                cfg.style_mixing_prob)
+                                cfg.style_mixing_prob, hooks)
     metrics: Dict[str, torch.Tensor] = {}
     if ga_threshold is not None:
         gen_img, replaced = _ga_refine_fakes(
             g_cfg, d_cfg, g_params, d_params, real_img, gen_img, gen_ws,
-            k_ga, ga_threshold, ga_mutation_rate)
+            k_ga, ga_threshold, ga_mutation_rate, hooks)
         metrics["Loss/ga/replaced"] = replaced
     gen_logits = run_D(d_cfg, d_params, gen_img, gen_c, augment_fn, ada_p,
                        k_aug1)
@@ -197,6 +208,7 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                  real_c: Optional[torch.Tensor], z: torch.Tensor,
                  gen_c: Optional[torch.Tensor], key,
                  augment_fn: AugmentFn = None, ada_p=None,
+                 hooks: Optional[sg2.LayerHooks] = None,
                  ga_threshold: Optional[float] = None,
                  ga_mutation_rate: float = 0.1):
     """Gmain + Dmain as one scalar over one G forward: loss_g sees detached
@@ -208,7 +220,7 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     k_g, k_aug, k_ga = key.split(3)
     k_aug1, k_aug2 = k_aug.split(2)
     gen_img, gen_ws = run_G(g_cfg, g_params, z, gen_c, k_g,
-                            cfg.style_mixing_prob)
+                            cfg.style_mixing_prob, hooks)
 
     # G route: D with frozen parameters.
     d_frozen = sg2.tree_map(torch.Tensor.detach, d_params)
@@ -222,7 +234,7 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     if ga_threshold is not None:
         gen_img_d, replaced = _ga_refine_fakes(
             g_cfg, d_cfg, g_params, d_params, real_img, gen_img_d, gen_ws,
-            k_ga, ga_threshold, ga_mutation_rate)
+            k_ga, ga_threshold, ga_mutation_rate, hooks)
         metrics["Loss/ga/replaced"] = replaced
     gen_logits_d = run_D(d_cfg, d_params, gen_img_d, gen_c, augment_fn, ada_p,
                          k_aug1)

@@ -5,11 +5,17 @@ tick-cadenced status lines and ``stats.jsonl``, image grids and network
 snapshots, the ADA p heuristic, abort polling, resume from a snapshot of
 either package, and an optional metrics hook.  Draws come from one root
 draw source on the JAX loop's key tree (``utils/rng.py``): the networks'
-init keys, the grid latents, then per batch a latent key and a step key.
+init keys, the offsets' key (with a ``parametrization``), the grid latents,
+then per batch a latent key and a step key.
 
-Not ported yet, each raising ``NotImplementedError``: the offsets
-parameterization (``parametrization``; ROADMAP item 11b), more than one device
-and spatial sharding (item 10), and the native zip loader (item 15).
+With a ``parametrization`` (few-shot domain adaptation, ``cli/train.py
+--use-domain-modulation``) the G phases also train an offsets tree
+(params/offsets.py) on its own Adam, and every network snapshot comes with
+an ``adaptation-NNNNNN.npz`` of the offsets' EMA.  As in the JAX loop, the
+snapshot grid is drawn from G_ema without the offsets.
+
+Not ported yet, each raising ``NotImplementedError``: more than one device
+and spatial sharding (ROADMAP item 10), and the native zip loader (item 15).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from .. import resolve_device
 from ..data.dataset import data_loader
 from ..models import stylegan2 as sg2
+from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils import config as config_lib
 from ..utils.png import write_png
@@ -85,11 +92,7 @@ def _merge(dst, src):
                 dst[k] = v.to(device=dst[k].device, dtype=dst[k].dtype)
 
 
-def _refuse(loop_cfg, dataset, parametrization, spatial_shard_min_res):
-    if parametrization:
-        raise NotImplementedError(
-            "parametrization (offsets domain adaptation) is not ported yet "
-            "(ROADMAP item 11b)")
+def _refuse(loop_cfg, dataset, spatial_shard_min_res):
     if loop_cfg.n_devices not in (None, 1) or spatial_shard_min_res is not None:
         raise NotImplementedError(
             "the port trains on one card: n_devices other than 1 and "
@@ -120,7 +123,7 @@ def training_loop(
     ``device`` is the card (default) or 'cpu'; ``rng`` is the root draw
     source (default ``Rng(loop_cfg.random_seed)``; anything with the
     ``Rng`` methods, e.g. JAX's key tree in the tests)."""
-    _refuse(loop_cfg, dataset, parametrization, spatial_shard_min_res)
+    _refuse(loop_cfg, dataset, spatial_shard_min_res)
     device = resolve_device(device)
     run_dir = loop_cfg.run_dir
     os.makedirs(run_dir, exist_ok=True)
@@ -138,8 +141,21 @@ def training_loop(
         if "D" in trees:
             _merge(d_params, trees["D"])
 
+    # The offsets parameterization (domain adaptation).
+    offsets_spec = offsets_tx = None
+    if parametrization:
+        offsets_spec = offs_lib.OffsetsSpec.from_string(
+            parametrization, weight_parts=weight_parts)
+        key, k_off = key.split(2)
+        offsets = offs_lib.init_offsets(k_off, g_cfg.synthesis, offsets_spec,
+                                        device)
+        offsets_tx = ts.build_offsets_optimizer(train_cfg, offsets_spec,
+                                                offsets, weight_parts)
+
     g_tx, d_tx, _gm, _dm = ts.build_optimizers(train_cfg, g_params, d_params)
     state = ts.init_train_state(train_cfg, g_params, d_params, g_tx, d_tx)
+    if offsets_spec is not None:
+        ts.init_offsets_state(state, offsets, offsets_tx)
     if "G_ema" in trees:
         _merge(state.g_ema, trees["G_ema"])
     if loop_cfg.initial_ada_p:
@@ -165,7 +181,8 @@ def training_loop(
                 train_cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
                 do_g_reg=do_g, do_d_reg=do_d,
                 reg_g_cfg=pl_g_cfg if do_g else None,
-                reg_d_cfg=r1_d_cfg if do_d else None)
+                reg_d_cfg=r1_d_cfg if do_d else None,
+                offsets_spec=offsets_spec, offsets_tx=offsets_tx)
 
     # Data: decoded by the loader's threads into pinned host memory when
     # the card is the target, then copied without blocking the host.
@@ -282,6 +299,14 @@ def training_loop(
                         "d_cfg": config_lib.to_dict(d_cfg)},
                 extra={"pl_mean": state.pl_mean, "ada_p": state.ada_p,
                        "cur_nimg": np.asarray(state.cur_nimg, np.int32)})
+            if offsets_spec is not None:
+                ckpt.save_adaptation(
+                    os.path.join(run_dir,
+                                 f"adaptation-{cur_nimg // 1000:06d}.npz"),
+                    model_type="parametrization",
+                    parametrization=parametrization,
+                    offsets=state.offsets_ema,
+                    sg2_config=config_lib.to_dict(g_cfg))
             if loop_cfg.metrics_fn is not None:
                 loop_cfg.metrics_fn(state.g_ema, g_cfg, snapshot=snap_path)
 

@@ -89,6 +89,17 @@ def generator_mask(params: Dict[str, Any], parts: Sequence[str]) -> Dict[str, An
     return _walk(params, (), fn)
 
 
+def offsets_mask(offsets: Dict[str, Any], parts: Sequence[str]) -> Dict[str, Any]:
+    """Mask over an offsets tree (layer names 'b<res>.conv0' etc.): each
+    path is read with a 'synthesis.' prefix, so one parts grammar serves
+    both trees."""
+
+    def fn(path):
+        return path_trainable("synthesis." + ".".join(path), parts)
+
+    return _walk(offsets, (), fn)
+
+
 def discriminator_mask(params: Dict[str, Any], parts: Sequence[str] = ("all",),
                        freeze_layers: int = 0) -> Dict[str, Any]:
     """D mask; ``freeze_layers`` freezes the first N conv layers from the top

@@ -12,6 +12,11 @@ the ``w_avg`` / ``pl_mean`` updates, ADA and the GA splice.
 * Rounds AVERAGE the per-round gradients and metrics, as the JAX module does
   (a deliberate deviation from the reference's sum; see
   ``TrainConfig.accum_rounds``).
+* With an offsets spec and optimizer (domain adaptation: Affine+,
+  AffineLight+, StyleSpace+), every G phase differentiates G's trainable
+  leaves and the trainable offsets together under the offsets' hooks, and
+  the offsets take their own masked Adam step after G's; Dmain runs G under
+  the hooks without gradients; the offsets keep an EMA of their own.
 
 Unlike the JAX module's pure functions, the steps update the state's
 tensors in place (parameters, EMA, optimizer moments) to save device memory,
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ..models import stylegan2 as sg2
+from ..params import offsets as offs_lib
 from ..utils.checkpoint import tree_to_flat_tensors
 from . import gan_loss, masks as masks_lib
 
@@ -131,6 +137,11 @@ class TrainState:
     pl_mean: torch.Tensor
     ada_p: torch.Tensor
     cur_nimg: int                        # image counter (host int)
+    # The offsets parameterization of domain adaptation, trained with the
+    # unfrozen generator parts in the G phases.
+    offsets: Optional[Params] = None
+    offsets_ema: Optional[Params] = None
+    offsets_opt_state: Optional[AdamState] = None
 
 
 def _lazy_scaled_adam(lr: float, betas: Tuple[float, float], eps: float,
@@ -205,6 +216,29 @@ def build_optimizers(cfg: TrainConfig, g_params: Params, d_params: Params):
     return g_tx, d_tx, g_mask, d_mask
 
 
+def build_offsets_optimizer(cfg: TrainConfig, spec: offs_lib.OffsetsSpec,
+                            offsets: Params,
+                            weight_parts: Tuple[str, ...]) -> Adam:
+    """The offsets' optimizer: plain Adam at ``g_lr`` with the config's
+    betas and eps, without G's lazy-regularization scaling, on the leaves
+    that are both trainable under ``spec`` and named by ``weight_parts``."""
+    trainable = tree_to_flat_tensors(offs_lib.trainable_mask(spec, offsets))
+    parts = tree_to_flat_tensors(masks_lib.offsets_mask(offsets, weight_parts))
+    mask = {k: trainable[k] and parts[k] for k in trainable}
+    return dataclasses.replace(
+        Adam(cfg.g_lr, cfg.adam_beta1, cfg.adam_beta2, cfg.adam_eps),
+        mask=tuple(sorted(mask.items())))
+
+
+def init_offsets_state(state: "TrainState", offsets: Params,
+                       offsets_tx: Adam) -> "TrainState":
+    """Adds the offsets, a copy as their EMA, and their optimizer state."""
+    state.offsets = offsets
+    state.offsets_ema = sg2.tree_map(torch.clone, offsets)
+    state.offsets_opt_state = offsets_tx.init(offsets)
+    return state
+
+
 def init_train_state(cfg: TrainConfig, g_params: Params, d_params: Params,
                      g_tx: Adam, d_tx: Adam) -> TrainState:
     device = next(iter(tree_to_flat_tensors(g_params).values())).device
@@ -242,6 +276,25 @@ def ema_update(g_params: Params, g_ema: Params, cur_nimg: int,
 
 
 @torch.no_grad()
+def _offsets_ema_update(state: TrainState, cfg: TrainConfig):
+    """The offsets EMA in place: every leaf, frozen or not, lerped with
+    G_ema's beta at the new ``cur_nimg``."""
+    beta = _ema_beta(cfg, state.cur_nimg)
+    params = tree_to_flat_tensors(state.offsets)
+    for k, e in tree_to_flat_tensors(state.offsets_ema).items():
+        p = params[k]
+        e.copy_(p + beta * (e - p))
+
+
+def _prefixed(prefix: str, tree: Dict[str, torch.Tensor]):
+    return {prefix + k: v for k, v in tree.items()}
+
+
+def _unprefixed(prefix: str, tree: Dict[str, torch.Tensor]):
+    return {k[len(prefix):]: v for k, v in tree.items() if k.startswith(prefix)}
+
+
+@torch.no_grad()
 def _update_w_avg(g_cfg: sg2.GeneratorConfig, g_params: Params,
                   metrics: Dict[str, torch.Tensor]):
     """The functional w_avg update (networks.py:824-827), in place."""
@@ -255,14 +308,15 @@ def _refuse(**unported):
     for name, value in unported.items():
         if value is not None:
             raise NotImplementedError(
-                f"{name} is not ported yet (offsets adaptation and spatial "
-                f"sharding come in later slices)")
+                f"{name} is not ported yet (spatial sharding, ROADMAP "
+                f"item 10)")
 
 
 def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                      d_cfg: sg2.DiscriminatorConfig, g_tx: Adam, d_tx: Adam,
                      augment_fn: gan_loss.AugmentFn = None,
-                     offsets_spec=None, offsets_tx=None,
+                     offsets_spec: Optional[offs_lib.OffsetsSpec] = None,
+                     offsets_tx: Optional[Adam] = None,
                      reg_g_cfg: Optional[sg2.GeneratorConfig] = None,
                      reg_d_cfg: Optional[sg2.DiscriminatorConfig] = None,
                      extra_hooks=None, d_constraint=None):
@@ -270,9 +324,10 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
     ``step(state, ...) -> (state, metrics)``.  ``reg_g_cfg`` / ``reg_d_cfg``
     override the model configs of the reg phases only (the path-length
     phase needs ``pallas_level=False``: the fused level is differentiable
-    once)."""
-    _refuse(offsets_spec=offsets_spec, offsets_tx=offsets_tx,
-            extra_hooks=extra_hooks, d_constraint=d_constraint)
+    once).  With ``offsets_spec`` every G forward runs under the hooks of
+    ``state.offsets``, and with ``offsets_tx`` the G phases train the
+    offsets' trainable leaves too."""
+    _refuse(extra_hooks=extra_hooks, d_constraint=d_constraint)
     lcfg = cfg.loss
     reg_g_cfg = reg_g_cfg or g_cfg
     reg_d_cfg = reg_d_cfg or d_cfg
@@ -281,41 +336,59 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
     g_reg_rounds = max(cfg.g_reg_accum_rounds or reg_default, 1)
     d_reg_rounds = max(cfg.d_reg_accum_rounds or reg_default, 1)
 
-    def g_main_step(state: TrainState, z, c, key):
-        leaves = g_tx.trainable(state.g_params)
+    def make_hooks(offsets):
+        if offsets_spec is None:
+            return None
+        return offs_lib.make_hooks(offsets_spec, offsets)
 
+    def g_leaves(state: TrainState):
+        """G's trainable leaves ("G/"), and the offsets' ("O/") when they
+        train."""
+        leaves = _prefixed("G/", g_tx.trainable(state.g_params))
+        if offsets_tx is not None:
+            leaves.update(_prefixed("O/", offsets_tx.trainable(state.offsets)))
+        return leaves
+
+    def g_update_(state: TrainState, grads):
+        """G's Adam step, then the offsets' on their own optimizer."""
+        g_tx.update_(_unprefixed("G/", grads), state.g_opt_state,
+                     state.g_params)
+        if offsets_tx is not None:
+            offsets_tx.update_(_unprefixed("O/", grads),
+                               state.offsets_opt_state, state.offsets)
+
+    def g_main_step(state: TrainState, z, c, key):
         def run_round(r, k):
             return gan_loss.g_main_loss(
                 lcfg, g_cfg, d_cfg, state.g_params, state.d_params,
                 _chunk(z, main_rounds, r), _chunk(c, main_rounds, r), k,
-                augment_fn=augment_fn, ada_p=state.ada_p)
+                augment_fn=augment_fn, ada_p=state.ada_p,
+                hooks=make_hooks(state.offsets))
 
-        metrics, grads = _accum(run_round, main_rounds, key, leaves)
-        g_tx.update_(_scrub(grads), state.g_opt_state, state.g_params)
+        metrics, grads = _accum(run_round, main_rounds, key, g_leaves(state))
+        g_update_(state, _scrub(grads))
         _update_w_avg(g_cfg, state.g_params, metrics)
         return state, metrics
 
     def g_reg_step(state: TrainState, z, c, key):
         gain = float(cfg.g_reg_interval or 1)
-        leaves = g_tx.trainable(state.g_params)
 
         def run_round(r, k):
             loss, metrics = gan_loss.g_pl_loss(
                 lcfg, reg_g_cfg, state.g_params, _chunk(z, g_reg_rounds, r),
-                _chunk(c, g_reg_rounds, r), k, state.pl_mean)
+                _chunk(c, g_reg_rounds, r), k, state.pl_mean,
+                hooks=make_hooks(state.offsets))
             return loss * gain, metrics
 
-        metrics, grads = _accum(run_round, g_reg_rounds, key, leaves)
-        g_tx.update_(_scrub(grads), state.g_opt_state, state.g_params)
+        metrics, grads = _accum(run_round, g_reg_rounds, key, g_leaves(state))
+        g_update_(state, _scrub(grads))
         state.pl_mean = metrics.pop("aux/pl_mean")
         return state, metrics
 
     def gd_main_step(state: TrainState, real_img, real_c, z, gen_c, key):
         """Simultaneous Gmain+Dmain over one shared G forward."""
-        g_leaves = g_tx.trainable(state.g_params)
-        d_leaves = d_tx.trainable(state.d_params)
-        leaves = {**{"G/" + k: v for k, v in g_leaves.items()},
-                  **{"D/" + k: v for k, v in d_leaves.items()}}
+        leaves = g_leaves(state)
+        leaves.update(_prefixed("D/", d_tx.trainable(state.d_params)))
 
         def run_round(r, k):
             return gan_loss.gd_main_loss(
@@ -324,15 +397,15 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 _chunk(real_c, main_rounds, r),
                 _chunk(z, main_rounds, r), _chunk(gen_c, main_rounds, r), k,
                 augment_fn=augment_fn, ada_p=state.ada_p,
+                hooks=make_hooks(state.offsets),
                 ga_threshold=cfg.ga_threshold,
                 ga_mutation_rate=cfg.ga_mutation_rate)
 
         metrics, grads = _accum(run_round, main_rounds, key, leaves)
         grads = _scrub(grads)
-        g_tx.update_({k: grads["G/" + k] for k in g_leaves},
-                     state.g_opt_state, state.g_params)
-        d_tx.update_({k: grads["D/" + k] for k in d_leaves},
-                     state.d_opt_state, state.d_params)
+        g_update_(state, grads)
+        d_tx.update_(_unprefixed("D/", grads), state.d_opt_state,
+                     state.d_params)
         _update_w_avg(g_cfg, state.g_params, metrics)
         return state, metrics
 
@@ -346,6 +419,7 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 _chunk(real_c, main_rounds, r),
                 _chunk(z, main_rounds, r), _chunk(gen_c, main_rounds, r), k,
                 augment_fn=augment_fn, ada_p=state.ada_p,
+                hooks=make_hooks(state.offsets),
                 ga_threshold=cfg.ga_threshold,
                 ga_mutation_rate=cfg.ga_mutation_rate)
 
@@ -408,6 +482,8 @@ def make_fused_step(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
             metrics.update(m)
         state.cur_nimg += cfg.batch_size
         ema_update(state.g_params, state.g_ema, state.cur_nimg, cfg)
+        if state.offsets is not None and state.offsets_ema is not None:
+            _offsets_ema_update(state, cfg)
         return state, metrics
 
     return step

@@ -227,3 +227,60 @@ def test_adapt_phase_drives_the_full_size_path():
     assert cfg["training"]["visual_encoders"] == ["ViT-B/32"]
     assert (cs.ADAPT_ITERS, cs.ADAPT_BACKUP, cs.ADAPT_LOG) == (21, 20, 10)
     assert cs.ADAPT_CLIP_OVERRIDES is None
+
+
+# ----------------------------------------------------------------------------
+# The fewshot phase's control flow
+
+
+def test_fewshot_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """The fewshot phase on the CPU at a small size, after the loop phase
+    that it takes its PNGs and snapshot from: the conversion through the
+    command's process, cli/train.py with the Affine+ options on block b8
+    of a 16^2 run (2 batches of 4), generate --s-direction, the timed
+    variants of entry.fewshot_entry at 64^2, the gradient check and the
+    layer probe with the tiny CLIP.  No CUDA kernels here: every expected
+    launch and backward count is 0."""
+    from gagan_tpu_torch import entry
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    for name, value in (("DEVICE", "cpu"), ("LOOP_RES", 16),
+                        ("LOOP_BATCH", 4), ("LOOP_IMAGES", 5),
+                        ("LOOP_KIMG", 0), ("TRAIN_BATCH", 8),
+                        ("FEWSHOT_BLOCK", 8), ("FEWSHOT_KIMG", 0.008),
+                        ("PROBE_K", 3),
+                        ("ADAPT_CLIP_OVERRIDES", entry.TINY_CLIP)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "fewshot_entry", lambda device, batch, ada_p:
+                        entry.fewshot_entry(device, batch=batch,
+                                            img_resolution=64,
+                                            channel_base=256, ada_p=ada_p))
+    monkeypatch.setattr(cs, "fewshot_run", lambda batch: entry.train_run(
+        batch, 64, 256, **entry.FEWSHOT_OPTIONS))
+    snap, _, _ = cs.loop_phase(str(tmp_path), "cpu", 1.0)
+    launches, seconds, peak_mem, sec_per_kimg = cs.fewshot_phase(
+        str(tmp_path), snap, "cpu")
+    assert launches == 0 and set(seconds) == set(cs.SCHEDULE)
+    assert sec_per_kimg > 0
+    assert {"adaptation-000000.npz", "stats.jsonl"} <= set(
+        os.listdir(tmp_path / "fewshot"))
+
+
+def test_fewshot_phase_drives_the_full_size_path():
+    """On the card: bench_adapt10's options (b64 weight offsets, glrate
+    0.02) at --batch 32 for 128 images, the probe at batch 2 for 2
+    iterations on the 18 w layers of FFHQ-1024."""
+    from gagan_tpu_torch import entry
+
+    assert cs.fewshot_parts() == entry.FEWSHOT_OPTIONS[
+        "generator_requires_grad_parts"]
+    assert cs.fewshot_flags()[2] == "out_in_additive"
+    assert (cs.FEWSHOT_BLOCK, cs.FEWSHOT_KIMG, cs.LOOP_BATCH) == (64, 0.128,
+                                                                  32)
+    run = cs.fewshot_run(cs.TRAIN_BATCH)
+    assert run.parametrization == "out_in_additive"
+    assert run.train_cfg.g_lr == 0.02 and run.g_cfg.num_ws == 18
+    assert (cs.PROBE_BATCH, cs.PROBE_ITERS) == (2, 2)

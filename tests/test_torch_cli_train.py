@@ -182,7 +182,6 @@ def test_build_run_configs_match_jax(res, kw, monkeypatch):
 
 @pytest.mark.parametrize("flags,match", [
     (["--gpus", "2"], "item 10"), (["--spatial-shard-min-res", "8"], "item 10"),
-    (["--use-domain-modulation"], "item 11"),
     (["--packed-tail-blocks", "2"], "tail")])
 def test_train_refuses_unported_options(flags, match, tmp_path):
     data = _folder(tmp_path / "d", 16)

@@ -58,7 +58,11 @@ def test_port_imports_with_jax_blocked():
             "gagan_tpu_torch.train.adapt_losses, "
             "gagan_tpu_torch.train.adaptation, gagan_tpu_torch.cli.adapt, "
             "gagan_tpu_torch.inference, gagan_tpu_torch.utils.yaml_subset, "
-            "gagan_tpu_torch.utils.text_templates\n"
+            "gagan_tpu_torch.utils.text_templates, "
+            "gagan_tpu_torch.utils.torch_import, gagan_tpu_torch.clip.convert, "
+            "gagan_tpu_torch.cli.convert_weights, "
+            "gagan_tpu_torch.params.sparse, gagan_tpu_torch.params.mappers, "
+            "gagan_tpu_torch.train.auto_layers\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -145,6 +149,54 @@ def test_adaptation_runs_without_yaml_regex_or_ftfy(tmp_path):
     assert os.path.exists(tmp_path / "run" / "config.yaml")
 
 
+def test_convert_and_fewshot_dry_run_without_jax(tmp_path):
+    """With JAX, the JAX package, Pillow, click, PyYAML and transformers
+    blocked, the converter command turns NVlabs state dicts into a
+    snapshot, and the training command prints its few-shot Affine+ plan."""
+    import numpy as np
+
+    from gagan_tpu_torch.models import stylegan2 as tsg
+    from gagan_tpu_torch.utils.checkpoint import tree_to_flat_tensors
+    from gagan_tpu_torch.utils.png import write_png
+
+    g = tsg.GeneratorConfig(z_dim=8, w_dim=8, img_resolution=8,
+                            mapping=tsg.MappingConfig(num_layers=1),
+                            synthesis=tsg.SynthesisConfig(channel_base=32,
+                                                          channel_max=8))
+    params = tsg.init_generator(g, torch.Generator().manual_seed(0), "cpu")
+    sd = tree_to_flat_tensors(params)
+    src, dest = str(tmp_path / "nets.pt"), str(tmp_path / "nets.npz")
+    torch.save({"G": sd, "G_ema": sd}, src)
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(2):
+        write_png(str(data / f"{i}.png"), np.full((32, 32, 3), 40 * i,
+                                                  np.uint8))
+    flags = ["--use-domain-modulation", "--domain-modulation-parametrization",
+             "out_in_additive", "--generator-requires-grad-parts",
+             "synt_affine,tRGB_affine,synt_weights_offset.b64,"
+             "tRGB_weights_offset.b64", "--glrate", "0.02"]
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu', 'PIL', 'click', 'yaml', "
+            "'transformers'):\n"
+            "    sys.modules[m] = None\n"
+            "from gagan_tpu_torch.cli import convert_weights, train\n"
+            f"convert_weights.main(['nvlabs', '--src', {src!r}, '--dest', "
+            f"{dest!r}])\n"
+            f"train.main(['--outdir', {str(tmp_path / 'run')!r}, '--data', "
+            f"{str(data)!r}, '--dry-run', '--device', 'cpu'] + {flags!r})\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert "-dm-out_in_additive" in out.stdout and "Dry run" in out.stdout
+    with np.load(dest) as f:
+        assert {"G/mapping.fc0.weight", "G_ema/synthesis.b8.conv1.weight",
+                "__config__"} <= set(f.files)
+
+
 def test_entry_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -156,6 +208,8 @@ def test_entry_refuses_cpu_fallback():
         entry.train_entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.adapt_entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.fewshot_entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

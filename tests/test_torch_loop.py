@@ -131,33 +131,69 @@ def _check_moves(name, before, got, want, lr, steps=3):
 
 @pytest.mark.slow          # about 70 s on the CPU, most of it JAX's jit
 def test_loop_matches_jax(data_dir, jax_snapshot, tmp_path):
+    _loop_parity(data_dir, jax_snapshot, tmp_path)
+
+
+# The few-shot Affine+ protocol at 16^2: G's affines and the b8 weight
+# offsets train (the b64 of the 1024^2 protocol).
+OFFSETS_PARTS = ("synt_affine", "tRGB_affine", "synt_weights_offset.b8",
+                 "tRGB_weights_offset.b8")
+
+
+@pytest.mark.slow          # about 70 s on the CPU, most of it JAX's jit
+def test_loop_with_offsets_matches_jax(data_dir, jax_snapshot, tmp_path):
+    """The loop's parametrization branch: the offsets' key, optimizer and
+    EMA, and the adaptation files, against the JAX loop's."""
+    _loop_parity(data_dir, jax_snapshot, tmp_path,
+                 parametrization="out_in_additive", parts=OFFSETS_PARTS)
+
+
+def _loop_parity(data_dir, jax_snapshot, tmp_path, parametrization=None,
+                 parts=("all",)):
     path, g0, d0, ema0 = jax_snapshot
     jg, jd = _cfgs(jsg)
     tg, td = _cfgs(tsg)
     jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "torch")
     jaug_cfg = dataclasses.replace(jaug.make_config("bgc"), geom_mode="exact")
+    jtrain = dataclasses.replace(_train_cfg(jts, jgl),
+                                 g_requires_grad_parts=parts)
+    ttrain = dataclasses.replace(_train_cfg(tts, tgl),
+                                 g_requires_grad_parts=parts)
     jstate = jloop.training_loop(
-        _loop_cfg(jloop, jdir, resume_from=path, n_devices=1),
-        _train_cfg(jts, jgl), jg, jd,
-        jloop.ImageFolderDataset(data_dir), augment_cfg=jaug_cfg)
+        _loop_cfg(jloop, jdir, resume_from=path, n_devices=1), jtrain, jg, jd,
+        jloop.ImageFolderDataset(data_dir), augment_cfg=jaug_cfg,
+        parametrization=parametrization, weight_parts=parts)
     state = tloop.training_loop(
-        _loop_cfg(tloop, tdir, resume_from=path), _train_cfg(tts, tgl), tg,
+        _loop_cfg(tloop, tdir, resume_from=path), ttrain, tg,
         td, ImageFolderDataset(data_dir),
         augment_cfg=taug.make_config("bgc"), device="cpu",
-        rng=JaxRng(jax.random.PRNGKey(5)))
+        rng=JaxRng(jax.random.PRNGKey(5)), parametrization=parametrization,
+        weight_parts=parts)
 
     assert state.cur_nimg == int(jstate.cur_nimg) == 12
     assert float(state.ada_p) == pytest.approx(float(jstate.ada_p), abs=1e-7)
     assert float(state.ada_p) != 0.4                 # ADA adjusted p
     np.testing.assert_allclose(float(state.pl_mean), float(jstate.pl_mean),
                                rtol=1e-3, atol=1e-7)
-    lr = _train_cfg(tts, tgl)
-    g_tx, d_tx, _, _ = tts.build_optimizers(lr, tck.flat_to_tree(g0),
+    g_tx, d_tx, _, _ = tts.build_optimizers(ttrain, tck.flat_to_tree(g0),
                                             tck.flat_to_tree(d0))
-    for name, got, want, before, step_lr in (
-            ("G", state.g_params, jstate.g_params, g0, g_tx.lr),
-            ("D", state.d_params, jstate.d_params, d0, d_tx.lr),
-            ("G_ema", state.g_ema, jstate.g_ema, ema0, g_tx.lr)):
+    trees = [("G", state.g_params, jstate.g_params, g0, g_tx.lr),
+             ("D", state.d_params, jstate.d_params, d0, d_tx.lr),
+             ("G_ema", state.g_ema, jstate.g_ema, ema0, g_tx.lr)]
+    if parametrization:
+        off0 = {k: np.zeros_like(np.asarray(v)) for k, v in
+                jck.tree_to_flat(jstate.offsets).items()}
+        assert sorted(state.offsets) == ["b8.conv0", "b8.conv1", "b8.torgb"]
+        # The offsets step in Gmain and again in Greg: 4 Adam steps in 3
+        # batches (Greg on batch 0), each at most lr.
+        trees += [("offsets", state.offsets, jstate.offsets, off0,
+                   ttrain.g_lr * 2),
+                  ("offsets_ema", state.offsets_ema, jstate.offsets_ema, off0,
+                   ttrain.g_lr * 2)]
+        assert state.offsets_opt_state.count == 4
+        assert max(float(np.abs(v).max()) for v in
+                   tck.tree_to_flat(state.offsets).values()) > 0
+    for name, got, want, before, step_lr in trees:
         _check_moves(name, before, tck.tree_to_flat(got),
                      {k: np.asarray(v) for k, v in
                       jck.tree_to_flat(want).items()}, step_lr)
@@ -176,6 +212,16 @@ def test_loop_matches_jax(data_dir, jax_snapshot, tmp_path):
                       if not f.startswith("events.out"))
 
     assert files(tdir) == files(jdir)
+    if parametrization:
+        assert "adaptation-000000.npz" in files(tdir)
+        jmeta, _, _ = jck.load_adaptation(os.path.join(
+            jdir, "adaptation-000000.npz"))
+        tmeta, toff, _ = jck.load_adaptation(os.path.join(
+            tdir, "adaptation-000000.npz"))
+        assert tmeta == jmeta
+        np.testing.assert_array_equal(
+            np.asarray(toff["b8.conv0"]["weights_offset"]),
+            tck.tree_to_flat(state.offsets_ema)["b8.conv0.weights_offset"])
 
 
 def test_loop_writes_what_jax_reads(data_dir, tmp_path):
@@ -253,7 +299,6 @@ def test_loop_resumes_and_aborts(data_dir, jax_snapshot, tmp_path):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"parametrization": "additive"}, "item 11"),
     ({"spatial_shard_min_res": 64}, "item 10"),
     ({"n_devices": 2}, "item 10"),
     ({"native": True}, "item 15")])

@@ -175,8 +175,7 @@ def test_unported_options_raise():
     cfg = tts.TrainConfig()
     g_tx, d_tx, _, _ = tts.build_optimizers(cfg, tck.flat_to_tree(gflat),
                                             tck.flat_to_tree(dflat))
-    for kw in ({"offsets_spec": object()}, {"extra_hooks": {}},
-               {"d_constraint": lambda t: t}):
+    for kw in ({"extra_hooks": {}}, {"d_constraint": lambda t: t}):
         with pytest.raises(NotImplementedError):
             tts.make_fused_step(cfg, g, d, g_tx, d_tx, **kw)
 
