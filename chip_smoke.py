@@ -65,7 +65,25 @@ no ok line):
                ViT-B/16, batch 4, direction loss) in blocks of 10 steps with
                one sync each, its peak memory and a torch.profiler trace of
                a step (top kernels, fused share, share with no kernel);
- 12. a JSON line of the kernels, then the JSON ok line.
+ 12. im2im   - one-shot image-to-image adaptation at FFHQ-1024 with random
+               towers of the real shape (ViT-B/32 + ViT-B/16, VGG16, e4e
+               IR-SE-50 with 18 style heads): cli/projector.py on a 1024^2
+               PNG rendered by G (20 steps in w space, --save-image: the
+               latents, the PNGs, the LPIPS distance at steps 1 and 20, s/step
+               and peak memory, 2 fused launches a step whose backward is
+               asked for d(noise) and never dW); cli/adapt.py on
+               im2im_difa.yaml, im2im_jojo.yaml and im2im_mtg.yaml with that
+               style PNG, projected for 10 steps, 11 steps each (the files,
+               moved offsets, G bit-equal to the snapshot, finite losses,
+               difa_psp_loss in the DiFa run, the fused launches, no dW);
+               steps/s of bench.py's DiFa step (batch 4, s_delta,
+               direction + difa_local + SCC 6.0) in blocks of 10, its peak
+               memory and a trace (top kernels, fused share, the forward
+               shares of e4e and of its backbone, idle share, host launches
+               and syncs); pallas vs composed gradients of a DiFa step and
+               of a projector step, whose noise gradients are held against
+               an fp32 G (TF32 off);
+ 13. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -90,11 +108,14 @@ sys.path.insert(0, REPO)
 from gagan_tpu_torch import _build  # noqa: E402
 from gagan_tpu_torch.cli import adapt as adapt_cli  # noqa: E402
 from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
+from gagan_tpu_torch.cli import projector as projector_cli  # noqa: E402
 from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
 from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
                                    adapt_entry, entry, entry_config,
-                                   fewshot_entry, train_configs, train_entry,
-                                   train_run)
+                                   fewshot_entry, im2im_entry, train_configs,
+                                   train_entry, train_run)
+from gagan_tpu_torch.inversion import projector  # noqa: E402
+from gagan_tpu_torch.metrics import detectors  # noqa: E402
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
 from gagan_tpu_torch.params import offsets as offs_lib  # noqa: E402
@@ -135,6 +156,15 @@ ADAPT_CLIP_OVERRIDES = None
 # NVlabs-layout state dicts; then the adaptive layer probe at FFHQ-1024.
 FEWSHOT_BLOCK, FEWSHOT_KIMG = 64, 0.128
 PROBE_BATCH, PROBE_ITERS, PROBE_K = 2, 2, 10
+# The im2im phase: cli/projector.py for PROJECT_STEPS steps on a 1024^2 PNG
+# rendered by G; cli/adapt.py on each of IM2IM_CONFIGS with that PNG as the
+# style image, projected for IM2IM_INVERSION steps, for IM2IM_ITERS steps
+# (losses every IM2IM_LOG, the checkpoint at the last); the DiFa step of
+# bench.py at batch IM2IM_BATCH timed in IM2IM_BLOCKS blocks of 10 steps.
+PROJECT_STEPS = 20
+IM2IM_CONFIGS = ("im2im_difa", "im2im_jojo", "im2im_mtg")
+IM2IM_ITERS, IM2IM_LOG, IM2IM_INVERSION = 11, 10, 10
+IM2IM_BATCH, IM2IM_BLOCKS = 4, 3
 
 
 class Case(NamedTuple):
@@ -1282,12 +1312,14 @@ def adapt_timing(params, card):
     return rate
 
 
-def trace_adapt_step(trainer, card, step_ms, top=12):
+def trace_adapt_step(trainer, card, step_ms, top=12, ranges=()):
     """One torch.profiler trace of a step: the kernels with the most device
     time, the fused level's forward (fold + conv) and backward shares, the
-    share of the step's wall time (the "adapt_step" range, which ends in a
-    synchronize) with no kernel, copy or fill running on the card, and that
-    share of the unprofiled step (``step_ms``, from the timed blocks)."""
+    device time of the kernels launched inside each ``record_function``
+    range named in ``ranges``, the share of the step's wall time (the
+    "adapt_step" range, which ends in a synchronize) with no kernel, copy or
+    fill running on the card, and that share of the unprofiled step
+    (``step_ms``, from the timed blocks)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -1298,9 +1330,10 @@ def trace_adapt_step(trainer, card, step_ms, top=12):
             torch.cuda.synchronize()
     device_us, spans, bwd_us, wall_us = {}, [], 0.0, 0.0
     launch_us, launches, syncs = 0.0, 0, {}
+    range_us = {name: 0.0 for name in ranges}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            if evt.name in ("adapt_step", "fused_modconv3x3_bwd"):
+            if evt.name in ("adapt_step", "fused_modconv3x3_bwd") + ranges:
                 continue
             device_us[evt.name] = (device_us.get(evt.name, 0.0)
                                    + evt.time_range.elapsed_us())
@@ -1309,6 +1342,8 @@ def trace_adapt_step(trainer, card, step_ms, top=12):
             wall_us = evt.time_range.elapsed_us()
         elif evt.name == "fused_modconv3x3_bwd":
             bwd_us += evt.device_time_total
+        elif evt.name in range_us:
+            range_us[evt.name] += evt.device_time_total
         elif evt.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
                           "cuLaunchKernel", "cuLaunchKernelEx"):
             launch_us += evt.time_range.elapsed_us()
@@ -1336,7 +1371,10 @@ def trace_adapt_step(trainer, card, step_ms, top=12):
           f"ms: {100 * (1 - busy / wall_us):.2f}% of the step with no kernel "
           f"on the card; kernel time {total / 1e3:.4f} ms, fused level "
           f"forward {fwd / 1e3:.4f} ms ({100 * fwd / total:.2f}%), its "
-          f"backward {bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)")
+          f"backward {bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)"
+          + "".join(f"; range {name!r} {us / 1e3:.4f} ms "
+                    f"({100 * us / total:.2f}%)"
+                    for name, us in range_us.items()))
     print(f"  unprofiled step {step_ms:.4f} ms (timed blocks): "
           f"{100 * max(0.0, 1 - busy / 1e3 / step_ms):.2f}% of it with no "
           f"kernel on the card, at this trace's device busy time")
@@ -1388,6 +1426,10 @@ class BackwardNeeds:
 
     def __exit__(self, *exc):
         fmc.fused_modconv3x3_bwd = self._bwd
+
+    def count(self, flags) -> int:
+        """Calls asked for exactly ``flags``."""
+        return sum(n == tuple(flags) for n in self.calls)
 
     def check(self, label, want_calls):
         """Every call asked for dx and d(styles), none for dW."""
@@ -1695,6 +1737,306 @@ def probe_check(g_cfg, g_params, card):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# The im2im phase: projection and the image-driven trainers
+
+
+# The level's backward flags (dx, dW, dstyles, ddcoefs, dnoise, dbias) of a
+# projector step: the latent and the noise buffers take gradients, G's
+# weights do not.
+PROJECT_NEEDS = (True, False, True, True, True, False)
+
+
+def im2im_phase(card):
+    """Projection through cli/projector.py, the three image-driven configs
+    through cli/adapt.py, the DiFa step of bench.py timed, and pallas vs
+    composed gradients of a DiFa step and of a projector step.  Returns
+    (fused launches of the commands, their backward flags, DiFa steps/s)."""
+    phase("im2im")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    g_cfg = adapt_g_config()
+    params = seeded_weights(sg2.init_generator(
+        g_cfg, torch.Generator().manual_seed(0), DEVICE))
+    flags = set()
+    with tempfile.TemporaryDirectory() as tmp:
+        snap = os.path.join(tmp, "ffhq1024.npz")
+        ckpt.save_snapshot(snap, g_ema=params,
+                           config={"g_cfg": config_lib.to_dict(g_cfg)})
+        style = os.path.join(tmp, "style.png")
+        z = torch.from_numpy(np.random.RandomState(42).randn(
+            1, g_cfg.z_dim).astype(np.float32)).to(DEVICE)
+        with torch.no_grad():
+            png.write_png(style, generate.to_uint8(sg2.generator_apply(
+                g_cfg, params, z, noise_mode="const"))[0])
+        launches = projector_cli_run(tmp, snap, style, g_cfg, card, flags)
+        for config in IM2IM_CONFIGS:
+            torch.cuda.empty_cache()
+            launches += im2im_cli_run(tmp, snap, style, config, g_cfg, card,
+                                      flags)
+    torch.cuda.empty_cache()
+    rate = im2im_timing(params, card)
+    torch.cuda.empty_cache()
+    im2im_grads_check(params, card)
+    return launches, sorted(flags), rate
+
+
+def projector_cli_run(tmp, snap, style, g_cfg, card, flags):
+    """cli/projector.py on the style PNG for PROJECT_STEPS steps in w space
+    with --save-image; returns the fused launches."""
+    out = os.path.join(tmp, "projection")
+    fmc.fused_modconv3x3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with BackwardNeeds() as needs:
+        results = projector_cli.main(
+            ["--network", snap, "--target", style, "--outdir", out,
+             "--space", "w", "--num-steps", str(PROJECT_STEPS),
+             "--save-image", "--device", DEVICE])
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = fmc.fused_modconv3x3.launches
+    per = expected_launches(g_cfg, 1)
+    want = per * (PROJECT_STEPS + 1)
+    (_, w_plus, dists), = results
+    with np.load(os.path.join(out, "projected_w.npz")) as f:
+        w = f["w"]
+    res = g_cfg.img_resolution
+    check_pngs(out, ["style_proj.png", "style_target.png"], (res, res, 3))
+    print(f"projector cli: {PROJECT_STEPS} steps at {res}^2 batch 1 in "
+          f"{wall:.2f} s with set-up ({wall / PROJECT_STEPS:.4f} s/step "
+          f"including it), peak memory {peak / 2 ** 30:.3f} GiB; LPIPS "
+          f"distance at step 1 {dists[0]:.6f}, at step {PROJECT_STEPS} "
+          f"{dists[-1]:.6f} (random VGG16: no decrease required); "
+          f"projected_w {w.shape}; fused_modconv3x3 launches {launches} "
+          f"(expected {want}: {per} a step and {per} for the re-synthesis), "
+          f"on {card}", flush=True)
+    if (w.shape != (1, g_cfg.num_ws, g_cfg.w_dim) or not np.isfinite(w).all()
+            or not np.array_equal(w[0], w_plus) or len(dists) != PROJECT_STEPS
+            or not np.isfinite(dists).all() or launches != want):
+        raise AssertionError("projector cli failed")
+    calls = per * PROJECT_STEPS
+    if len(needs.calls) != calls or needs.count(PROJECT_NEEDS) != calls:
+        raise AssertionError(
+            f"projector: the fused level's backward was asked for "
+            f"{sorted(set(needs.calls))} in {len(needs.calls)} calls, not "
+            f"{PROJECT_NEEDS} in {calls}")
+    print(f"projector: fused backward needs (dx, dW, dstyles, ddcoefs, "
+          f"dnoise, dbias) = {sorted(set(needs.calls))} in "
+          f"{len(needs.calls)} calls: d(noise), no dW")
+    flags.update(needs.calls)
+    # The steady step: the same projection called directly, timed from the
+    # end of its first step (one synchronize there) to its return (the
+    # latents' host copy).
+    target = png.read_png(os.path.join(out, "style_target.png"))
+    marks = []
+
+    def mark(step, dist, grads):
+        if step == 0:
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+    projector.project(*generate.load_generator(snap, DEVICE),
+                      target.transpose(2, 0, 1), num_steps=PROJECT_STEPS,
+                      rng=Rng(303), on_step=mark)
+    steady = (time.perf_counter() - marks[0]) / (PROJECT_STEPS - 1)
+    print(f"projector step at {res}^2 batch 1: {steady:.4f} s/step (steps "
+          f"2-{PROJECT_STEPS}, random VGG16-LPIPS), on {card}", flush=True)
+    return launches
+
+
+def im2im_cli_run(tmp, snap, style, config, g_cfg, card, flags):
+    """cli/adapt.py on configs/<config>.yaml with the style PNG, projected
+    for IM2IM_INVERSION steps, trained for IM2IM_ITERS; returns the fused
+    launches."""
+    out = os.path.join(tmp, config)
+    overrides = [f"training.target_class={style}",
+                 f"training.iter_num={IM2IM_ITERS}",
+                 f"checkpointing.step_backup={IM2IM_ITERS}",
+                 f"logging.log_every={IM2IM_LOG}",
+                 f"inversion.steps={IM2IM_INVERSION}"]
+    if ADAPT_CLIP_OVERRIDES:
+        overrides += [
+            f"training.clip_config_overrides={ADAPT_CLIP_OVERRIDES!r}",
+            "training.clip_layer=1"]
+    fmc.fused_modconv3x3.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with BackwardNeeds() as needs:
+        trainer = adapt_cli.main(
+            ["--config", os.path.join(REPO, "configs", f"{config}.yaml"),
+             "--network", snap, "--outdir", out, "--device", DEVICE]
+            + overrides)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = fmc.fused_modconv3x3.launches
+    cfg = trainer.cfg
+    batch = cfg.batch_size
+    project = expected_launches(g_cfg, 1) * IM2IM_INVERSION
+    if cfg.trainer == "im2im_JoJo":   # the mixed style latents' render only
+        step = expected_launches(g_cfg, batch)
+    else:      # the joint pass, and the style latents' render if it is read
+        step = (expected_launches(g_cfg, 2 * batch)
+                + expected_launches(g_cfg, 1) * trainer.renders_style_latents)
+    want = project + step * IM2IM_ITERS
+    print(f"adapt cli {config}.yaml ({cfg.trainer}, {cfg.parametrization}, "
+          f"batch {batch}, {'+'.join(cfg.loss.loss_funcs)}"
+          f"{'+difa_w' if cfg.loss.scc else ''}): projection "
+          f"{IM2IM_INVERSION} steps and {IM2IM_ITERS} steps in {wall:.2f} s "
+          f"with the build of the towers, peak memory {peak / 2 ** 30:.3f} "
+          f"GiB; fused_modconv3x3 launches {launches} (expected {want}), on "
+          f"{card}", flush=True)
+    if launches != want:
+        raise AssertionError(f"{config}: {launches} launches, not {want}")
+    needs.check(config, want)
+    if needs.count(PROJECT_NEEDS) != project:
+        raise AssertionError(f"{config}: {needs.count(PROJECT_NEEDS)} "
+                             f"backward calls with d(noise), not {project}")
+    flags.update(needs.calls)
+
+    with open(os.path.join(out, "losses.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f if ln.strip()]
+    if ([ln["step"] for ln in lines] != list(range(0, IM2IM_ITERS, IM2IM_LOG))
+            or not all(np.isfinite(v) for ln in lines for v in ln.values())
+            or ("difa_psp_loss" in lines[0]) != (config == "im2im_difa")):
+        raise AssertionError(f"{config}: losses.jsonl {lines}")
+    print(f"{config} losses.jsonl: " + "; ".join(
+        f"step {ln['step']} " + ", ".join(f"{k} {v:.6f}" for k, v in
+                                          ln.items() if k != "step")
+        for ln in lines))
+    npz = os.path.join(out, f"adaptation-{IM2IM_ITERS:06d}.npz")
+    _, offsets, _ = ckpt.load_adaptation(npz)
+    moved = max(float(t.abs().max()) for t in leaves_of([offsets]))
+    trees, _ = ckpt.load_snapshot(snap, DEVICE)
+    loaded = ckpt.tree_to_flat_tensors(trees["G_ema"])
+    held = ckpt.tree_to_flat_tensors(trainer.g_params)
+    same = all(torch.equal(held[k], t) for k, t in loaded.items())
+    latents = trainer.style_latents
+    print(f"{config}: {os.path.basename(npz)} max|offset| {moved:.6f}; G "
+          f"bit-equal to the snapshot {same}; style latents "
+          f"{tuple(latents.shape)}")
+    if not (moved > 0 and same and sorted(held) == sorted(loaded)
+            and tuple(latents.shape) == (1, g_cfg.num_ws, g_cfg.w_dim)
+            and bool(torch.isfinite(latents).all())
+            and os.path.exists(os.path.join(out, "config.yaml"))):
+        raise AssertionError(f"{config}: the run's outputs are wrong")
+    return launches
+
+
+def im2im_grads_check(params, card):
+    """Pallas vs composed (TF32 off, CLIP fp32), on the same weights and
+    draws.  The offsets' gradient of one DiFa step (offsets 0.2 * N(0, 1)):
+    bound 2^-3 relative L2, as the adapt phase argues (the CLIP edit
+    between the halves multiplies the level's rounding).  It is taken at
+    step 0, where the SCC term weighs 0 and e4e's backward carries zeros:
+    with e4e's random weights its latents reach ~1e10, so which channels
+    the SCC loss keeps and the signs of its L1 follow the rounding of the
+    two paths; its gradient is held against JAX on the CPU
+    (tests/test_torch_im2im_difa.py).  Then one projector step without the
+    noise penalty (which does not pass through G): the latent's gradient,
+    bound 2^-4 as the fewshot phase's; and the noise buffers' gradients
+    against the same step of an fp32 G (no bf16 levels, composed path).
+    Those are sums over channels of terms that cancel, so a bf16 G leaves
+    them tens of percent from the fp32 one on either path; the fused path
+    must stay within 1.25 times the composed path's distance, over all
+    buffers and at each fused level (a wrong d(noise) errs by O(100%))."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    grads, proj = {}, {}
+    for label, pallas in (("pallas", True), ("composed", False)):
+        trainer = im2im_entry(DEVICE, batch=IM2IM_BATCH, pallas_level=pallas,
+                              clip_dtype="float32", g_params=params)
+        gen = torch.Generator().manual_seed(5)
+        for t in leaves_of([trainer.offsets]):
+            t.copy_(0.2 * torch.randn(t.shape, generator=gen))
+        fmc.fused_modconv3x3.launches = 0
+        losses, grads[label] = trainer.loss_and_grads(trainer.rng.fold_in(77))
+        torch.cuda.synchronize()
+        print(f"im2im gradient check, {label}: DiFa losses "
+              + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items())
+              + f", fused launches {fmc.fused_modconv3x3.launches}, on {card}")
+        del trainer
+        torch.cuda.empty_cache()
+    lpips = detectors.make_default("vgg16_lpips", DEVICE)
+    g_cfg = adapt_g_config()
+    target = np.random.RandomState(43).randint(
+        0, 256, (3,) + (g_cfg.img_resolution,) * 2, np.uint8)
+    for label, pallas, fp16_res in (("pallas", True, None),
+                                    ("composed", False, None),
+                                    ("fp32", False, 0)):
+        syn = dataclasses.replace(g_cfg.synthesis, pallas_level=pallas)
+        if fp16_res is not None:
+            syn = dataclasses.replace(syn, num_fp16_res=fp16_res)
+        projector.project(
+            dataclasses.replace(g_cfg, synthesis=syn), params, target,
+            num_steps=1, w_avg_samples=1000, regularize_noise_weight=0.0,
+            lpips_fn=lpips, rng=Rng(1),
+            on_step=lambda step, dist, g: proj.__setitem__(label, g))
+    a, b = grads["pallas"], grads["composed"]
+    err = rel_l2(a, b, list(a))
+    level = {k: rel_l2(a, b, [k]) for k in a
+             if k.startswith(("b128.conv1", "b256.conv1"))}
+    lat = rel_l2(proj["pallas"], proj["composed"], ["latent"])
+    noise = [k for k in proj["fp32"] if k != "latent"]
+    to_fp32 = {}
+    for keys in [noise] + [[f"noise.{n}"] for n in ("b128.conv1",
+                                                    "b256.conv1")
+                           if f"noise.{n}" in proj["fp32"]]:
+        name = "all buffers" if len(keys) > 1 else keys[0]
+        to_fp32[name] = tuple(rel_l2(proj[p], proj["fp32"], keys)
+                              for p in ("pallas", "composed"))
+    print(f"pallas vs composed (TF32 off, CLIP fp32): DiFa offset gradients "
+          f"rel_l2 {err:.4g} (bound {2 ** -3:.4g})"
+          + "".join(f", {k} {v:.4g}" for k, v in level.items())
+          + f"; projector step: latent gradient rel_l2 {lat:.4g} (bound "
+          f"{2 ** -4:.4g}); noise gradients' rel_l2 to the fp32 G, pallas / "
+          f"composed: " + ", ".join(f"{k} {p:.4g} / {c:.4g}" for k, (p, c)
+                                    in to_fp32.items())
+          + f" (bound: pallas <= 1.25 x composed), on {card}")
+    if not (err <= 2 ** -3 and lat <= 2 ** -4 and all(
+            p <= 1.25 * c for p, c in to_fp32.values())):
+        raise AssertionError("im2im: pallas and composed gradients disagree")
+
+
+def im2im_timing(params, card):
+    """bench.py's DiFa step (entry.im2im_entry: batch 4, s_delta, ViT-B/32 +
+    ViT-B/16, direction + difa_local + SCC 6.0 on e4e latents) with
+    PyTorch's default math: one synced step, then IM2IM_BLOCKS blocks of 10
+    steps, each ending in the one host read of its losses; the peak memory
+    of those steps; one profiler trace of a step with the forward shares
+    of e4e and of its backbone."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    trainer = im2im_entry(DEVICE, batch=IM2IM_BATCH, g_params=params)
+    trainer.train_step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rates = []
+    for _ in range(IM2IM_BLOCKS):
+        t0 = time.perf_counter()
+        for _ in range(10):
+            losses = trainer.train_step_async()
+        host = {k: float(v) for k, v in losses.items()}
+        rates.append(10 / (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(v) for v in host.values()) or \
+            "difa_psp_loss" not in host:
+        raise AssertionError(f"im2im timing: losses {host}")
+    rate = float(np.mean(rates))
+    res = trainer.g_cfg.img_resolution
+    print(f"im2im_difa {res}^2 batch {IM2IM_BATCH}, ViT-B/32 + ViT-B/16, "
+          f"direction + difa_local + SCC (e4e IR-SE-50, "
+          f"{trainer._latent_cfg.style_count} heads): {rate:.4f} steps/s "
+          f"(blocks of 10: {', '.join(f'{r:.4f}' for r in rates)}), peak "
+          f"memory {peak / 2 ** 30:.3f} GiB, SCC window "
+          f"{int(trainer.scc_state.count)} entries, on {card}", flush=True)
+    trace_adapt_step(trainer, card, 1e3 / rate,
+                     ranges=("e4e", "e4e_backbone"))
+    return rate
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -1717,10 +2059,12 @@ def main():
          fewshot_sec_per_kimg) = fewshot_phase(tmp, snap, card)
     torch.cuda.empty_cache()
     adapt_launches, adapt_rate = adapt_phase(card)
+    torch.cuda.empty_cache()
+    im2im_launches, im2im_needs, im2im_rate = im2im_phase(card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
                "remat": remat_launches, "adapt": adapt_launches,
-               "fewshot": fewshot_launches}
+               "fewshot": fewshot_launches, "im2im": im2im_launches}
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
@@ -1732,7 +2076,8 @@ def main():
         library_ms=k["library_ms"], bwd_ms=k["bwd_ms"],
         fwd_bwd_ms=k["fwd_bwd_ms"], bwd_plain_ms=k["bwd_plain_ms"],
         bwd_bound_ms=k["bwd_bound_ms"], bwd_max_rel_err=k["bwd_max_rel_err"],
-        bwd_max_rel_l2_err=k["bwd_max_rel_l2_err"])]
+        bwd_max_rel_l2_err=k["bwd_max_rel_l2_err"],
+        im2im_bwd_needs=[[int(f) for f in n] for n in im2im_needs])]
     print(f"(kernel times: the launches of one batch-{BATCH} forward, "
           f"b128.conv1 + b256.conv1, on {card}; bwd_*: the level's composed "
           f"backward at the same shapes; train: s/step "
@@ -1743,7 +2088,10 @@ def main():
           f"steps/s; fewshot: s/step "
           f"{ {n: round(v, 4) for n, v in fewshot_seconds.items()} }, peak "
           f"GiB { {n: round(v / 2 ** 30, 3) for n, v in fewshot_mem.items()} }, "
-          f"{fewshot_sec_per_kimg:.4f} s/kimg)")
+          f"{fewshot_sec_per_kimg:.4f} s/kimg; im2im: DiFa "
+          f"{im2im_rate:.4f} steps/s; im2im_bwd_needs: the level's backward "
+          f"flags (dx, dW, dstyles, ddcoefs, dnoise, dbias) asked for by the "
+          f"projector and adapt commands)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,13 @@
 """One-shot domain adaptation from a YAML experiment config (port of
-gagan_tpu/cli/adapt.py, StyleGAN-NADA's ``td_single``).
+gagan_tpu/cli/adapt.py): StyleGAN-NADA (``td_single``) from text, and
+MindTheGap (``im2im_single``), JoJoGAN (``im2im_JoJo``) and DiFa
+(``im2im_difa``) from a style image.
 
     python -m gagan_tpu_torch.cli.adapt --config configs/td_nada_sdelta.yaml \\
         --network snap.npz training.target_class="Anime" exp.name=run1 \\
         [--device cuda]
+    python -m gagan_tpu_torch.cli.adapt --config configs/im2im_difa.yaml \\
+        --network snap.npz training.target_class=style.png
 
 Trailing ``KEY=VALUE`` arguments override the YAML (``utils/config.
 apply_dotlist``).  The source generator comes from ``--network`` or
@@ -12,14 +16,23 @@ apply_dotlist``).  The source generator comes from ``--network`` or
 ``vit_b_16.npz``, the JAX package's flat keys); without them a random tower
 of the real shape is used (``training.clip_config_overrides`` shrinks it,
 for small runs), and without a BPE vocab (``GAGAN_CLIP_BPE``) the byte-level
-tokenizer: the machinery runs, the semantics need the real files.  Writes
-``config.yaml`` (the resolved config), ``losses.jsonl`` (every
+tokenizer: the machinery runs, the semantics need the real files.
+
+The im2im trainers read the style image ``training.target_class`` (PNG
+without Pillow; other formats need it), resized to the generator's
+resolution as Pillow's default bicubic does, and its W+ latents from
+``inversion.latents`` (an npz with ``w``), else project it
+(inversion/projector.py, ``inversion.steps`` steps, VGG16-LPIPS from
+``GAGAN_DETECTOR_DIR`` or random).  ``difa_w`` is DiFa's SCC loss: its e4e
+encoder loads from ``inversion.e4e_checkpoint`` (a configured path that is
+missing is an error), else random weights of the real shape, announced.
+
+Writes ``config.yaml`` (the resolved config), ``losses.jsonl`` (every
 ``logging.log_every`` steps) and ``adaptation-NNNNNN.npz`` checkpoints
 (every ``checkpointing.step_backup`` steps), which ``cli/generate.py
 --s-direction`` and ``inference.Inferencer`` read.  YAML is read and
 written by ``utils/yaml_subset.py``.  Runs on CUDA unless ``--device cpu``
-is given.  Trainers other than ``td_single`` and ``difa_w`` raise
-``NotImplementedError`` (ROADMAP items 11b-12).
+is given.
 """
 
 from __future__ import annotations
@@ -37,7 +50,11 @@ import torch
 from .. import resolve_device
 from ..clip import model as clip_model
 from ..clip.tokenizer import SimpleTokenizer, tokenize
+from ..data.dataset import read_rgb
+from ..inversion import encoders as enc_lib
+from ..inversion import projector
 from ..models import stylegan2 as sg2
+from ..ops.resize import resize_uint8
 from ..train import adapt_losses as al
 from ..train import adaptation as ad
 from ..utils import checkpoint as ckpt
@@ -148,7 +165,9 @@ def build_parser() -> argparse.ArgumentParser:
                     "(PyTorch port); trailing KEY=VALUE arguments override "
                     "the YAML.")
     ap.add_argument("--config", dest="config_path", required=True,
-                    help="YAML experiment config (configs/td_nada*.yaml)")
+                    help="YAML experiment config (configs/*.yaml: td_nada, "
+                         "im2im_mtg, im2im_jojo, im2im_difa and their "
+                         "variants)")
     ap.add_argument("--network", default=None,
                     help="Source generator snapshot npz; overrides "
                          "exp.checkpoint.  Without either, a freshly "
@@ -159,6 +178,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="torch device (default cuda; cpu runs the plain "
                          "PyTorch versions of the kernels)")
     return ap
+
+
+def latent_encoder(cfg_dict: Dict, g_cfg: sg2.GeneratorConfig, device):
+    """(EncoderConfig, params) of e4e for difa_w: the converted npz of
+    ``inversion.e4e_checkpoint``, else random weights (seed 7)."""
+    e_cfg = enc_lib.EncoderConfig(stylegan_size=g_cfg.img_resolution)
+    path = cfg_dict.get("inversion", {}).get("e4e_checkpoint", "")
+    if path:
+        with np.load(path, allow_pickle=False) as data:
+            return e_cfg, ckpt.flat_to_tree({k: data[k] for k in data.files},
+                                            device)
+    print("[adapt] difa_w: no inversion.e4e_checkpoint; using a random e4e "
+          "encoder (machinery runs; semantics need real weights)")
+    return e_cfg, enc_lib.init_encoder(torch.Generator().manual_seed(7),
+                                       e_cfg, device)
+
+
+def style_inputs(cfg_dict: Dict, acfg: ad.AdaptationConfig,
+                 g_cfg: sg2.GeneratorConfig, g_params, device) -> Dict:
+    """The style image (uint8 [3, R, R]) and its W+ latents [1, num_ws,
+    w_dim]: from ``inversion.latents``, else projected."""
+    res = g_cfg.img_resolution
+    img = resize_uint8(read_rgb(acfg.target_class), (res, res),
+                       "bicubic").transpose(2, 0, 1)
+    inversion = cfg_dict.get("inversion", {})
+    if inversion.get("latents"):
+        with np.load(inversion["latents"]) as data:
+            w = data["w"]
+    else:
+        print("[adapt] projecting style image (no cached latents)",
+              flush=True)
+        w = projector.project(g_cfg, g_params, img,
+                              num_steps=int(inversion.get("steps", 300)),
+                              rng=Rng(0))
+    return {"style_image": img, "style_latents": w[None] if w.ndim == 2 else w}
 
 
 def main(argv: Optional[List[str]] = None) -> ad.AdaptationTrainer:
@@ -175,6 +229,13 @@ def main(argv: Optional[List[str]] = None) -> ad.AdaptationTrainer:
     exp = cfg_dict.get("exp", {})
     training = cfg_dict.get("training", {})
     ad.AdaptationTrainer.check_config(acfg)      # before loading anything
+    e4e_path = cfg_dict.get("inversion", {}).get("e4e_checkpoint", "")
+    if acfg.loss.scc is not None and e4e_path and not os.path.isfile(e4e_path):
+        # A typo'd path must not train with a random encoder unnoticed.
+        raise FileNotFoundError(
+            f"inversion.e4e_checkpoint={e4e_path!r} does not exist (difa_w "
+            f"needs the converted e4e npz; drop the key to run with "
+            f"announced random weights)")
 
     network = args.network or exp.get("checkpoint")
     outdir = args.outdir or (exp.get("root", "runs/adapt") + "/"
@@ -190,11 +251,18 @@ def main(argv: Optional[List[str]] = None) -> ad.AdaptationTrainer:
                                       device)
     encoders = load_clip_encoders(acfg.visual_encoders, device,
                                   training.get("clip_config_overrides"))
-    emb = text_embeddings(encoders, acfg.source_class, acfg.target_class,
-                          imagenet_templates)
+    kwargs: Dict = {}
+    if acfg.loss.scc is not None:
+        kwargs["latent_encoder"] = latent_encoder(cfg_dict, g_cfg, device)
+    if acfg.trainer == "td_single":
+        kwargs["domain_embeddings"] = text_embeddings(
+            encoders, acfg.source_class, acfg.target_class,
+            imagenet_templates)
+    else:
+        kwargs.update(style_inputs(cfg_dict, acfg, g_cfg, g_params, device))
     trainer = ad.AdaptationTrainer(acfg, g_cfg, g_params, encoders,
-                                   Rng(int(exp.get("seed", 0))), emb,
-                                   device=device)
+                                   Rng(int(exp.get("seed", 0))),
+                                   device=device, **kwargs)
 
     yaml_subset.write(os.path.join(outdir, "config.yaml"), cfg_dict)
     log_path = os.path.join(outdir, "losses.jsonl")

@@ -8,6 +8,8 @@ the state-dict paths of tools/convert_weights.py), without JAX.
         --dest vit_b_32.npz
     python -m gagan_tpu_torch.cli.convert_weights hf-clip \\
         --src pytorch_model.bin --dest vit_b_32.npz
+    python -m gagan_tpu_torch.cli.convert_weights vgg16 --src vgg16.pth \\
+        --dest vgg16.npz [--lpips-lin vgg.pth]
 
 * ``rosinality``: a rosinality StyleGAN2 ``.pt`` (its ``g_ema`` entry, or a
   bare state dict) -> a snapshot with ``G_ema/`` only.  The resolution is
@@ -24,10 +26,15 @@ the state-dict paths of tools/convert_weights.py), without JAX.
   dict) -> a CLIP npz (``GAGAN_CLIP_DIR`` of cli/adapt.py).
 * ``hf-clip``: a HuggingFace ``CLIPModel`` state dict file
   (``pytorch_model.bin``, read with ``weights_only=True``) -> a CLIP npz.
+* ``vgg16``: a torchvision VGG16 state dict, and optionally the LPIPS
+  package's VGG ``lin`` weights (``lin{i}.model.1.weight``) -> the npz that
+  ``metrics/detectors.py`` reads from ``GAGAN_DETECTOR_DIR`` (``vgg16.npz``).
 
 Nothing is fetched: every source is a local file.  A snapshot is ``G_ema/``,
 ``G/``, ``D/`` prefixed dotted keys plus ``__config__`` (JSON as uint8), as
-``utils/checkpoint.py`` reads it; a CLIP npz is the tree's dotted keys.
+``utils/checkpoint.py`` reads it; a CLIP or VGG16 npz is the tree's dotted
+keys.  Every source is read with ``torch.load(weights_only=True)`` (an
+OpenAI TorchScript archive with ``torch.jit.load``).
 """
 
 from __future__ import annotations
@@ -218,11 +225,28 @@ def convert_hf_clip(src: str, dest: str):
     print(f"converted HF CLIP -> {dest}")
 
 
+# ----------------------------------------------------------------------------
+# VGG16 (LPIPS)
+
+
+def convert_vgg16(src: str, dest: str, lpips_lin: Optional[str] = None):
+    """src: a torchvision vgg16 state dict; lpips_lin: the LPIPS package's
+    VGG lin weights (.pth)."""
+    flat = _numpy(torch.load(src, map_location="cpu", weights_only=True))
+    if lpips_lin:
+        lin = torch.load(lpips_lin, map_location="cpu", weights_only=True)
+        for i in range(5):
+            flat[f"lin.{i}.weight"] = lin[f"lin{i}.model.1.weight"].numpy(
+            ).reshape(-1)
+    np.savez(dest, **flat)
+    print(f"converted VGG16 -> {dest}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Convert PyTorch checkpoints to gagan npz files.")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("rosinality", "nvlabs", "openai-clip", "hf-clip"):
+    for name in ("rosinality", "nvlabs", "openai-clip", "hf-clip", "vgg16"):
         sp = sub.add_parser(name)
         sp.add_argument("--src", required=True)
         sp.add_argument("--dest", required=True)
@@ -233,6 +257,9 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--device", default="cuda",
                             help="torch device of the w_avg mean (default "
                                  "cuda)")
+        if name == "vgg16":
+            sp.add_argument("--lpips-lin", default=None,
+                            help="the LPIPS package's VGG lin weights")
     return ap
 
 
@@ -246,6 +273,8 @@ def main(argv: Optional[List[str]] = None):
         convert_nvlabs(args.src, args.dest)
     elif args.cmd == "openai-clip":
         convert_openai_clip(args.src, args.dest)
+    elif args.cmd == "vgg16":
+        convert_vgg16(args.src, args.dest, args.lpips_lin)
     else:
         convert_hf_clip(args.src, args.dest)
 

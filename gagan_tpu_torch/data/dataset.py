@@ -13,6 +13,7 @@ file is met.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import queue as queue_lib
@@ -22,7 +23,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..utils.png import read_png
+from ..utils.png import SIGNATURE as PNG_SIGNATURE, read_png
 
 # Pillow's registered extensions (``PIL.Image.init(); PIL.Image.EXTENSION``),
 # copied so that the port picks the same files as the JAX package without
@@ -44,13 +45,37 @@ def decode_image(f, fname: str) -> np.ndarray:
     PNG by the port's reader, anything else by Pillow."""
     if os.path.splitext(fname)[1].lower() == ".png":
         return read_png(f)
+    return np.array(_pil_image(fname).open(f))
+
+
+def _pil_image(fname: str):
+    """Pillow's Image module, or an ImportError naming the file."""
     try:
         import PIL.Image
     except ImportError as e:
         raise ImportError(
-            f"{fname}: decoding this format needs Pillow, which is not "
-            f"installed; the port reads PNG without it") from e
-    return np.array(PIL.Image.open(f))
+            f"{fname}: decoding this image needs Pillow, which is not "
+            f"installed; the port reads PNG without it: convert the image "
+            f"to an 8-bit PNG without a palette") from e
+    return PIL.Image
+
+
+def read_rgb(fname: str) -> np.ndarray:
+    """[H, W, 3] uint8 pixels of an image file, as
+    ``np.array(PIL.Image.open(fname).convert("RGB"))`` gives them: PNG by
+    the port's reader (gray repeated, alpha dropped), a palette PNG or any
+    other format by Pillow."""
+    with open(fname, "rb") as f:
+        data = f.read()
+    # Byte 25 is the PNG's colour type (3: palette).
+    if data[:8] == PNG_SIGNATURE and len(data) > 25 and data[25] != 3:
+        img = read_png(data)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[2] <= 2:
+            img = np.repeat(img[..., :1], 3, axis=2)
+        return np.ascontiguousarray(img[..., :3])
+    return np.array(_pil_image(fname).open(io.BytesIO(data)).convert("RGB"))
 
 
 class ImageFolderDataset:

@@ -15,6 +15,9 @@
 * :func:`adapt_entry`: a one-shot CLIP adaptation trainer (``td_single``)
   at FFHQ-1024 with CLIP towers of the real shape, or at a tiny size for
   the CPU.
+* :func:`im2im_entry`: the DiFa trainer (``im2im_difa`` with the e4e SCC
+  loss) at the shape ``bench.py::bench_adaptation_difa`` times, or at a
+  tiny size for the CPU.
 """
 
 from __future__ import annotations
@@ -22,11 +25,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from . import resolve_device
 from .cli import adapt as adapt_cli
 from .cli import train as train_cli
+from .inversion import encoders as enc_lib
 from .models import stylegan2 as sg2
 from .params import offsets as offs_lib
 from .train import adapt_losses as al
@@ -220,3 +225,50 @@ def adapt_entry(device="cuda", batch: int = 4,
                                     cfg.target_class, imagenet_templates)
     return ad.AdaptationTrainer(cfg, g_cfg, g_params, encoders, Rng(0), emb,
                                 device=device)
+
+
+def im2im_entry(device="cuda", batch: int = 4, pallas_level: bool = True,
+                clip_dtype: str = "bfloat16",
+                g_params=None) -> ad.AdaptationTrainer:
+    """The DiFa trainer of ``bench.py::bench_adaptation_difa``: s_delta
+    offsets, clip_layer 8, direction + difa_local (1.0 each) and the SCC
+    loss (weight 6.0) on e4e latents, a random 1024^2 style image
+    (``RandomState(11)``) and no style latents, random CLIP towers (seed 0),
+    random unit domain embeddings (``torch.Generator`` seed 10 + i), a
+    random e4e (seed 5), the trainer's draws from ``Rng(3)`` and a random
+    generator (seed 0) unless ``g_params`` is given.  On CUDA: G is
+    :func:`entry_config` (``pallas_level``), the towers ViT-B, e4e IR-SE-50
+    with 18 style heads; on the CPU: :data:`TINY_G`, :data:`TINY_CLIP` and
+    e4e with the 8 heads of a 32^2 generator.  Raises without CUDA unless
+    ``device`` is 'cpu'."""
+    device = resolve_device(device)
+    tiny = device.type == "cpu"
+    g_cfg = TINY_G if tiny else entry_config(pallas_level)
+    if g_params is None:
+        g_params = sg2.init_generator(g_cfg, torch.Generator().manual_seed(0),
+                                      device)
+    visual_encoders = ("ViT-B/32", "ViT-B/16")
+    encoders = adapt_cli.load_clip_encoders(visual_encoders, device,
+                                            TINY_CLIP if tiny else None)
+    emb = {}
+    for i, (name, (ccfg, _)) in enumerate(encoders.items()):
+        e = torch.randn((2, ccfg.embed_dim),
+                        generator=torch.Generator().manual_seed(10 + i))
+        e = (e / torch.linalg.vector_norm(e, dim=-1, keepdim=True)).to(device)
+        emb[name] = {"src": e[:1], "trg": e[1:]}
+    res = g_cfg.img_resolution
+    style_image = np.random.RandomState(11).randint(0, 255, (3, res, res),
+                                                    np.uint8)
+    e_cfg = enc_lib.EncoderConfig(stylegan_size=res)
+    e_params = enc_lib.init_encoder(torch.Generator().manual_seed(5), e_cfg,
+                                    device)
+    cfg = ad.AdaptationConfig(
+        trainer="im2im_difa", batch_size=batch, iter_num=301,
+        parametrization="s_delta", clip_layer=1 if tiny else 8,
+        visual_encoders=visual_encoders, clip_dtype=clip_dtype,
+        loss=al.DirectLossConfig(
+            loss_funcs=("direction", "difa_local"), loss_coefs=(1.0, 1.0),
+            scc=al.SCCConfig(weight=6.0)))
+    return ad.AdaptationTrainer(cfg, g_cfg, g_params, encoders, Rng(3), emb,
+                                device=device, style_image=style_image,
+                                latent_encoder=(e_cfg, e_params))

@@ -4,10 +4,10 @@ render both generators on the same latents, optionally with MindTheGap's
 latent mixing (the style latents replace w layers 7 and up).
 
 Ported: the ``parametrization`` / ``offsets`` checkpoints (offsets trees
-applied as layer hooks).  Not yet, each raising ``NotImplementedError``:
+applied as layer hooks) and the image-to-latent helper ``project_e4e`` with
+its ``preprocess_image``.  Not yet, each raising ``NotImplementedError``:
 ``original`` checkpoints, which replace generator weights (ROADMAP item
-15), and the image-to-latent helpers ``project_e4e`` / ``project_restyle``
-(the encoders, ROADMAP item 12).
+15), and ``project_restyle`` (the ReStyle encoders, ROADMAP item 12).
 """
 
 from __future__ import annotations
@@ -18,7 +18,9 @@ import numpy as np
 import torch
 
 from . import resolve_device
+from .inversion import encoders as enc_lib
 from .models import stylegan2 as sg2
+from .ops.resize import resize2d
 from .params import offsets as offs_lib
 from .utils import checkpoint as ckpt_lib
 from .utils.config import generator_config_from_dict
@@ -81,12 +83,54 @@ class Inferencer:
                                           device=self.device))
 
 
-def project_e4e(*args, **kwargs):
-    raise NotImplementedError(
-        "project_e4e needs the e4e encoder, not ported yet (ROADMAP item 12)")
+# ----------------------------------------------------------------------------
+# Image -> latent
+
+
+def preprocess_image(image, device="cpu") -> torch.Tensor:
+    """uint8 or float HWC (or CHW) image -> [1, 3, 256, 256] in [-1, 1]:
+    the short side resized to 256 (bilinear, antialiased, as
+    jax.image.resize), a centre crop of 256^2, then x * 2 - 1."""
+    arr = np.asarray(image)
+    if arr.ndim == 3 and arr.shape[0] in (1, 3) and arr.shape[-1] not in (
+            1, 3):
+        arr = np.transpose(arr, (1, 2, 0))          # CHW -> HWC
+    if arr.dtype == np.uint8:
+        arr = arr.astype(np.float32) / 255.0
+    arr = arr.astype(np.float32)
+    if arr.ndim == 2:
+        arr = arr[..., None]
+    if arr.shape[-1] == 1:
+        arr = np.repeat(arr, 3, axis=-1)
+    h, w = arr.shape[:2]
+    scale = 256.0 / min(h, w)
+    nh, nw = max(256, int(round(h * scale))), max(256, int(round(w * scale)))
+    x = torch.from_numpy(np.ascontiguousarray(arr.transpose(2, 0, 1))).to(
+        device)
+    x = resize2d(x, (nh, nw), "bilinear")
+    top, left = (nh - 256) // 2, (nw - 256) // 2
+    return (x[:, top:top + 256, left:left + 256] * 2.0 - 1.0)[None]
+
+
+def project_e4e(image, e_cfg, e_params, g_cfg, g_params,
+                latent_avg=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Image -> e4e W+ -> reconstruction: (images, w_plus).  ``image`` is
+    one HWC / CHW image (preprocess_image) or a batch [N, 3, H, W] in
+    [-1, 1]; ``latent_avg`` [num_ws, w_dim] is added when given.  Runs on
+    the device of ``e_params``."""
+    device = e_params["input_layer"]["0"]["weight"].device
+    ndim = image.ndim if hasattr(image, "ndim") else np.ndim(image)
+    x = (preprocess_image(image, device) if ndim != 4 else
+         torch.as_tensor(image, dtype=torch.float32, device=device))
+    with torch.no_grad():
+        ws = enc_lib.encode_image_to_wplus(e_cfg, e_params, x,
+                                           latent_avg=latent_avg, kind="e4e")
+        img = sg2.synthesis_apply(g_cfg.synthesis, g_params["synthesis"], ws,
+                                  noise_mode="const")
+    return img, ws
 
 
 def project_restyle(*args, **kwargs):
     raise NotImplementedError(
-        "project_restyle needs the ReStyle encoder, not ported yet (ROADMAP "
-        "item 12)")
+        "project_restyle needs the ReStyle encoders, not ported yet (ROADMAP "
+        "item 12: ReStyle comes after the projector and e4e)")

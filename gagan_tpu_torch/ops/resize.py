@@ -9,6 +9,11 @@ the differentiated loss; the backward of a matmul by a constant is the
 transposed matmul.  The matmuls run in the input's dtype: fp32 (full
 precision unless TF32 is switched on for matmuls) or bf16, as the JAX
 module runs them at ``precision='highest'`` or at the default.
+
+``resize_uint8`` resizes a uint8 image on the host as Pillow's ``resize``
+does: the same weights (Pillow's bicubic is Keys a = -0.5, its LANCZOS is
+Lanczos-3, both with the support scaled by the shrink factor), the
+horizontal pass first, each pass rounded to uint8.
 """
 
 from __future__ import annotations
@@ -31,9 +36,14 @@ def _triangle(x: np.ndarray) -> np.ndarray:
     return np.maximum(0.0, 1.0 - np.abs(x))
 
 
+def _lanczos3(x: np.ndarray) -> np.ndarray:
+    """sinc(x) sinc(x / 3) on |x| < 3 (Pillow's LANCZOS)."""
+    return np.where(np.abs(x) < 3.0, np.sinc(x) * np.sinc(x / 3.0), 0.0)
+
+
 _KERNELS = {"bicubic": _keys_cubic, "cubic": _keys_cubic,
             "bilinear": _triangle, "linear": _triangle,
-            "triangle": _triangle}
+            "triangle": _triangle, "lanczos3": _lanczos3}
 
 
 @functools.lru_cache(maxsize=64)
@@ -79,3 +89,22 @@ def resize2d(x: torch.Tensor, out_hw: Tuple[int, int],
         ww = _weight_tensor(w, ow, method, antialias, y.dtype, y.device)
         y = torch.matmul(y, ww)                          # [..., oh, ow]
     return y
+
+
+def resize_uint8(img: np.ndarray, out_hw: Tuple[int, int],
+                 method: str = "bicubic") -> np.ndarray:
+    """[H, W, C] uint8 -> [out_h, out_w, C] uint8: width first, then
+    height, each pass rounded half up and clipped to [0, 255], as Pillow
+    resamples 8-bit images."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    y = img.astype(np.float64)
+    if w != ow:
+        ww = weight_matrix(w, ow, method).astype(np.float64)
+        y = np.clip(np.floor(np.tensordot(y, ww, axes=([1], [0]))
+                             .transpose(0, 2, 1) + 0.5), 0, 255)
+    if h != oh:
+        wh = weight_matrix(h, oh, method).astype(np.float64)
+        y = np.clip(np.floor(np.tensordot(wh, y, axes=([0], [0])) + 0.5),
+                    0, 255)
+    return y.astype(np.uint8)

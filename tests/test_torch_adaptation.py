@@ -175,21 +175,27 @@ def test_steps_move_offsets_and_adapt_the_images(tmp_path):
     assert not torch.allclose(trainer.synthesize(z), source)
 
 
-@pytest.mark.parametrize("trainer,match", [
-    ("im2im_single", "11b"), ("im2im_JoJo", "11b"), ("im2im_difa", "11b")])
-def test_unported_trainers_raise(trainer, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("trainer", ["im2im_single", "im2im_JoJo",
+                                     "im2im_difa"],
+                         ids=["im2im_single-11b", "im2im_JoJo-11b",
+                              "im2im_difa-11b"])
+def test_unported_trainers_raise(trainer):
+    """The image-driven trainers (ROADMAP item 11b) are ported
+    (tests/test_torch_im2im.py): the check passes them, and only a trainer
+    name that does not exist raises."""
+    tad.AdaptationTrainer.check_config(tad.AdaptationConfig(trainer=trainer))
+    with pytest.raises(ValueError, match="unknown trainer"):
         tad.AdaptationTrainer.check_config(tad.AdaptationConfig(
-            trainer=trainer))
+            trainer=trainer.lower() + "_x"))
 
 
 def test_unported_options_raise():
-    # The adaptive layer freezing is ported (tests/test_torch_directions.py).
+    # The adaptive layer freezing is ported (tests/test_torch_directions.py)
+    # and so is the SCC loss (tests/test_torch_im2im_difa.py).
     tad.AdaptationTrainer.check_config(tad.AdaptationConfig(
         auto_layer_iters=5))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tad.AdaptationTrainer.check_config(tad.AdaptationConfig(
-            loss=tal.DirectLossConfig(scc=tal.SCCConfig())))
+    tad.AdaptationTrainer.check_config(tad.AdaptationConfig(
+        loss=tal.DirectLossConfig(scc=tal.SCCConfig())))
 
 
 def test_adaptation_npz_round_trip_across_packages(tmp_path):

@@ -284,3 +284,62 @@ def test_fewshot_phase_drives_the_full_size_path():
     assert run.parametrization == "out_in_additive"
     assert run.train_cfg.g_lr == 0.02 and run.g_cfg.num_ws == 18
     assert (cs.PROBE_BATCH, cs.PROBE_ITERS) == (2, 2)
+
+
+# ----------------------------------------------------------------------------
+# The im2im phase's control flow
+
+
+def test_im2im_phase_runs_on_cpu(monkeypatch):
+    """The im2im phase on the CPU at the tiny size of entry.adapt_entry:
+    the projector command (3 steps), the three image-driven configs (2
+    steps, projected for 2), the gradient checks and the timing and trace
+    paths of the DiFa step (e4e at 64^2 for time).  No CUDA kernels here:
+    every expected launch and backward count is 0."""
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.train import adaptation as tad
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "adapt_g_config", lambda: entry.TINY_G)
+    monkeypatch.setattr(tad, "E4E_SIZE", 64)
+    monkeypatch.delenv("GAGAN_CLIP_DIR", raising=False)
+    monkeypatch.delenv("GAGAN_DETECTOR_DIR", raising=False)
+    for name, value in (("DEVICE", "cpu"), ("PROJECT_STEPS", 3),
+                        ("IM2IM_ITERS", 2), ("IM2IM_LOG", 1),
+                        ("IM2IM_INVERSION", 2), ("IM2IM_BATCH", 2),
+                        ("IM2IM_BLOCKS", 1),
+                        ("ADAPT_CLIP_OVERRIDES", entry.TINY_CLIP)):
+        monkeypatch.setattr(cs, name, value)
+    launches, flags, rate = cs.im2im_phase("cpu")
+    assert launches == 0 and flags == [] and rate > 0
+
+
+def test_im2im_phase_drives_the_full_size_path():
+    """On the card: FFHQ-1024 (18 W+ layers) with the fused level at batch
+    1 (the projector and the style latents' render) and at the joint passes
+    of the configs (2 x 2) and of the timed DiFa step (2 x 4); 20 projector
+    steps, the three configs for 11 steps each, and e4e at 256^2."""
+    from gagan_tpu_torch.train import adaptation as tad
+    from gagan_tpu_torch.utils import yaml_subset
+
+    g = cs.adapt_g_config()
+    assert g.num_ws == 18 and g.synthesis.pallas_level
+    for batch in (1, 2, 4, 8):
+        assert cs.expected_launches(g, batch) == 2
+    assert (cs.PROJECT_STEPS, cs.IM2IM_ITERS, cs.IM2IM_LOG,
+            cs.IM2IM_INVERSION, cs.IM2IM_BATCH) == (20, 11, 10, 10, 4)
+    assert cs.PROJECT_NEEDS == (True, False, True, True, True, False)
+    trainers = {}
+    for config in cs.IM2IM_CONFIGS:
+        cfg = yaml_subset.read(os.path.join(os.path.dirname(cs.__file__),
+                                            "configs", f"{config}.yaml"))
+        assert cfg["inversion"]["latents"] is None
+        trainers[config] = (cfg["exp"]["trainer"],
+                            cfg["training"]["batch_size"])
+    assert trainers == {"im2im_difa": ("im2im_difa", 2),
+                        "im2im_jojo": ("im2im_JoJo", 2),
+                        "im2im_mtg": ("im2im_single", 2)}
+    assert tad.E4E_SIZE == 256

@@ -186,17 +186,72 @@ def test_adapt_cli_runs_a_tiny_config(snapshot, tmp_path, monkeypatch):
                for v in joff.values()) > 0
 
 
+@pytest.mark.parametrize("config,trainer_name", [
+    ("im2im_difa", "im2im_difa"), ("im2im_jojo", "im2im_JoJo"),
+    ("im2im_mtg", "im2im_single")])
+def test_adapt_cli_runs_the_im2im_configs(snapshot, tmp_path, monkeypatch,
+                                          config, trainer_name):
+    """Each image-driven config for 2 steps at the tiny G: the style PNG
+    resized as Pillow's default resize does, projected for 2 steps (random
+    VGG16), the random e4e announced for difa_w (at 64^2 here: ``E4E_SIZE``
+    is patched for time), the files, moved offsets, an untouched G and
+    finite losses."""
+    from gagan_tpu_torch.train import adaptation as tad
+
+    monkeypatch.delenv("GAGAN_CLIP_DIR", raising=False)
+    monkeypatch.delenv("GAGAN_DETECTOR_DIR", raising=False)
+    monkeypatch.setattr(tad, "E4E_SIZE", 64)
+    style = np.random.RandomState(9).randint(0, 256, (40, 30, 3), np.uint8)
+    style_path = str(tmp_path / "style.png")
+    PIL.Image.fromarray(style).save(style_path)
+    out = str(tmp_path / "run")
+    trainer = tadapt.main([
+        "--config", os.path.join(REPO, "configs", f"{config}.yaml"),
+        "--network", snapshot, "--outdir", out, "--device", "cpu",
+        "training.iter_num=2", "checkpointing.step_backup=2",
+        "logging.log_every=1", "inversion.steps=2",
+        f"training.target_class={style_path}",
+        f"training.clip_config_overrides={dict(entry.TINY_CLIP)!r}"]
+        + (["training.clip_layer=1"] if config == "im2im_difa" else []))
+    assert trainer.cfg.trainer == trainer_name
+    assert sorted(os.listdir(out)) == ["adaptation-000002.npz",
+                                       "config.yaml", "losses.jsonl"]
+    with open(os.path.join(out, "losses.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    assert [ln["step"] for ln in lines] == [0, 1]
+    assert all(np.isfinite(v) for ln in lines for v in ln.values())
+    assert ("difa_psp_loss" in lines[0]) == (config == "im2im_difa")
+    want = np.array(PIL.Image.fromarray(style).resize((32, 32)))
+    got = trainer.style_image[0].numpy().transpose(1, 2, 0)
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+    assert tuple(trainer.style_latents.shape) == (1, 8, 32)
+    _, offsets, _ = tck.load_adaptation(os.path.join(
+        out, "adaptation-000002.npz"))
+    assert max(float(t.abs().max()) for t in
+               tck.tree_to_flat_tensors(offsets).values()) > 0
+    trees, _ = tck.load_snapshot(snapshot)
+    for k, t in tck.tree_to_flat_tensors(trees["G_ema"]).items():
+        assert torch.equal(tck.tree_to_flat_tensors(trainer.g_params)[k], t), k
+
+
 def test_adapt_cli_refuses(snapshot, tmp_path):
     cfg = os.path.join(REPO, "configs", "td_nada_sdelta.yaml")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tadapt.main(["--config", cfg, "--outdir", str(tmp_path / "o")])
     assert not os.path.exists(tmp_path / "o")
-    for name, match in (("im2im_difa", "11b"), ("im2im_jojo", "11b")):
-        with pytest.raises(NotImplementedError, match=match):
-            tadapt.main(["--config", os.path.join(REPO, "configs",
-                                                  f"{name}.yaml"),
-                         "--device", "cpu", "--outdir", str(tmp_path / name)])
+    # A configured e4e checkpoint that is missing, before anything loads.
+    with pytest.raises(FileNotFoundError, match="e4e_checkpoint"):
+        tadapt.main(["--config", os.path.join(REPO, "configs",
+                                              "im2im_difa.yaml"),
+                     "--device", "cpu", "--outdir", str(tmp_path / "difa"),
+                     "inversion.e4e_checkpoint=" + str(tmp_path / "no.npz")])
+    assert not os.path.exists(tmp_path / "difa")
+    with pytest.raises(ValueError, match="unknown trainer"):
+        tadapt.main(["--config", os.path.join(REPO, "configs",
+                                              "im2im_jojo.yaml"),
+                     "--device", "cpu", "--outdir", str(tmp_path / "jojo"),
+                     "exp.trainer=im2im_jojo"])
     with pytest.raises(SystemExit):
         tadapt.main(["--config", cfg, "--device", "cpu", "--bogus"])
 
@@ -240,7 +295,7 @@ def test_inferencer_matches_jax(snapshot, tmp_path):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
                                    atol=2e-4 * np.abs(np.asarray(w)).max())
     with pytest.raises(NotImplementedError, match="item 12"):
-        tinf.project_e4e(None)
+        tinf.project_restyle(None)
 
 
 @pytest.mark.parametrize("parametrization", ["s_delta", "out_in_1_2_additive"])

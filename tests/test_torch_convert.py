@@ -353,3 +353,22 @@ def test_clip_commands_write_what_jax_loads(kind, tmp_path):
     assert sorted(got) == sorted(want)
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], np.asarray(v), err_msg=k)
+
+
+def test_reference_fault_rosinality_command_lacks_channel_multiplier(
+        tool, monkeypatch, tmp_path):
+    """A fault of tools/convert_weights.py: ``--channel-multiplier`` is
+    registered under the ``lpips_alex`` subcommand only (`:447-451`), but
+    ``rosinality`` reads it (`:456-458`), so the ``rosinality`` command
+    stops with an AttributeError before it opens its source.  The port's
+    command takes the option."""
+    dest = str(tmp_path / "x.npz")
+    monkeypatch.setattr("sys.argv", ["convert_weights.py", "rosinality",
+                                     "--src", str(tmp_path / "none.pt"),
+                                     "--dest", dest])
+    with pytest.raises(AttributeError, match="channel_multiplier"):
+        tool.main()
+    args = tcw.build_parser().parse_args(
+        ["rosinality", "--src", "a.pt", "--dest", dest,
+         "--channel-multiplier", "1"])
+    assert args.channel_multiplier == 1

@@ -62,7 +62,11 @@ def test_port_imports_with_jax_blocked():
             "gagan_tpu_torch.utils.torch_import, gagan_tpu_torch.clip.convert, "
             "gagan_tpu_torch.cli.convert_weights, "
             "gagan_tpu_torch.params.sparse, gagan_tpu_torch.params.mappers, "
-            "gagan_tpu_torch.train.auto_layers\n"
+            "gagan_tpu_torch.train.auto_layers, gagan_tpu_torch.metrics.vgg16, "
+            "gagan_tpu_torch.metrics.detectors, gagan_tpu_torch.inversion, "
+            "gagan_tpu_torch.inversion.encoders, "
+            "gagan_tpu_torch.inversion.projector, "
+            "gagan_tpu_torch.cli.projector\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -197,6 +201,56 @@ def test_convert_and_fewshot_dry_run_without_jax(tmp_path):
                 "__config__"} <= set(f.files)
 
 
+def test_projection_and_im2im_run_without_pil_yaml_or_jax(tmp_path):
+    """With JAX, the JAX package, Pillow, click, PyYAML, regex and ftfy
+    blocked: the projector command projects a PNG, and the adapt command
+    runs im2im_mtg.yaml (style PNG, projection, MindTheGap steps) on a tiny
+    demo generator."""
+    import numpy as np
+
+    from gagan_tpu_torch.models import stylegan2 as tsg
+    from gagan_tpu_torch.utils import checkpoint as tck
+    from gagan_tpu_torch.utils.config import to_dict
+    from gagan_tpu_torch.utils.png import write_png
+
+    g = tsg.GeneratorConfig(z_dim=8, w_dim=8, img_resolution=8,
+                            mapping=tsg.MappingConfig(num_layers=1),
+                            synthesis=tsg.SynthesisConfig(channel_base=32,
+                                                          channel_max=8))
+    snap = str(tmp_path / "net.npz")
+    tck.save_snapshot(snap, g_ema=tsg.init_generator(
+        g, torch.Generator().manual_seed(0), "cpu"),
+        config={"g_cfg": to_dict(g)})
+    style = str(tmp_path / "style.png")
+    write_png(style, np.random.RandomState(0).randint(0, 256, (12, 10, 3),
+                                                      np.uint8))
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu', 'PIL', 'click', 'yaml', 'regex', "
+            "'ftfy'):\n"
+            "    sys.modules[m] = None\n"
+            "from gagan_tpu_torch.cli import adapt, projector\n"
+            "from gagan_tpu_torch.entry import TINY_CLIP\n"
+            f"projector.main(['--network', {snap!r}, '--target', {style!r}, "
+            f"'--outdir', {str(tmp_path / 'proj')!r}, '--space', 'w', "
+            "'--num-steps', '2', '--save-image', '--device', 'cpu'])\n"
+            "adapt.main(['--config', 'configs/im2im_mtg.yaml', '--network', "
+            f"{snap!r}, '--outdir', {str(tmp_path / 'run')!r}, "
+            "'--device', 'cpu', 'training.iter_num=1', "
+            "'training.batch_size=1', 'inversion.steps=1', "
+            f"'training.target_class={style}', "
+            "f'training.clip_config_overrides={TINY_CLIP!r}'])\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env.pop("GAGAN_DETECTOR_DIR", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert {"projected_w.npz", "style_proj.png", "style_target.png"} <= set(
+        os.listdir(tmp_path / "proj"))
+    assert os.path.exists(tmp_path / "run" / "config.yaml")
+
+
 def test_entry_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -210,6 +264,8 @@ def test_entry_refuses_cpu_fallback():
         entry.adapt_entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.fewshot_entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.im2im_entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
