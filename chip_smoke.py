@@ -11,9 +11,10 @@ no ok line):
                conv kernel and the count of wgmma (HGMMA) instructions in
                the SASS (cuobjdump, where the toolkit has it);
   3. kernels - each hand kernel against its plain PyTorch version on the card
-               (KERNEL_CASES: the main path's shapes and edge cases, TF32
-               off), timed beside its bound, its fold launch alone, the plain
-               version and one cuDNN call; at the main path's two levels also
+               (KERNEL_CASES: the main path's shapes in bf16 and in fp32
+               (PPL's force_fp32 route), and edge cases, TF32 off), timed
+               beside its bound, its fold launch alone, the plain version
+               and one cuDNN call; at the main path's two bf16 levels also
                the level's backward against autograd through the plain
                version in fp32, timed alone and with the forward;
   4. main    - the FFHQ-1024 generator forward through the port's entry point
@@ -83,13 +84,31 @@ no ok line):
                and syncs); pallas vs composed gradients of a DiFa step and
                of a projector step, whose noise gradients are held against
                an fp32 G (TF32 off);
- 13. a JSON line of the kernels, then the JSON ok line.
+ 13. ga      - the GA StyleSpace direction search (entry.ga_entry: 32
+               candidates of 4 images at FFHQ-1024, elite 4, a random Swin-T
+               fitness on the raw 1024^2 images) for 2 generations in scan
+               and batched mode from one key: history and best agree, fused
+               launches (192 scan, 6 batched), no backward, candidates/s and
+               peak memory per mode; pallas vs composed images and scores of
+               a batched generation; a trace of one (G's and Swin-T's
+               shares, idle share); calculate_metrics (Swin-T FID / KID,
+               alex-LPIPS) of the best direction against the loop's PNGs;
+ 14. metrics - cli/calc_metrics.py --metrics fid1k,kid1k on the loop's
+               snapshot and PNGs, twice (metric-*.jsonl, the random-detector
+               warning, the second run's dataset statistics read from the
+               cache and bit-equal); the compute functions of pr50k3, is50k
+               and ppl2_wend at 256 samples (PPL's fused launches in fp32);
+               Inception features pallas vs composed; the generator-stats
+               rate (G + resize + Inception) and its peak memory;
+ 15. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -97,6 +116,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -110,12 +130,20 @@ from gagan_tpu_torch.cli import adapt as adapt_cli  # noqa: E402
 from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
 from gagan_tpu_torch.cli import projector as projector_cli  # noqa: E402
 from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
+from gagan_tpu_torch.data import ImageFolderDataset  # noqa: E402
+from gagan_tpu_torch.cli import calc_metrics as calc_metrics_cli  # noqa: E402
 from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
                                    adapt_entry, entry, entry_config,
-                                   fewshot_entry, im2im_entry, train_configs,
-                                   train_entry, train_run)
+                                   fewshot_entry, ga_entry, im2im_entry,
+                                   train_configs, train_entry, train_run)
+from gagan_tpu_torch.ga import evaluation as ga_eval  # noqa: E402
+from gagan_tpu_torch.ga import search as ga_search  # noqa: E402
 from gagan_tpu_torch.inversion import projector  # noqa: E402
 from gagan_tpu_torch.metrics import detectors  # noqa: E402
+from gagan_tpu_torch.metrics import feature_stats as fs  # noqa: E402
+from gagan_tpu_torch.metrics import inception_score as is_lib  # noqa: E402
+from gagan_tpu_torch.metrics import ppl as ppl_lib  # noqa: E402
+from gagan_tpu_torch.metrics import precision_recall as pr_lib  # noqa: E402
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
 from gagan_tpu_torch.params import offsets as offs_lib  # noqa: E402
@@ -165,6 +193,16 @@ PROJECT_STEPS = 20
 IM2IM_CONFIGS = ("im2im_difa", "im2im_jojo", "im2im_mtg")
 IM2IM_ITERS, IM2IM_LOG, IM2IM_INVERSION = 11, 10, 10
 IM2IM_BATCH, IM2IM_BLOCKS = 4, 3
+# The ga phase: evolve_directions of entry.ga_entry (32 candidates of 4
+# images, elite 4, Swin-T fitness) for GA_GENERATIONS generations from
+# Rng(GA_SEED), in both evaluation modes; calculate_metrics on the loop's
+# PNGs against GA_EVAL_IMAGES renders of the best direction.
+GA_GENERATIONS, GA_SEED, GA_EVAL_IMAGES = 2, 3, 32
+# The metrics phase: cli/calc_metrics.py on the loop's snapshot and PNGs for
+# METRICS (twice: the second run reads the cached dataset statistics) at
+# --batch METRICS_BATCH; then the compute functions of pr50k3, is50k and
+# ppl2_wend at METRICS_SAMPLES generated samples.
+METRICS, METRICS_BATCH, METRICS_SAMPLES = ("fid1k", "kid1k"), 32, 256
 
 
 class Case(NamedTuple):
@@ -182,13 +220,16 @@ class Case(NamedTuple):
     demodulate: bool = True        # else dcoefs are ones
 
 
-# The main path's two levels, the fp32 variant, and edge cases: ragged H,
-# W and C_in off the 64-wide tile, several C_out tiles, no noise / clamp /
-# demodulation.
+# The main path's two levels, the same two in fp32 (the route of a
+# force_fp32 G: the PPL metric's), and edge cases: ragged H, W and C_in off
+# the 64-wide tile, several C_out tiles, no noise / clamp / demodulation.
 KERNEL_CASES = (
     Case("b128.conv1", BATCH, 256, 256, 128, 128, torch.bfloat16, on_path=True),
     Case("b256.conv1", BATCH, 128, 128, 256, 256, torch.bfloat16, on_path=True),
-    Case("b128.conv1 fp32", BATCH, 256, 256, 128, 128, torch.float32),
+    Case("b128.conv1 fp32", BATCH, 256, 256, 128, 128, torch.float32,
+         on_path=True),
+    Case("b256.conv1 fp32", BATCH, 128, 128, 256, 256, torch.float32,
+         on_path=True),
     Case("edge", 3, 48, 256, 7, 136, torch.bfloat16),
     Case("plain epilogue", 2, 128, 128, 32, 128, torch.bfloat16, noise=False,
          clamp=None, demodulate=False),
@@ -299,6 +340,7 @@ def kernel_phase(peaks):
     peak_bf16, peak_f32, hbm = peaks
     main = dict(ms=0.0, fold_ms=0.0, plain_ms=0.0, bound_ms=0.0,
                 library_ms=0.0, max_abs_err=0.0, flop_ms=0.0, byte_ms=0.0)
+    fp32 = dict(main)          # the fp32 route's two levels
     for i, case in enumerate(KERNEL_CASES):
         label, n, ci, co, h, w, dt = case[:7]
         if not fmc.supported_shape((n, ci, h, w), (co, ci, 3, 3)):
@@ -342,20 +384,23 @@ def kernel_phase(peaks):
               f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
               f"({bound_by}) kernel_tflops {flops / kernel_ms / 1e9:.1f}",
               flush=True)
-        if case.on_path:
+        if case.on_path and dt == torch.bfloat16:
             bwd = backward_case(case, a, peaks)
             for k, v in bwd.items():
                 main[k] = (max(main.get(k, 0.0), v) if k.endswith("err")
                            else main.get(k, 0.0) + v)
-            main["ms"] += kernel_ms
-            main["fold_ms"] += fold_ms
-            main["plain_ms"] += plain_ms
-            main["library_ms"] += library_ms
-            main["bound_ms"] += bound_ms
-            main["max_abs_err"] = max(main["max_abs_err"], err)
-            main["flop_ms"] += 1e3 * flops / peak_ops
-            main["byte_ms"] += 1e3 * nbytes / hbm
+        if case.on_path:
+            agg = main if dt == torch.bfloat16 else fp32
+            agg["ms"] += kernel_ms
+            agg["fold_ms"] += fold_ms
+            agg["plain_ms"] += plain_ms
+            agg["library_ms"] += library_ms
+            agg["bound_ms"] += bound_ms
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            agg["flop_ms"] += 1e3 * flops / peak_ops
+            agg["byte_ms"] += 1e3 * nbytes / hbm
         del a, args, y, ref, xs
+    main["fp32"] = fp32
     return main
 
 
@@ -1113,8 +1158,8 @@ def leaves_of(trees):
 
 
 def adapt_g_config():
-    """The adapt phase's generator: FFHQ-1024 as entry_config() (8 mapping
-    layers, pallas_level=True)."""
+    """The generator of the adapt, im2im and ga phases: FFHQ-1024 as
+    entry_config() (8 mapping layers, pallas_level=True)."""
     return entry_config()
 
 
@@ -1308,37 +1353,39 @@ def adapt_timing(params, card):
           f"ViT-B/16, direction: {rate:.4f} steps/s (blocks of 10: "
           f"{', '.join(f'{r:.4f}' for r in rates)}), peak memory "
           f"{peak / 2 ** 30:.3f} GiB, on {card}", flush=True)
-    trace_adapt_step(trainer, card, 1e3 / rate)
+    trace_window(trainer.train_step_async, f"one adapt step (batch "
+                 f"{trainer.cfg.batch_size}, pallas_level=True)", card,
+                 1e3 / rate)
     return rate
 
 
-def trace_adapt_step(trainer, card, step_ms, top=12, ranges=()):
-    """One torch.profiler trace of a step: the kernels with the most device
-    time, the fused level's forward (fold + conv) and backward shares, the
-    device time of the kernels launched inside each ``record_function``
-    range named in ``ranges``, the share of the step's wall time (the
-    "adapt_step" range, which ends in a synchronize) with no kernel, copy or
-    fill running on the card, and that share of the unprofiled step
-    (``step_ms``, from the timed blocks)."""
+def trace_window(fn, label, card, step_ms, top=12, ranges=()):
+    """One torch.profiler trace of ``fn()``: the kernels with the most
+    device time, the fused level's forward (fold + conv) and backward
+    shares, the device time of the kernels launched inside each
+    ``record_function`` range named in ``ranges``, the share of the
+    window's wall time (the "traced_window" range, which ends in a
+    synchronize) with no kernel, copy or fill running on the card, and that
+    share of the unprofiled window (``step_ms``, timed apart)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function("adapt_step"):
-            trainer.train_step_async()
+        with record_function("traced_window"):
+            fn()
             torch.cuda.synchronize()
     device_us, spans, bwd_us, wall_us = {}, [], 0.0, 0.0
     launch_us, launches, syncs = 0.0, 0, {}
     range_us = {name: 0.0 for name in ranges}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
-            if evt.name in ("adapt_step", "fused_modconv3x3_bwd") + ranges:
+            if evt.name in ("traced_window", "fused_modconv3x3_bwd") + ranges:
                 continue
             device_us[evt.name] = (device_us.get(evt.name, 0.0)
                                    + evt.time_range.elapsed_us())
             spans.append((evt.time_range.start, evt.time_range.end))
-        elif evt.name == "adapt_step":
+        elif evt.name == "traced_window":
             wall_us = evt.time_range.elapsed_us()
         elif evt.name == "fused_modconv3x3_bwd":
             bwd_us += evt.device_time_total
@@ -1353,8 +1400,7 @@ def trace_adapt_step(trainer, card, step_ms, top=12, ranges=()):
             n, us = syncs.get(evt.name, (0, 0.0))
             syncs[evt.name] = (n + 1, us + evt.time_range.elapsed_us())
     total = sum(device_us.values())
-    print(f"trace of one adapt step (batch {trainer.cfg.batch_size}, "
-          f"pallas_level=True) on {card}:")
+    print(f"trace of {label} on {card}:")
     if total <= 0 or wall_us <= 0:
         print("  device time: not measured (the trace holds no CUDA kernels)")
         return
@@ -1367,20 +1413,20 @@ def trace_adapt_step(trainer, card, step_ms, top=12, ranges=()):
         print(f"  {us / 1e3:9.4f} ms {100 * us / total:6.2f}%  {name[:110]}")
     fwd = sum(us for name, us in device_us.items()
               if "modconv_bf16_kernel" in name or "fold_taps_kernel" in name)
-    print(f"  step wall {wall_us / 1e3:.4f} ms, device busy {busy / 1e3:.4f} "
-          f"ms: {100 * (1 - busy / wall_us):.2f}% of the step with no kernel "
+    print(f"  wall {wall_us / 1e3:.4f} ms, device busy {busy / 1e3:.4f} "
+          f"ms: {100 * (1 - busy / wall_us):.2f}% of it with no kernel "
           f"on the card; kernel time {total / 1e3:.4f} ms, fused level "
           f"forward {fwd / 1e3:.4f} ms ({100 * fwd / total:.2f}%), its "
           f"backward {bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)"
           + "".join(f"; range {name!r} {us / 1e3:.4f} ms "
                     f"({100 * us / total:.2f}%)"
                     for name, us in range_us.items()))
-    print(f"  unprofiled step {step_ms:.4f} ms (timed blocks): "
+    print(f"  unprofiled {step_ms:.4f} ms (timed apart): "
           f"{100 * max(0.0, 1 - busy / 1e3 / step_ms):.2f}% of it with no "
           f"kernel on the card, at this trace's device busy time")
     print(f"  host: {launches} kernel launches, {launch_us / 1e3:.4f} ms in "
           f"the launch calls ({len(spans)} kernels, copies and fills on the "
-          f"card); the profiler's own cost is in the step's wall time")
+          f"card); the profiler's own cost is in the wall time")
     print("  host waits and copies: " + (", ".join(
         f"{name} x{n} {us / 1e3:.4f} ms" for name, (n, us) in sorted(
             syncs.items())) or "none"))
@@ -2032,9 +2078,399 @@ def im2im_timing(params, card):
           f"(blocks of 10: {', '.join(f'{r:.4f}' for r in rates)}), peak "
           f"memory {peak / 2 ** 30:.3f} GiB, SCC window "
           f"{int(trainer.scc_state.count)} entries, on {card}", flush=True)
-    trace_adapt_step(trainer, card, 1e3 / rate,
-                     ranges=("e4e", "e4e_backbone"))
+    trace_window(trainer.train_step_async, f"one DiFa step (batch "
+                 f"{trainer.cfg.batch_size}, pallas_level=True)", card,
+                 1e3 / rate, ranges=("e4e", "e4e_backbone"))
     return rate
+
+# ----------------------------------------------------------------------------
+# The ga phase: the GA direction search and the GA metrics
+
+
+# Scan and batched evolutions from one key render the same samples, at
+# batch 4 and at batch 128, where cuDNN and cuBLAS may pick other kernels
+# and sum in another order.  The bf16 levels may then round an activation
+# one ulp (2^-8 relative) apart, and a fitness score, a mean of cosines in
+# [-1, 1], moves by about as much: 2^-8 absolute.  The directions come from
+# the same draws through the same ops, so the best direction is equal
+# (JAX's 1e-4) as long as both modes sort the scores alike.
+GA_SCORE_TOL = 2 ** -8
+
+
+def ga_phase(tmp, card):
+    """evolve_directions of entry.ga_entry at FFHQ-1024 (Swin-T fitness on
+    the raw 1024^2 images, 32 candidates of 4 images, elite 4) in scan and
+    batched mode from one key: agreement, candidates/s, peak memory, fused
+    launches and no backward; pallas vs composed scores of one batched
+    generation; a trace of one; calculate_metrics of the best direction's
+    images against the loop's PNGs.  TF32 off throughout (the Swin linear
+    layers are fp32 matmuls either way).  Returns the fused launches by
+    mode."""
+    phase("ga")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g_cfg = adapt_g_config()
+    params = seeded_weights(sg2.init_generator(
+        g_cfg, torch.Generator().manual_seed(0), DEVICE))
+    dim = ga_search.direction_dim(g_cfg.synthesis)
+    runs, launches = {}, {}
+    for mode in ("scan", "batched"):
+        torch.cuda.empty_cache()
+        e = ga_entry(DEVICE, eval_mode=mode, generations=GA_GENERATIONS,
+                     g_params=params)
+        cfg = e.cfg
+        # Warm-up at the run's shapes: the final scoring pass alone.
+        ga_search.evolve_directions(Rng(GA_SEED), e.g_cfg, params,
+                                    e.fitness_fn,
+                                    dataclasses.replace(cfg, generations=0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fmc.fused_modconv3x3.launches = 0
+        with BackwardNeeds() as needs:
+            t0 = time.perf_counter()
+            best, hist = ga_search.evolve_directions(
+                Rng(GA_SEED), e.g_cfg, params, e.fitness_fn, cfg)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches[mode] = fmc.fused_modconv3x3.launches
+        evals = cfg.generations + 1
+        b = cfg.batch_per_candidate
+        per_call = b if mode == "scan" else cfg.population * b
+        calls = cfg.population * evals if mode == "scan" else evals
+        want = expected_launches(g_cfg, per_call) * calls
+        runs[mode] = (best, hist, cfg.population * evals / wall, wall / evals)
+        print(f"ga {mode}: {cfg.population} candidates x {b} images at "
+              f"{g_cfg.img_resolution}^2, {cfg.generations} generations + "
+              f"the final scoring: {wall:.3f} s, "
+              f"{runs[mode][2]:.3f} candidates/s, peak memory "
+              f"{peak / 2 ** 30:.3f} GiB; history {hist.tolist()}; "
+              f"fused_modconv3x3 launches {launches[mode]} (expected {want}: "
+              f"{calls} G calls at batch {per_call}); backward calls "
+              f"{len(needs.calls)}, on {card}", flush=True)
+        if (launches[mode] != want or needs.calls or best.shape != (dim,)
+                or not np.isfinite(hist).all() or not np.isfinite(best).all()
+                or hist.shape != (cfg.generations,)):
+            raise AssertionError(f"ga {mode}: the search failed")
+    (best_s, hist_s, rate_s, _), (best_b, hist_b, rate_b, gen_s) = (
+        runs["scan"], runs["batched"])
+    hist_err = float(np.abs(hist_b - hist_s).max())
+    best_err = float(np.abs(best_b - best_s).max())
+    print(f"ga batched vs scan: history max|diff| {hist_err:.4g} (bound "
+          f"{GA_SCORE_TOL:.4g}), best direction max|diff| {best_err:.4g} "
+          f"(bound 1e-4); batched/scan {rate_b / rate_s:.3f}x "
+          f"({rate_b:.3f} / {rate_s:.3f} candidates/s), on {card}",
+          flush=True)
+    if not (hist_err <= GA_SCORE_TOL and best_err <= 1e-4):
+        raise AssertionError("ga: scan and batched evolutions disagree")
+    population, z = ga_pallas_check(e, params, card)
+    torch.cuda.empty_cache()
+
+    def generation():
+        with torch.no_grad():
+            ga_search.eval_batched(e.cfg, e.g_cfg, params, e.fitness_fn,
+                                   population, z)
+
+    trace_window(generation, f"one batched GA generation ({e.cfg.population} "
+                 f"candidates x {e.cfg.batch_per_candidate} images at "
+                 f"{g_cfg.img_resolution}^2, Swin-T fitness)", card,
+                 1e3 * gen_s, ranges=("ga_render", "ga_fitness"))
+    torch.cuda.empty_cache()
+    ga_metrics_check(tmp, e, params, best_b, card)
+    return launches
+
+
+def ga_pallas_check(e, params, card):
+    """One batched generation's images and scores, pallas vs composed G
+    (TF32 off), on the search's first population and a fixed z.  Images:
+    main_phase's bound (2^-5 relative RMS).  Scores: a score is a mean of
+    cosines of pooled features; an image error of relative RMS r moves a
+    feature vector by about r of its norm through a tower of gain near 1,
+    and a cosine by at most twice that: 2 x 2^-5 = 2^-4 absolute.  A wrong
+    kernel errs by O(1) in both.  Returns (population, z)."""
+    cfg = e.cfg
+    dim = ga_search.direction_dim(e.g_cfg.synthesis)
+    pop, b = cfg.population, cfg.batch_per_candidate
+    population = Rng(GA_SEED).split(2)[1].normal((pop, dim), DEVICE) \
+        * cfg.init_sigma
+    z = Rng(GA_SEED + 1).normal((b, e.g_cfg.z_dim), DEVICE)
+    plain = dataclasses.replace(e.g_cfg, synthesis=dataclasses.replace(
+        e.g_cfg.synthesis, pallas_level=False))
+    imgs, scores = {}, {}
+    with torch.no_grad():
+        for label, g in (("pallas", e.g_cfg), ("composed", plain)):
+            hooks = ga_search.batched_direction_hooks(
+                g.synthesis, population.repeat_interleave(b, dim=0))
+            img = ga_search.render(g, params, z.repeat(pop, 1),
+                                   cfg.truncation_psi, hooks)
+            scores[label] = torch.func.vmap(e.fitness_fn)(
+                img.reshape((pop, b) + img.shape[1:]))
+            imgs[label] = img / 127.5 - 1
+        diff = imgs["pallas"] - imgs["composed"]
+        rel_rms = float(diff.square().mean().sqrt()
+                        / imgs["composed"].square().mean().sqrt())
+        del imgs, diff
+    sp, sc = scores["pallas"].cpu().numpy(), scores["composed"].cpu().numpy()
+    err = float(np.abs(sp - sc).max())
+    gaps = np.diff(np.sort(sc))
+    print(f"ga pallas vs composed (batch {pop * b}, TF32 off): images "
+          f"rel_rms {rel_rms:.4g} (bound {2 ** -5:.4g}); scores max|diff| "
+          f"{err:.4g} (bound {2 ** -4:.4g}); the composed scores span "
+          f"{float(sc.max() - sc.min()):.4g}, nearest two "
+          f"{float(gaps.min()):.4g} apart, on {card}", flush=True)
+    if not (rel_rms <= 2 ** -5 and err <= 2 ** -4
+            and np.isfinite(sp).all()):
+        raise AssertionError("ga: pallas and composed scores disagree")
+    return population, z
+
+
+def ga_metrics_check(tmp, e, params, best, card):
+    """calculate_metrics of GA_EVAL_IMAGES renders of the best direction
+    (uint8, truncation 0.7) against as many of the loop's 1024^2 PNGs:
+    Swin-T features (the fitness tower) for FID and KID, the pairwise
+    alex-LPIPS (random weights of the real shape).  FID of 32 samples of
+    768-d features is rank-deficient: printed with sqrtm's warning, not
+    checked."""
+    data = os.path.join(tmp, "data")
+    names = sorted(os.listdir(data))[:GA_EVAL_IMAGES]
+    real = torch.from_numpy(np.stack([
+        png.read_png(os.path.join(data, n)).transpose(2, 0, 1)
+        for n in names])).to(DEVICE)
+    z = torch.from_numpy(np.random.RandomState(7).randn(
+        len(names), e.g_cfg.z_dim).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        gen = ga_search.render(e.g_cfg, params, z, e.cfg.truncation_psi,
+                               ga_search.direction_to_hooks(
+                                   e.g_cfg.synthesis,
+                                   torch.from_numpy(best).to(DEVICE)))
+    gen = gen.to(torch.uint8)
+    lpips = ga_eval.make_alex_lpips(device=DEVICE)
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fid, kid, lp = ga_eval.calculate_metrics(
+            real, gen, lambda u8: e.extract(u8.float() / 127.5 - 1.0),
+            lpips_pair_fn=lpips)
+    wall = time.perf_counter() - t0
+    said = sorted({f"{w.category.__name__}: {w.message}" for w in caught
+                   if not issubclass(w.category, DeprecationWarning)})
+    print(f"ga calculate_metrics ({len(names)} loop PNGs vs {len(names)} "
+          f"images of the best direction, {real.shape[-1]}^2, Swin-T "
+          f"features, alex-LPIPS pairs): FID {fid:.6g}, KID {kid:.6g}, "
+          f"LPIPS {lp:.6g} in {wall:.3f} s; sqrtm warned: "
+          f"{said or 'no'}, on {card}", flush=True)
+    if not (np.isfinite(kid) and np.isfinite(lp) and lp > 0):
+        raise AssertionError("ga: calculate_metrics gave non-finite KID or "
+                             "LPIPS")
+
+
+# ----------------------------------------------------------------------------
+# The metrics phase: snapshot metrics
+
+
+class DtypeRecorder:
+    """Records the activation dtype of each launch of the fused level."""
+
+    def __init__(self):
+        self.dtypes = []
+        self._fwd = None
+
+    def __enter__(self):
+        self._fwd = fmc._forward
+
+        def recording(x, *args):
+            self.dtypes.append(x.dtype)
+            return self._fwd(x, *args)
+
+        fmc._forward = recording
+        return self
+
+    def __exit__(self, *exc):
+        fmc._forward = self._fwd
+
+
+def metrics_phase(tmp, snap, card):
+    """cli/calc_metrics.py on the loop's snapshot and PNGs (METRICS, twice),
+    then the compute functions of pr50k3, is50k and ppl2_wend at
+    METRICS_SAMPLES samples, Inception features pallas vs composed, and the
+    generator-stats rate.  Returns (fused launches, PPL's fp32 launches)."""
+    phase("metrics")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    launches = metrics_cli_runs(tmp, snap, card)
+    g_cfg, params = generate.load_generator(snap, DEVICE)
+    dataset = ImageFolderDataset(os.path.join(tmp, "data"))
+
+    def opts():
+        return fs.MetricOptions(g_params=params, g_cfg=g_cfg, dataset=dataset,
+                                batch_size=METRICS_BATCH, device=DEVICE)
+
+    batches = -(-METRICS_SAMPLES // METRICS_BATCH)
+    per = expected_launches(g_cfg, METRICS_BATCH) * batches
+    results, counts = {}, {}
+    for name, fn in (
+            ("pr50k3", lambda: pr_lib.compute_pr(
+                opts(), max_real=50000, num_gen=METRICS_SAMPLES)),
+            ("is50k", lambda: is_lib.compute_is(
+                opts(), num_gen=METRICS_SAMPLES, num_splits=10)),
+            ("ppl2_wend", lambda: ppl_lib.compute_ppl(
+                opts(), num_samples=METRICS_SAMPLES, epsilon=1e-4, space="w",
+                sampling="end", crop=False))):
+        fmc.fused_modconv3x3.launches = 0
+        t0 = time.perf_counter()
+        with DtypeRecorder() as rec:
+            results[name] = fn()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = fmc.fused_modconv3x3.launches
+        dtypes = sorted({str(d)[6:] for d in rec.dtypes})
+        print(f"{name} compute at {METRICS_SAMPLES} samples (batch "
+              f"{METRICS_BATCH}): {results[name]} in {wall:.3f} s; "
+              f"fused_modconv3x3 launches {counts[name]} (expected {per}) in "
+              f"{dtypes}, on {card}", flush=True)
+        want_dtype = ([] if per == 0 else ["float32"] if name == "ppl2_wend"
+                      else ["bfloat16"])
+        if (counts[name] != per or dtypes != want_dtype
+                or not np.isfinite(results[name]).all()):
+            raise AssertionError(f"{name}: the metric failed")
+    torch.cuda.empty_cache()
+    inception_pallas_check(g_cfg, params, card)
+    torch.cuda.empty_cache()
+    generator_stats_rate(opts(), card)
+    return launches + sum(counts.values()), counts["ppl2_wend"]
+
+
+def metrics_cli_runs(tmp, snap, card):
+    """The command twice with one cache directory: finite results, the
+    random-detector warning, one more line in each metric-<name>.jsonl a
+    run; the second run reads both dataset statistics from the cache, equal
+    bit for bit to the first run's.  Returns the fused launches."""
+    cache = os.path.join(tmp, "metrics-cache")
+    argv = ["--network", snap, "--metrics", ",".join(METRICS), "--data",
+            os.path.join(tmp, "data"), "--cache-dir", cache, "--batch",
+            str(METRICS_BATCH), "--device", DEVICE]
+    g_cfg, _ = generate.load_generator(snap, "cpu")
+    per_metric = (expected_launches(g_cfg, METRICS_BATCH)
+                  * -(-1000 // METRICS_BATCH))
+    real_side, loads, launches = [], [], 0
+    orig_stats, orig_load = fs.compute_feature_stats_for_dataset, \
+        fs.FeatureStats.load
+
+    def recording_stats(*a, **k):
+        real_side[-1].append(orig_stats(*a, **k))
+        return real_side[-1][-1]
+
+    def recording_load(path):
+        loads[-1].append(path)
+        return orig_load(path)
+
+    fs.compute_feature_stats_for_dataset = recording_stats
+    fs.FeatureStats.load = staticmethod(recording_load)
+    try:
+        for run in (1, 2):
+            real_side.append([])
+            loads.append([])
+            err = io.StringIO()
+            fmc.fused_modconv3x3.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                results = calc_metrics_cli.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n = fmc.fused_modconv3x3.launches
+            launches += n
+            sys.stderr.write(err.getvalue())
+            values = {k: v for r in results for k, v in r["results"].items()}
+            cached = sorted(os.listdir(cache))
+            warned = calc_metrics_cli.RANDOM_DETECTOR_WARNING in err.getvalue()
+            print(f"calc_metrics run {run}: {values} in {wall:.3f} s "
+                  f"(batch {METRICS_BATCH}); fused_modconv3x3 launches {n} "
+                  f"(expected {per_metric * len(METRICS)}); dataset "
+                  f"statistics read from the cache: {len(loads[-1])}; cache "
+                  f"files {cached}; random-detector warning {warned}, on "
+                  f"{card}", flush=True)
+            if (n != per_metric * len(METRICS)
+                    or sorted(values) != sorted(METRICS)
+                    or not all(np.isfinite(v) for v in values.values())
+                    or not warned or len(cached) != len(METRICS)
+                    or len(loads[-1]) != (0 if run == 1 else len(METRICS))):
+                raise AssertionError(f"calc_metrics run {run} failed")
+    finally:
+        fs.compute_feature_stats_for_dataset = orig_stats
+        fs.FeatureStats.load = staticmethod(orig_load)
+    for first, second in zip(*real_side):
+        same = first.num_items == second.num_items
+        if first.capture_mean_cov:
+            same = same and np.array_equal(first.raw_mean, second.raw_mean) \
+                and np.array_equal(first.raw_cov, second.raw_cov)
+        if first.capture_all:
+            same = same and np.array_equal(first.get_all(), second.get_all())
+        if not same:
+            raise AssertionError("calc_metrics: the cached dataset "
+                                 "statistics differ from the computed ones")
+    for m in METRICS:
+        with open(os.path.join(os.path.dirname(snap),
+                               f"metric-{m}.jsonl")) as f:
+            lines = [json.loads(ln) for ln in f if ln.strip()]
+        if len(lines) != 2 or not all(np.isfinite(ln["results"][m])
+                                      for ln in lines):
+            raise AssertionError(f"metric-{m}.jsonl: {lines}")
+    print(f"calc_metrics: the second run's dataset statistics are the "
+          f"first run's, bit for bit; metric-{{{','.join(METRICS)}}}.jsonl "
+          f"hold 2 lines each")
+    return launches
+
+
+def inception_pallas_check(g_cfg, params, card):
+    """Inception features of 32 generated images (random noise from one
+    key), pallas vs composed G (TF32 off).  The images agree within
+    main_phase's 2^-5 relative RMS; the features are spatial means of ReLU
+    maps of a tower of gain near 1, so about as close: bound 2^-4 relative
+    L2 (twice the images'), against O(1) for a wrong kernel."""
+    torch.backends.cudnn.allow_tf32 = False
+    det = detectors.make_default("inception", DEVICE)
+    plain = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+        g_cfg.synthesis, pallas_level=False))
+    z = Rng(11).normal((METRICS_BATCH, g_cfg.z_dim), DEVICE)
+    feats = {}
+    with torch.no_grad():
+        for label, g in (("pallas", g_cfg), ("composed", plain)):
+            img = sg2.generator_apply(g, params, z, noise_mode="random",
+                                      generator=Rng(12))
+            feats[label] = det(fs.to_uint8(img)).float()
+    a, b = feats["pallas"], feats["composed"]
+    err = float((a - b).norm() / b.norm())
+    torch.backends.cudnn.allow_tf32 = True
+    print(f"metrics pallas vs composed: Inception features of "
+          f"{METRICS_BATCH} images rel_l2 {err:.4g} (bound {2 ** -4:.4g}), "
+          f"on {card}", flush=True)
+    if not err <= 2 ** -4:
+        raise AssertionError("metrics: pallas and composed features disagree")
+
+
+def generator_stats_rate(opts, card):
+    """compute_feature_stats_for_generator (G with random noise, the uint8
+    clip, the 1024 -> 299 resize and Inception, the host's float64
+    mean/cov) for METRICS_SAMPLES samples at batch METRICS_BATCH, after one
+    warm-up batch: images/s and peak memory."""
+    fs.compute_feature_stats_for_generator(opts, "inception",
+                                           capture_mean_cov=True,
+                                           max_items=METRICS_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = fs.compute_feature_stats_for_generator(
+        opts, "inception", capture_mean_cov=True, max_items=METRICS_SAMPLES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    print(f"generator stats (G + resize + Inception) at batch "
+          f"{METRICS_BATCH}: {stats.num_items / wall:.3f} images/s "
+          f"({stats.num_items} in {wall:.3f} s), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB, on {card}", flush=True)
+    if stats.num_items != METRICS_SAMPLES or not np.isfinite(
+            stats.get_mean_cov()[1]).all():
+        raise AssertionError("generator stats failed")
 
 
 def main():
@@ -2057,14 +2493,20 @@ def main():
         torch.cuda.empty_cache()
         (fewshot_launches, fewshot_seconds, fewshot_mem,
          fewshot_sec_per_kimg) = fewshot_phase(tmp, snap, card)
-    torch.cuda.empty_cache()
-    adapt_launches, adapt_rate = adapt_phase(card)
-    torch.cuda.empty_cache()
-    im2im_launches, im2im_needs, im2im_rate = im2im_phase(card)
+        torch.cuda.empty_cache()
+        adapt_launches, adapt_rate = adapt_phase(card)
+        torch.cuda.empty_cache()
+        im2im_launches, im2im_needs, im2im_rate = im2im_phase(card)
+        torch.cuda.empty_cache()
+        ga_launches = ga_phase(tmp, card)
+        torch.cuda.empty_cache()
+        metrics_launches, ppl_launches = metrics_phase(tmp, snap, card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
                "remat": remat_launches, "adapt": adapt_launches,
-               "fewshot": fewshot_launches, "im2im": im2im_launches}
+               "fewshot": fewshot_launches, "im2im": im2im_launches,
+               "ga": sum(ga_launches.values()), "metrics": metrics_launches}
+    f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
         source="gagan_tpu_torch/csrc/fused_modconv.cu",
@@ -2077,7 +2519,14 @@ def main():
         fwd_bwd_ms=k["fwd_bwd_ms"], bwd_plain_ms=k["bwd_plain_ms"],
         bwd_bound_ms=k["bwd_bound_ms"], bwd_max_rel_err=k["bwd_max_rel_err"],
         bwd_max_rel_l2_err=k["bwd_max_rel_l2_err"],
-        im2im_bwd_needs=[[int(f) for f in n] for n in im2im_needs])]
+        im2im_bwd_needs=[[int(f) for f in n] for n in im2im_needs],
+        ga_launches_by_mode=ga_launches, fp32_launches=ppl_launches,
+        fp32_ms=f32["ms"], fp32_fold_ms=f32["fold_ms"],
+        fp32_plain_ms=f32["plain_ms"], fp32_bound_ms=f32["bound_ms"],
+        fp32_bound_by=("operations" if f32["flop_ms"] >= f32["byte_ms"]
+                       else "bytes"),
+        fp32_library_ms=f32["library_ms"],
+        fp32_max_abs_err=f32["max_abs_err"])]
     print(f"(kernel times: the launches of one batch-{BATCH} forward, "
           f"b128.conv1 + b256.conv1, on {card}; bwd_*: the level's composed "
           f"backward at the same shapes; train: s/step "
@@ -2091,7 +2540,9 @@ def main():
           f"{fewshot_sec_per_kimg:.4f} s/kimg; im2im: DiFa "
           f"{im2im_rate:.4f} steps/s; im2im_bwd_needs: the level's backward "
           f"flags (dx, dW, dstyles, ddcoefs, dnoise, dbias) asked for by the "
-          f"projector and adapt commands)")
+          f"projector and adapt commands; fp32_*: the same two levels in "
+          f"fp32, the route of the force_fp32 G that PPL samples, whose "
+          f"launches on the metrics path fp32_launches counts)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

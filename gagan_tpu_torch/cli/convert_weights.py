@@ -10,6 +10,10 @@ the state-dict paths of tools/convert_weights.py), without JAX.
         --src pytorch_model.bin --dest vit_b_32.npz
     python -m gagan_tpu_torch.cli.convert_weights vgg16 --src vgg16.pth \\
         --dest vgg16.npz [--lpips-lin vgg.pth]
+    python -m gagan_tpu_torch.cli.convert_weights inception \\
+        --src pt_inception-2015-12-05.pth --dest inception_v3.npz
+    python -m gagan_tpu_torch.cli.convert_weights lpips-alex \\
+        --src lpips_alex.pth --dest alex.npz [--alexnet-src alexnet.pth]
 
 * ``rosinality``: a rosinality StyleGAN2 ``.pt`` (its ``g_ema`` entry, or a
   bare state dict) -> a snapshot with ``G_ema/`` only.  The resolution is
@@ -29,6 +33,11 @@ the state-dict paths of tools/convert_weights.py), without JAX.
 * ``vgg16``: a torchvision VGG16 state dict, and optionally the LPIPS
   package's VGG ``lin`` weights (``lin{i}.model.1.weight``) -> the npz that
   ``metrics/detectors.py`` reads from ``GAGAN_DETECTOR_DIR`` (``vgg16.npz``).
+* ``inception``: pytorch-fid's InceptionV3 state dict -> ``inception_v3.npz``
+  for the same directory (``num_batches_tracked`` left out).
+* ``lpips-alex``: an ``lpips`` ``LPIPS(net='alex')`` state dict, or the
+  package's lin-only ``alex.pth`` with a torchvision AlexNet state dict
+  (``--alexnet-src``) -> the npz ``metrics/alexnet.py::load_params`` reads.
 
 Nothing is fetched: every source is a local file.  A snapshot is ``G_ema/``,
 ``G/``, ``D/`` prefixed dotted keys plus ``__config__`` (JSON as uint8), as
@@ -242,11 +251,64 @@ def convert_vgg16(src: str, dest: str, lpips_lin: Optional[str] = None):
     print(f"converted VGG16 -> {dest}")
 
 
+# ----------------------------------------------------------------------------
+# InceptionV3 (FID) and AlexNet (LPIPS)
+
+
+def convert_inception(src: str, dest: str):
+    """src: pytorch-fid's pt_inception-2015-12-05 state dict (.pth)."""
+    sd = torch.load(src, map_location="cpu", weights_only=True)
+    np.savez(dest, **{k: v.numpy() for k, v in sd.items()
+                      if "num_batches_tracked" not in k})
+    print(f"converted InceptionV3 -> {dest}")
+
+
+def lpips_alex_to_flat(sd: Dict, alexnet_sd: Optional[Dict] = None) -> Dict:
+    """lpips-package LPIPS(net='alex') weights -> metrics/alexnet.py's flat
+    keys: a full LPIPS state dict (``net.sliceK.I.*``, ``linI.model.1.weight``,
+    ``scaling_layer.*``), or the lin-only weight file plus a torchvision
+    AlexNet state dict for the tower."""
+    sd, alexnet_sd = _numpy(sd), _numpy(alexnet_sd or {})
+    flat = {}
+    for i in range(5):
+        for key in (f"lin{i}.model.1.weight", f"lins.{i}.model.1.weight"):
+            if key in sd:
+                flat[f"lin.{i}.weight"] = sd[key].reshape(-1)
+                break
+        else:
+            raise KeyError(f"lin{i} weight not found")
+    for k, v in sd.items():
+        if k.startswith("net.slice"):       # net.sliceK.<tv_idx>.<param>
+            _, _, idx, param = k.split(".")
+            flat[f"features.{idx}.{param}"] = v
+    for k, v in alexnet_sd.items():
+        if k.startswith("features."):
+            flat[k] = v
+    if "scaling_layer.shift" in sd:
+        flat["scaling.shift"] = sd["scaling_layer.shift"].reshape(-1)
+        flat["scaling.scale"] = sd["scaling_layer.scale"].reshape(-1)
+    missing = [i for i in (0, 3, 6, 8, 10)
+               if f"features.{i}.weight" not in flat]
+    if missing:
+        raise KeyError(f"AlexNet conv weights missing for features "
+                       f"{missing}: pass a torchvision alexnet state_dict")
+    return flat
+
+
+def convert_lpips_alex(src: str, dest: str, alexnet_src: Optional[str] = None):
+    sd = torch.load(src, map_location="cpu", weights_only=True)
+    alex_sd = (torch.load(alexnet_src, map_location="cpu", weights_only=True)
+               if alexnet_src else None)
+    np.savez(dest, **lpips_alex_to_flat(sd, alex_sd))
+    print(f"converted LPIPS-alex -> {dest}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Convert PyTorch checkpoints to gagan npz files.")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    for name in ("rosinality", "nvlabs", "openai-clip", "hf-clip", "vgg16"):
+    for name in ("rosinality", "nvlabs", "openai-clip", "hf-clip", "vgg16",
+                 "inception", "lpips-alex"):
         sp = sub.add_parser(name)
         sp.add_argument("--src", required=True)
         sp.add_argument("--dest", required=True)
@@ -260,6 +322,10 @@ def build_parser() -> argparse.ArgumentParser:
         if name == "vgg16":
             sp.add_argument("--lpips-lin", default=None,
                             help="the LPIPS package's VGG lin weights")
+        if name == "lpips-alex":
+            sp.add_argument("--alexnet-src", default=None,
+                            help="torchvision alexnet state dict (when src "
+                                 "is the lin-only lpips alex.pth)")
     return ap
 
 
@@ -275,6 +341,10 @@ def main(argv: Optional[List[str]] = None):
         convert_openai_clip(args.src, args.dest)
     elif args.cmd == "vgg16":
         convert_vgg16(args.src, args.dest, args.lpips_lin)
+    elif args.cmd == "inception":
+        convert_inception(args.src, args.dest)
+    elif args.cmd == "lpips-alex":
+        convert_lpips_alex(args.src, args.dest, args.alexnet_src)
     else:
         convert_hf_clip(args.src, args.dest)
 

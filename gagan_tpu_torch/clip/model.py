@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize2d
+from ..utils.checkpoint import tree_to_device
 
 Params = Dict[str, Any]
 
@@ -251,9 +252,4 @@ def init_clip(gen: torch.Generator, cfg: CLIPConfig = VIT_B_32,
         "text_projection": normal(0.02, tw, cfg.embed_dim),
         "logit_scale": torch.tensor(np.log(1 / 0.07), dtype=torch.float32),
     }
-    return _to(params, device)
-
-
-def _to(tree: Params, device) -> Params:
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    return tree_to_device(params, device)

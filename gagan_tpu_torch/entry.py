@@ -18,12 +18,15 @@
 * :func:`im2im_entry`: the DiFa trainer (``im2im_difa`` with the e4e SCC
   loss) at the shape ``bench.py::bench_adaptation_difa`` times, or at a
   tiny size for the CPU.
+* :func:`ga_entry`: the GA direction search of
+  ``tools/bench_ga_search.py`` (a Swin-T fitness, 32 candidates of 4
+  images) at FFHQ-1024, or at a tiny size for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -31,8 +34,10 @@ import torch
 from . import resolve_device
 from .cli import adapt as adapt_cli
 from .cli import train as train_cli
+from .ga import search as ga_search
 from .inversion import encoders as enc_lib
 from .models import stylegan2 as sg2
+from .models import swin
 from .params import offsets as offs_lib
 from .train import adapt_losses as al
 from .train import adaptation as ad
@@ -272,3 +277,52 @@ def im2im_entry(device="cuda", batch: int = 4, pallas_level: bool = True,
     return ad.AdaptationTrainer(cfg, g_cfg, g_params, encoders, Rng(3), emb,
                                 device=device, style_image=style_image,
                                 latent_encoder=(e_cfg, e_params))
+
+
+# The tiny Swin of the CPU runs: two stages on a 32^2 image, 4x4 windows.
+TINY_SWIN = swin.SwinConfig(image_size=32, embed_dim=16, depths=(2, 2),
+                            num_heads=(2, 4), window_size=4)
+
+
+class GAEntry(NamedTuple):
+    g_cfg: sg2.GeneratorConfig
+    g_params: Dict
+    extract: Callable        # images in [-1, 1] -> pooled Swin features
+    fitness_fn: Callable     # one candidate's images in [0, 255] -> score
+    cfg: ga_search.GASearchConfig
+
+
+def ga_entry(device="cuda", eval_mode: str = "scan", generations: int = 2,
+             g_params=None) -> GAEntry:
+    """The GA search of ``tools/bench_ga_search.py``: the fitness of a
+    candidate is the mean cosine of its images' pooled Swin features (a
+    random tower, seed 1) to a fixed unit target (seed 2);
+    ``GASearchConfig(population=32, batch_per_candidate=4, elite=4)`` with
+    ``eval_mode`` and ``generations``; a random generator (seed 0) unless
+    ``g_params`` is given.  On CUDA: G is :func:`entry_config`
+    (FFHQ-1024, the fused level) and the tower Swin-T on the raw 1024^2
+    image; on the CPU: :data:`TINY_G` and :data:`TINY_SWIN`.  Raises
+    without CUDA unless ``device`` is 'cpu'."""
+    device = resolve_device(device)
+    tiny = device.type == "cpu"
+    g_cfg = TINY_G if tiny else entry_config()
+    if g_params is None:
+        g_params = sg2.init_generator(g_cfg, torch.Generator().manual_seed(0),
+                                      device)
+    s_cfg = TINY_SWIN if tiny else swin.swin_tiny_config()
+    extract = swin.make_feature_extractor(
+        s_cfg, gen=torch.Generator().manual_seed(1), device=device)
+    dim = s_cfg.embed_dim * 2 ** (len(s_cfg.depths) - 1)     # 768 for Swin-T
+    target = torch.randn((dim,), generator=torch.Generator().manual_seed(2))
+    target = (target / torch.linalg.vector_norm(target)).to(device)
+
+    def fitness_fn(img_u8):
+        feats = extract(img_u8.float() / 127.5 - 1.0)
+        feats = feats / (torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+                         + 1e-8)
+        return (feats @ target).mean()
+
+    cfg = ga_search.GASearchConfig(population=32, batch_per_candidate=4,
+                                   elite=4, generations=generations,
+                                   eval_mode=eval_mode)
+    return GAEntry(g_cfg, g_params, extract, fitness_fn, cfg)

@@ -1,11 +1,12 @@
 """Named feature detectors (port of gagan_tpu/metrics/detectors.py).
 
 Weights load from the npz files that ``cli/convert_weights.py`` writes
-(the JAX package's flat keys), found in the directory ``GAGAN_DETECTOR_DIR``
-names.  Without that variable a detector has random weights of the real
-shape (the port's own draws, seed 0), tagged ``-random``: the machinery
-runs, the values need the real weights.  A directory that is set but lacks
-the file raises (the JAX module falls back to random weights there).
+(the JAX package's flat keys: ``inception_v3.npz``, ``vgg16.npz``), found
+in the directory ``GAGAN_DETECTOR_DIR`` names.  Without that variable a
+detector has random weights of the real shape (the port's own draws, seed
+0), tagged ``-random``: the machinery runs, the values need the real
+weights.  A directory that is set but lacks the file raises (the JAX
+module falls back to random weights there).
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import torch
 
 from .. import resolve_device
 from ..utils import checkpoint as ckpt
-from . import vgg16
+from . import inception, vgg16
 
 
 class Detector:
@@ -47,13 +48,26 @@ def _load_or_init(filename: str, init_fn, device):
 
 
 def make_default(name: str, device="cuda") -> Detector:
-    """The detector ``name`` on ``device``: "vgg16" (4096-d features) or
-    "vgg16_lpips" (the LPIPS embedding)."""
+    """The detector ``name`` on ``device``: "inception" (2048-d pool
+    features), "inception_softmax" (the 1008 class probabilities of the
+    logits without the bias), "vgg16" (4096-d features) or "vgg16_lpips"
+    (the LPIPS embedding)."""
     device = resolve_device(device)
     if name in ("inception", "inception_softmax"):
-        raise NotImplementedError(
-            f"detector {name!r}: InceptionV3 is not ported yet (ROADMAP "
-            f"item 13)")
+        params, pretrained = _load_or_init(
+            "inception_v3.npz",
+            lambda g, d: inception.init_inception_v3(g, device=d), device)
+        tag = "inception-2015-12-05" if pretrained else "inception-random"
+        if name == "inception":
+            return Detector(tag, lambda img: inception.inception_v3_features(
+                params, img), 2048)
+
+        def softmax_no_bias(img):
+            _, logits, _ = inception.inception_v3_features(
+                params, img, return_logits=True)
+            return torch.softmax(logits, dim=1)
+
+        return Detector(tag + "-softmax", softmax_no_bias, 1008)
     if name == "vgg16":
         params, pretrained = _load_or_init(
             "vgg16.npz", lambda g, d: vgg16.init_vgg16(g, device=d), device)

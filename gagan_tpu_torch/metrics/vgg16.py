@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize2d
+from ..utils.checkpoint import tree_to_device
 
 Params = Dict[str, Any]
 
@@ -134,9 +135,4 @@ def init_vgg16(gen: torch.Generator, with_lpips: bool = True,
                   "bias": torch.zeros((4096,))},
             "3": {"weight": normal(0.01, 4096, 4096),
                   "bias": torch.zeros((4096,))}}
-    return _to(p, device)
-
-
-def _to(tree: Params, device) -> Params:
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
-            for k, v in tree.items()}
+    return tree_to_device(p, device)

@@ -49,6 +49,16 @@ def tree_to_flat_tensors(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]
     return out
 
 
+def tree_to_device(tree: Any, device) -> Any:
+    """Nested dicts and lists of tensors -> the same nesting with every
+    tensor moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: tree_to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
 def flat_to_tree(flat: Dict[str, np.ndarray], device="cpu") -> Dict[str, Any]:
     """{dotted key: array} -> nested dict of tensors on ``device``."""
     tree: Dict[str, Any] = {}

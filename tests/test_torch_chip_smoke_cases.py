@@ -6,6 +6,7 @@ its control flow at a small size."""
 
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,8 +40,9 @@ def test_cases_cover_the_kernel_edges():
     assert any(not c.noise and c.clamp is None and not c.demodulate
                for c in bf16)
     assert any(c.dtype == torch.float32 for c in cs.KERNEL_CASES)
-    on_path = [(c.c_in, c.h) for c in cs.KERNEL_CASES if c.on_path]
-    assert on_path == [(256, 128), (128, 256)]               # b128, b256
+    on_path = [(c.c_in, c.h, c.dtype) for c in cs.KERNEL_CASES if c.on_path]
+    assert on_path == [(256, 128, torch.bfloat16), (128, 256, torch.bfloat16),
+                       (256, 128, torch.float32), (128, 256, torch.float32)]
 
 
 @CASES
@@ -343,3 +345,95 @@ def test_im2im_phase_drives_the_full_size_path():
                         "im2im_jojo": ("im2im_JoJo", 2),
                         "im2im_mtg": ("im2im_single", 2)}
     assert tad.E4E_SIZE == 256
+
+
+# ----------------------------------------------------------------------------
+# The ga and metrics phases' control flow
+
+
+def toy_detector(name, device="cpu"):
+    """Stand-ins of the four detectors with their random tags: 8x8 pixels
+    projected to 16 features (the towers are held against JAX by their own
+    tests; here they would cost minutes of CPU time)."""
+    from gagan_tpu_torch.metrics.detectors import Detector
+    from gagan_tpu_torch.ops.resize import resize2d
+
+    w = torch.from_numpy(np.random.RandomState(0).randn(192, 16).astype(
+        np.float32))
+
+    def feats(images):
+        x = resize2d(images.float() / 255.0, (8, 8), "bilinear")
+        return x.reshape(x.shape[0], -1) @ w
+
+    tags = {"inception": "inception-random",
+            "inception_softmax": "inception-random-softmax",
+            "vgg16": "vgg16-random", "vgg16_lpips": "vgg16-lpips-random"}
+    fn = ((lambda img: torch.softmax(feats(img), dim=1))
+          if name == "inception_softmax" else feats)
+    return Detector(tags[name], fn, 16)
+
+
+def test_ga_and_metrics_phases_run_on_cpu(monkeypatch, tmp_path):
+    """The ga and metrics phases on the CPU, after the loop phase that they
+    take their PNGs and snapshot from (32^2, 5 PNGs): the GA in both modes
+    at the tiny size of entry.ga_entry (32 candidates of 4 images, one
+    generation), the pallas-vs-composed, trace and calculate_metrics paths;
+    calc_metrics twice with fid1k / kid1k at 4 generated images (cache,
+    jsonl lines, warning), PR / IS / PPL at 10 samples (one an IS split),
+    the Inception check
+    and the rate, with small stand-in detectors.  No CUDA kernels here:
+    every expected launch count is 0."""
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.metrics import fid as fid_lib
+    from gagan_tpu_torch.metrics import kid as kid_lib
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "adapt_g_config", lambda: entry.TINY_G)
+    monkeypatch.setattr(cs.detectors, "make_default", toy_detector)
+    monkeypatch.delenv("GAGAN_DETECTOR_DIR", raising=False)
+    for name, value in (("DEVICE", "cpu"), ("LOOP_RES", 32),
+                        ("LOOP_BATCH", 4), ("LOOP_IMAGES", 5),
+                        ("LOOP_KIMG", 0), ("GA_GENERATIONS", 1),
+                        ("GA_EVAL_IMAGES", 4), ("METRICS_BATCH", 2),
+                        ("METRICS_SAMPLES", 10)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "train_configs", lambda batch: entry.train_configs(
+        batch, 32, 256))
+    real_fid, real_kid = fid_lib.compute_fid, kid_lib.compute_kid
+    monkeypatch.setattr(fid_lib, "compute_fid", lambda opts, max_real, num_gen:
+                        real_fid(opts, max_real, 4))
+    monkeypatch.setattr(kid_lib, "compute_kid", lambda opts, max_real, num_gen:
+                        real_kid(opts, max_real, 4, max_subset_size=4))
+
+    snap, _, _ = cs.loop_phase(str(tmp_path), "cpu", 1.0)
+    assert cs.ga_phase(str(tmp_path), "cpu") == {"scan": 0, "batched": 0}
+    assert cs.metrics_phase(str(tmp_path), snap, "cpu") == (0, 0)
+    assert {"metric-fid1k.jsonl", "metric-kid1k.jsonl"} <= set(
+        os.listdir(os.path.dirname(snap)))
+
+
+def test_ga_and_metrics_phases_drive_the_full_size_path():
+    """On the card: the GA on FFHQ-1024 (2 fused levels at batch 4 and at
+    batch 128) with Swin-T and bench_ga_search.py's population, 2
+    generations: 192 launches scan, 6 batched; calc_metrics at batch 32
+    (32 G calls a metric); PR / IS / PPL at 256 samples."""
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.models import swin
+
+    g = cs.adapt_g_config()
+    assert g.img_resolution == 1024 and g.synthesis.pallas_level
+    assert cs.expected_launches(g, 4) == cs.expected_launches(g, 128) == 2
+    cfg = entry.ga_entry.__defaults__
+    assert cfg[:2] == ("cuda", "scan")
+    assert (cs.GA_GENERATIONS, cs.GA_EVAL_IMAGES) == (2, 32)
+    assert 2 * 32 * (cs.GA_GENERATIONS + 1) == 192
+    assert 2 * (cs.GA_GENERATIONS + 1) == 6
+    assert swin.swin_tiny_config() == swin.SwinConfig()
+    assert cs.METRICS == ("fid1k", "kid1k")
+    assert (cs.METRICS_BATCH, cs.METRICS_SAMPLES) == (32, 256)
+    fp32 = [(c.c_in, c.h) for c in cs.KERNEL_CASES
+            if c.on_path and c.dtype == torch.float32]
+    assert fp32 == [(256, 128), (128, 256)]

@@ -25,6 +25,7 @@ from gagan_tpu.utils import config as jconfig
 from gagan_tpu.utils import torch_import as jti
 from gagan_tpu_torch.cli import convert_weights as tcw
 from gagan_tpu_torch.clip import convert as tconv
+from gagan_tpu_torch.metrics import alexnet as talex
 from gagan_tpu_torch.utils import checkpoint as tck
 from gagan_tpu_torch.utils import torch_import as tti
 
@@ -372,3 +373,95 @@ def test_reference_fault_rosinality_command_lacks_channel_multiplier(
         ["rosinality", "--src", "a.pt", "--dest", dest,
          "--channel-multiplier", "1"])
     assert args.channel_multiplier == 1
+
+
+# ----------------------------------------------------------------------------
+# InceptionV3 and LPIPS-alex
+
+
+def _npz(path):
+    with np.load(path) as data:
+        return {k: data[k] for k in data.files}
+
+
+def _same_npz(got, want):
+    got, want = _npz(got), _npz(want)
+    assert sorted(got) == sorted(want)
+    for k, v in want.items():
+        assert got[k].dtype == v.dtype, k
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+
+
+def test_inception_command_matches_the_tool(tool, tmp_path):
+    """A pytorch-fid-layout state dict (convs, batch norms with their
+    num_batches_tracked, fc): the same npz as the JAX tool writes."""
+    rng = np.random.default_rng(5)
+    sd = {}
+    for name, shape in (("Conv2d_1a_3x3", (32, 3, 3, 3)),
+                        ("Mixed_7c.branch_pool", (192, 2048, 1, 1))):
+        sd[f"{name}.conv.weight"] = torch.from_numpy(
+            rng.standard_normal(shape, dtype=np.float32))
+        for leaf in ("weight", "bias", "running_mean", "running_var"):
+            sd[f"{name}.bn.{leaf}"] = torch.from_numpy(
+                rng.standard_normal(shape[0], dtype=np.float32))
+        sd[f"{name}.bn.num_batches_tracked"] = torch.tensor(7)
+    sd["fc.weight"] = torch.from_numpy(rng.standard_normal(
+        (1008, 2048), dtype=np.float32))
+    sd["fc.bias"] = torch.from_numpy(rng.standard_normal(1008,
+                                                         dtype=np.float32))
+    src = str(tmp_path / "pt_inception.pth")
+    torch.save(sd, src)
+    want, got = str(tmp_path / "want.npz"), str(tmp_path / "got.npz")
+    tool.convert_inception(src, want)
+    tcw.main(["inception", "--src", src, "--dest", got])
+    _same_npz(got, want)
+    assert "Conv2d_1a_3x3.bn.num_batches_tracked" not in _npz(got)
+
+
+def _lpips_alex_sds(seed):
+    """(full LPIPS state dict, lin-only state dict, torchvision AlexNet
+    state dict) of seeded values."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+
+    slices = {0: 1, 3: 2, 6: 3, 8: 4, 10: 5}
+    full, lins, tv = {}, {}, {}
+    for idx, (cin, cout, k, _, _) in talex.ALEX_CONVS.items():
+        w, b = r(cout, cin, k, k), r(cout)
+        full[f"net.slice{slices[idx]}.{idx}.weight"] = w
+        full[f"net.slice{slices[idx]}.{idx}.bias"] = b
+        tv[f"features.{idx}.weight"], tv[f"features.{idx}.bias"] = w, b
+    for i, c in enumerate(talex.LPIPS_CHANNELS):
+        lins[f"lin{i}.model.1.weight"] = r(1, c, 1, 1).abs()
+    full.update(lins)
+    full["scaling_layer.shift"] = r(1, 3, 1, 1)
+    full["scaling_layer.scale"] = r(1, 3, 1, 1)
+    tv["classifier.1.weight"] = r(8, 4)
+    return full, lins, tv
+
+
+@pytest.mark.parametrize("layout", ["full", "lin-only"])
+def test_lpips_alex_command_matches_the_tool(tool, tmp_path, layout):
+    """lpips-alex: a full LPIPS(net='alex') state dict, or the lin-only
+    file with --alexnet-src: the same npz as the JAX tool's lpips_alex, and
+    metrics/alexnet.py::load_params reads it."""
+    full, lins, tv = _lpips_alex_sds(6)
+    src = str(tmp_path / "lpips.pth")
+    torch.save(full if layout == "full" else lins, src)
+    extra, alex = [], None
+    if layout == "lin-only":
+        alex = str(tmp_path / "alexnet.pth")
+        torch.save(tv, alex)
+        extra = ["--alexnet-src", alex]
+    want, got = str(tmp_path / "want.npz"), str(tmp_path / "got.npz")
+    tool.convert_lpips_alex(src, want, alex)
+    tcw.main(["lpips-alex", "--src", src, "--dest", got] + extra)
+    _same_npz(got, want)
+    params = talex.load_params(got)
+    assert params["lin"]["4"]["weight"].shape == (256,)
+    assert ("scaling" in params) == (layout == "full")
+    torch.save(lins, src)
+    with pytest.raises(KeyError, match="AlexNet conv weights missing"):
+        tcw.main(["lpips-alex", "--src", src, "--dest", got])

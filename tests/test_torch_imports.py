@@ -66,7 +66,17 @@ def test_port_imports_with_jax_blocked():
             "gagan_tpu_torch.metrics.detectors, gagan_tpu_torch.inversion, "
             "gagan_tpu_torch.inversion.encoders, "
             "gagan_tpu_torch.inversion.projector, "
-            "gagan_tpu_torch.cli.projector\n"
+            "gagan_tpu_torch.cli.projector, gagan_tpu_torch.models.swin, "
+            "gagan_tpu_torch.ga.search, gagan_tpu_torch.ga.evaluation, "
+            "gagan_tpu_torch.metrics, gagan_tpu_torch.metrics.alexnet, "
+            "gagan_tpu_torch.metrics.inception, "
+            "gagan_tpu_torch.metrics.feature_stats, "
+            "gagan_tpu_torch.metrics.fid, gagan_tpu_torch.metrics.kid, "
+            "gagan_tpu_torch.metrics.precision_recall, "
+            "gagan_tpu_torch.metrics.inception_score, "
+            "gagan_tpu_torch.metrics.ppl, gagan_tpu_torch.metrics.clip_eval, "
+            "gagan_tpu_torch.metrics.metric_main, "
+            "gagan_tpu_torch.cli.calc_metrics\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -251,6 +261,67 @@ def test_projection_and_im2im_run_without_pil_yaml_or_jax(tmp_path):
     assert os.path.exists(tmp_path / "run" / "config.yaml")
 
 
+def test_calc_metrics_and_ga_run_without_pil_yaml_or_jax(tmp_path):
+    """With JAX, the JAX package, Pillow, click, PyYAML, regex and ftfy
+    blocked: the calc_metrics command computes kid1k (its generated count
+    patched to 6, so that the random Inception-v3 stays cheap on the CPU)
+    for a tiny snapshot and PNG folder, and the GA search runs in both
+    evaluation modes on CPU tensors."""
+    import numpy as np
+
+    from gagan_tpu_torch.models import stylegan2 as tsg
+    from gagan_tpu_torch.utils import checkpoint as tck
+    from gagan_tpu_torch.utils.config import to_dict
+    from gagan_tpu_torch.utils.png import write_png
+
+    g = tsg.GeneratorConfig(z_dim=8, w_dim=8, img_resolution=8,
+                            mapping=tsg.MappingConfig(num_layers=1),
+                            synthesis=tsg.SynthesisConfig(channel_base=32,
+                                                          channel_max=8))
+    snap = str(tmp_path / "net.npz")
+    tck.save_snapshot(snap, g_ema=tsg.init_generator(
+        g, torch.Generator().manual_seed(0), "cpu"),
+        config={"g_cfg": to_dict(g)})
+    data = tmp_path / "data"
+    data.mkdir()
+    for i in range(6):
+        write_png(str(data / f"{i}.png"), np.random.RandomState(i).randint(
+            0, 256, (8, 8, 3), np.uint8))
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu', 'PIL', 'click', 'yaml', 'regex', "
+            "'ftfy'):\n"
+            "    sys.modules[m] = None\n"
+            "from gagan_tpu_torch import entry\n"
+            "from gagan_tpu_torch.cli import calc_metrics\n"
+            "from gagan_tpu_torch.ga import search\n"
+            "from gagan_tpu_torch.metrics import kid\n"
+            "from gagan_tpu_torch.utils.rng import Rng\n"
+            "real = kid.compute_kid\n"
+            "kid.compute_kid = lambda o, max_real, num_gen: real(o, max_real, "
+            "6)\n"
+            f"(r,) = calc_metrics.main(['--network', {snap!r}, '--metrics', "
+            f"'kid1k', '--data', {str(data)!r}, '--cache-dir', "
+            f"{str(tmp_path / 'cache')!r}, '--batch', '3', '--device', "
+            "'cpu'])\n"
+            "assert r['results']['kid1k'] == r['results']['kid1k']\n"
+            "for mode in ('scan', 'batched'):\n"
+            "    e = entry.ga_entry('cpu', eval_mode=mode, generations=1)\n"
+            "    best, hist = search.evolve_directions(Rng(0), e.g_cfg, "
+            "e.g_params, e.fitness_fn, e.cfg)\n"
+            "    assert hist.shape == (1,) and best.ndim == 1\n"
+            "for m in ('yaml', 'regex', 'ftfy', 'PIL', 'click'):\n"
+            "    assert sys.modules[m] is None\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    env.pop("GAGAN_DETECTOR_DIR", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+    assert "RANDOM towers" in out.stderr
+    assert os.path.exists(tmp_path / "metric-kid1k.jsonl")
+
+
 def test_entry_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -266,6 +337,8 @@ def test_entry_refuses_cpu_fallback():
         entry.fewshot_entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.im2im_entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.ga_entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):

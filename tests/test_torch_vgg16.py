@@ -212,8 +212,9 @@ def test_detectors_random_and_refusals(tmp_path, monkeypatch):
     assert emb.shape == (2, sum(c * (32 >> i) ** 2 for i, c in
                                 enumerate(jvgg.LPIPS_CHANNELS)))
     assert bool(torch.isfinite(emb).all())
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tdet.make_default("inception", "cpu")
+    # Inception-v3 is ported now (tests/test_torch_inception.py): random
+    # weights of the real shape, tagged.
+    assert tdet.make_default("inception", "cpu").name == "inception-random"
     with pytest.raises(ValueError, match="Unknown detector"):
         tdet.make_default("alexnet", "cpu")
     if not torch.cuda.is_available():
