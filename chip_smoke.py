@@ -100,7 +100,26 @@ no ok line):
                and ppl2_wend at 256 samples (PPL's fused launches in fp32);
                Inception features pallas vs composed; the generator-stats
                rate (G + resize + Inception) and its peak memory;
- 15. a JSON line of the kernels, then the JSON ok line.
+ 15. inversion - image -> W+ -> edits -> (source, adapted) pairs at FFHQ-1024
+               on a 1024^2 PNG rendered by G: inference.project_restyle for
+               each of the six ReStyle encoder types (random towers of the
+               real shape, 5 iterations at batch 1: every iteration finite,
+               12 fused launches, no backward); run_on_batch timed at batch 4
+               (images/s, peak memory) and held against the composed level
+               per iteration (TF32 off); convert_weights restyle on a seeded
+               reference-layout checkpoint (bit-equal leaves, then
+               project_restyle on the npz: fp32 G, no launch); the
+               Inferencer's zero / seeded s_delta and ``original``
+               adaptations on the ReStyle W+; II2S (20 of 1300 steps, a PCA
+               of 100,000 samples, random VGG16-LPIPS: s/step, peak memory,
+               the PCA's card and host times, 2 fused launches a step whose
+               backward is asked for dx, d(styles), d(dcoefs) only; pallas
+               vs composed W+ gradient); InterFaceGAN, StyleSpace (on the
+               fused levels, with a direction, both ways) and StyleFlow
+               (real config, dopri5 and rk4: steps, host reads, round trip)
+               edits; e4e's latent D through a pool of 50 (losses, R1, 3 Adam
+               steps);
+ 16. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -125,20 +144,26 @@ import torch
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-from gagan_tpu_torch import _build  # noqa: E402
+from gagan_tpu_torch import _build, editing, inference  # noqa: E402
 from gagan_tpu_torch.cli import adapt as adapt_cli  # noqa: E402
 from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
 from gagan_tpu_torch.cli import projector as projector_cli  # noqa: E402
 from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
 from gagan_tpu_torch.data import ImageFolderDataset  # noqa: E402
 from gagan_tpu_torch.cli import calc_metrics as calc_metrics_cli  # noqa: E402
+from gagan_tpu_torch.cli import convert_weights  # noqa: E402
+from gagan_tpu_torch.data.dataset import read_rgb  # noqa: E402
+from gagan_tpu_torch.editing import styleflow  # noqa: E402
 from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
                                    adapt_entry, entry, entry_config,
                                    fewshot_entry, ga_entry, im2im_entry,
-                                   train_configs, train_entry, train_run)
+                                   restyle_entry, train_configs, train_entry,
+                                   train_run)
 from gagan_tpu_torch.ga import evaluation as ga_eval  # noqa: E402
 from gagan_tpu_torch.ga import search as ga_search  # noqa: E402
+from gagan_tpu_torch.inversion import e4e_training, ii2s  # noqa: E402
 from gagan_tpu_torch.inversion import projector  # noqa: E402
+from gagan_tpu_torch.inversion import restyle as restyle_lib  # noqa: E402
 from gagan_tpu_torch.metrics import detectors  # noqa: E402
 from gagan_tpu_torch.metrics import feature_stats as fs  # noqa: E402
 from gagan_tpu_torch.metrics import inception_score as is_lib  # noqa: E402
@@ -2473,6 +2498,586 @@ def generator_stats_rate(opts, card):
         raise AssertionError("generator stats failed")
 
 
+# ----------------------------------------------------------------------------
+# The inversion phase: image -> W+ (ReStyle, II2S) -> edits -> Inferencer
+
+
+# The inversion phase: project_restyle (RESTYLE_ITERS iterations) for each
+# encoder type at batch 1, run_on_batch timed at RESTYLE_BATCH over
+# RESTYLE_TIMED calls; II2S_STEPS of II2S's 1300 steps with a PCA of
+# II2S_PCA mapped samples; D_STEPS Adam steps of e4e's latent D through a
+# pool of POOL_SIZE codes.
+RESTYLE_ITERS, RESTYLE_BATCH, RESTYLE_TIMED = 5, 4, 3
+II2S_STEPS, II2S_PCA = 20, 100_000
+POOL_SIZE, D_STEPS = 50, 3
+# (dx, dW, dstyles, ddcoefs, dnoise, dbias) of an II2S step: the W+ latents
+# take gradients, G's weights and noise buffers do not.
+II2S_NEEDS = (True, False, True, True, False, False)
+# Two channel edits on the fused levels (b128.conv1, b256.conv1 of
+# FFHQ-1024: layers 15 and 18), offset factors 0.5 and 0.
+STYLE_EDITS = [((15, 3), 3.0, 0.5), ((18, 2), -2.0, 0.0)]
+
+
+def inversion_g_config():
+    """The generator of the inversion phase: entry_config() (FFHQ-1024,
+    pallas_level=True)."""
+    return entry_config()
+
+
+def restyle_net(encoder_type, batch, params, pallas_level=True):
+    """entry.restyle_entry on the phase's generator weights."""
+    g_cfg = inversion_g_config()
+    return restyle_entry(DEVICE, encoder_type, batch=batch,
+                         pallas_level=pallas_level,
+                         tiny=g_cfg.img_resolution != 1024, g_params=params)
+
+
+class RunRecorder:
+    """Records the per-iteration lists of every run_on_batch call."""
+
+    def __init__(self):
+        self.runs = []
+        self._fn = None
+
+    def __enter__(self):
+        self._fn = restyle_lib.run_on_batch
+
+        def recording(*a, **k):
+            self.runs.append(self._fn(*a, **k))
+            return self.runs[-1]
+
+        restyle_lib.run_on_batch = recording
+        return self
+
+    def __exit__(self, *exc):
+        restyle_lib.run_on_batch = self._fn
+
+
+def inversion_phase(tmp, card):
+    """ReStyle (all six encoder types through inference.project_restyle,
+    the default one timed and held against the composed level per
+    iteration), the restyle converter, the Inferencer's three model types,
+    II2S, the three editors and e4e's latent adversary, on one 1024^2 PNG
+    rendered by the Forward G.  Returns (fused launches, the II2S
+    backward's flags)."""
+    phase("inversion")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    g_cfg = inversion_g_config()
+    params = seeded_weights(sg2.init_generator(
+        g_cfg, torch.Generator().manual_seed(0), DEVICE))
+    res = g_cfg.img_resolution
+    target = os.path.join(tmp, "inversion_target.png")
+    z = torch.from_numpy(np.random.RandomState(44).randn(
+        1, g_cfg.z_dim).astype(np.float32)).to(DEVICE)
+    with torch.no_grad():
+        png.write_png(target, generate.to_uint8(sg2.generator_apply(
+            g_cfg, params, z, noise_mode="const"))[0])
+    image = read_rgb(target)
+    if image.shape != (res, res, 3):
+        raise AssertionError(f"target PNG read back as {image.shape}")
+    launches, ws = restyle_runs(image, params, card)
+    torch.cuda.empty_cache()
+    launches += restyle_convert_run(tmp, image, card)
+    torch.cuda.empty_cache()
+    launches += inferencer_runs(tmp, params, ws, card)
+    torch.cuda.empty_cache()
+    n, needs = ii2s_run(image, params, card)
+    launches += n
+    torch.cuda.empty_cache()
+    launches += edit_runs(params, ws, card)
+    latent_d_round(params, card)
+    return launches, needs
+
+
+def restyle_runs(image, params, card):
+    """project_restyle for each encoder type at batch 1; run_on_batch of
+    the default type timed at RESTYLE_BATCH; pallas vs composed per
+    iteration.  Returns (fused launches, the default type's W+ [1, L,
+    512])."""
+    g_cfg = inversion_g_config()
+    per = expected_launches(g_cfg, 1) * (RESTYLE_ITERS + 1)
+    launches, ws = 0, None
+    for encoder_type in restyle_lib.ENCODER_TYPES:
+        net, _ = restyle_net(encoder_type, 1, params)
+        fmc.fused_modconv3x3.launches = 0
+        t0 = time.perf_counter()
+        with BackwardNeeds() as needs, RunRecorder() as rec:
+            img, w = inference.project_restyle(image, net,
+                                               n_iters=RESTYLE_ITERS)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = fmc.fused_modconv3x3.launches
+        launches += n
+        (images, latents), = rec.runs
+        finite = all(bool(torch.isfinite(t).all()) for t in images + latents)
+        print(f"project_restyle {encoder_type}: {RESTYLE_ITERS} iterations "
+              f"at batch 1 in {wall:.3f} s; images {tuple(img.shape)}, W+ "
+              f"{tuple(w.shape)}, max|W+ - latent_avg| per iteration "
+              + ", ".join(f"{float((t - net.latent_avg).abs().max()):.4g}"
+                          for t in latents)
+              + f"; every iteration finite {finite}; fused_modconv3x3 "
+              f"launches {n} (expected {per}), backward calls "
+              f"{len(needs.calls)}, on {card}", flush=True)
+        if (tuple(img.shape) != (1, 3, g_cfg.img_resolution,
+                                 g_cfg.img_resolution)
+                or tuple(w.shape) != (1, g_cfg.num_ws, 512) or not finite
+                or len(images) != RESTYLE_ITERS or n != per or needs.calls):
+            raise AssertionError(f"project_restyle {encoder_type} failed")
+        if encoder_type == restyle_lib.RestyleEncoderConfig.encoder_type:
+            ws = w
+        del net, images, latents
+        torch.cuda.empty_cache()
+    restyle_timing(params, card)
+    restyle_pallas_check(params, card)
+    return launches, ws
+
+
+def restyle_timing(params, card):
+    """run_on_batch of the default type at RESTYLE_BATCH: one warm-up call,
+    then RESTYLE_TIMED calls, each ending in a synchronize; images/s, peak
+    memory and a trace of one call (IR-SE-50's share)."""
+    net, inputs = restyle_net(restyle_lib.RestyleEncoderConfig.encoder_type,
+                              RESTYLE_BATCH, params)
+    restyle_lib.run_on_batch(net, inputs, n_iters=RESTYLE_ITERS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(RESTYLE_TIMED):
+        t0 = time.perf_counter()
+        restyle_lib.run_on_batch(net, inputs, n_iters=RESTYLE_ITERS)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    rate = RESTYLE_BATCH / float(np.mean(secs))
+    print(f"run_on_batch {net.enc_cfg.encoder_type} at batch "
+          f"{RESTYLE_BATCH}, {RESTYLE_ITERS} iterations: {rate:.4f} "
+          f"images/s (calls {', '.join(f'{s:.4f}' for s in secs)} s), peak "
+          f"memory {peak / 2 ** 30:.3f} GiB, on {card}", flush=True)
+    trace_window(lambda: restyle_lib.run_on_batch(net, inputs,
+                                                  n_iters=RESTYLE_ITERS),
+                 f"one run_on_batch ({RESTYLE_ITERS} iterations, batch "
+                 f"{RESTYLE_BATCH}, pallas_level=True)", card,
+                 1e3 * float(np.mean(secs)), ranges=("e4e_backbone",))
+
+
+# The iterations of restyle_pallas_check held to 2^(k - 5); the later ones
+# are printed with their growth.
+RESTYLE_HELD_ITERS = 3
+
+
+def restyle_pallas_check(params, card):
+    """run_on_batch of the default type at RESTYLE_BATCH with the fused and
+    the composed level (TF32 off), per iteration k: the relative RMS gap of
+    the pooled images and of the codes' change from latent_avg.  The two
+    level routes round differently, at most 2^-5 relative RMS in an image
+    (main_phase's bound), and each iteration feeds its decode back into the
+    encoder: with a loop that at most doubles what it is fed, iteration k
+    is within 2^(k - 5).  The random encoder's codes grow 2.2-2.4x an
+    iteration over the first three and 4x at the last (H100 runs), so
+    iterations 0 to RESTYLE_HELD_ITERS - 1 are held to it and the rest are
+    printed with the codes' growth, and must stay below 1 (unrelated
+    paths); a wrong kernel misses by O(1) at iteration 0."""
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for label, pallas in (("pallas", True), ("composed", False)):
+        net, inputs = restyle_net(
+            restyle_lib.RestyleEncoderConfig.encoder_type, RESTYLE_BATCH,
+            params, pallas_level=pallas)
+        images, latents = restyle_lib.run_on_batch(net, inputs,
+                                                   n_iters=RESTYLE_ITERS)
+        out[label] = ([restyle_lib.adaptive_avg_pool(i) for i in images],
+                      [t - net.latent_avg for t in latents])
+        del net
+    torch.backends.cudnn.allow_tf32 = True
+
+    def rms(a):
+        return float(a.square().mean().sqrt())
+
+    deltas = out["composed"][1]
+    growth = [1.0] + [rms(b) / rms(a) for a, b in zip(deltas, deltas[1:])]
+    gaps = [(rms(pi - ci) / rms(ci), rms(pl - cl) / rms(cl))
+            for pi, pl, ci, cl in zip(*out["pallas"], *out["composed"])]
+    print("restyle pallas vs composed per iteration (TF32 off), pooled "
+          "image / codes rel_rms (the codes' growth): " + "; ".join(
+              f"{k}: {a:.4g} / {b:.4g} ({growth[k]:.3g}x)"
+              + (f" bound {2.0 ** (k - 5):.4g}" if k < RESTYLE_HELD_ITERS
+                 else "") for k, (a, b) in enumerate(gaps))
+          + f", on {card}", flush=True)
+    if not all((a <= 2.0 ** (k - 5) and b <= 2.0 ** (k - 5))
+               if k < RESTYLE_HELD_ITERS else (a < 1 and b < 1)
+               for k, (a, b) in enumerate(gaps)):
+        raise AssertionError("restyle: pallas and composed iterations "
+                             "disagree")
+
+
+def rosinality_state_dict(flat):
+    """The rosinality Generator state dict whose conversion
+    (convert_weights.rosinality_to_flat) gives the flat G ``flat`` back
+    (w_avg aside)."""
+    sd = {"input.input": flat["synthesis.b4.const"][None]}
+    n_mlp = sum(k.startswith("mapping.fc") and k.endswith(".weight")
+                for k in flat)
+    for i in range(n_mlp):
+        sd[f"style.{i + 1}.weight"] = flat[f"mapping.fc{i}.weight"]
+        sd[f"style.{i + 1}.bias"] = flat[f"mapping.fc{i}.bias"]
+
+    def conv(dst, src, noise_key):
+        sd[f"{dst}.conv.weight"] = flat[f"{src}.weight"][None]
+        sd[f"{dst}.conv.modulation.weight"] = flat[f"{src}.affine.weight"]
+        sd[f"{dst}.conv.modulation.bias"] = flat[f"{src}.affine.bias"]
+        sd[f"{dst}.noise.weight"] = flat[f"{src}.noise_strength"].reshape(1)
+        sd[f"{dst}.activate.bias"] = flat[f"{src}.bias"]
+        sd[noise_key] = flat[f"{src}.noise_const"][None, None]
+
+    def rgb(dst, src):
+        sd[f"{dst}.conv.weight"] = flat[f"{src}.weight"][None]
+        sd[f"{dst}.conv.modulation.weight"] = flat[f"{src}.affine.weight"]
+        sd[f"{dst}.conv.modulation.bias"] = flat[f"{src}.affine.bias"]
+        sd[f"{dst}.bias"] = flat[f"{src}.bias"].reshape(1, -1, 1, 1)
+
+    conv("conv1", "synthesis.b4.conv1", "noises.noise_0")
+    rgb("to_rgb1", "synthesis.b4.torgb")
+    res = 8
+    while f"synthesis.b{res}.conv0.weight" in flat:
+        b = int(np.log2(res)) - 3
+        conv(f"convs.{2 * b}", f"synthesis.b{res}.conv0",
+             f"noises.noise_{2 * b + 1}")
+        conv(f"convs.{2 * b + 1}", f"synthesis.b{res}.conv1",
+             f"noises.noise_{2 * b + 2}")
+        rgb(f"to_rgbs.{b}", f"synthesis.b{res}.torgb")
+        res *= 2
+    return sd
+
+
+def restyle_convert_run(tmp, image, card):
+    """A seeded ReStyle checkpoint in the reference's torch layout (the
+    default encoder type with BN num_batches_tracked, a rosinality decoder
+    of the config-f generator, opts, a [512] latent_avg), torch.save'd;
+    convert_weights restyle on it; load_net's leaves against the dict, bit
+    for bit; project_restyle on the npz, whose G is JAX's fp32 config with
+    the fused level off: no launch.  Returns the fused launches (0)."""
+    g_cfg = inversion_g_config()
+    res = g_cfg.img_resolution
+    rcfg = sg2.GeneratorConfig(
+        img_resolution=res,
+        mapping=sg2.MappingConfig(num_layers=8, lr_multiplier=0.01),
+        synthesis=sg2.SynthesisConfig(channel_base=32768, channel_max=512))
+    gen = torch.Generator().manual_seed(21)
+    dec = ckpt.tree_to_flat(sg2.init_generator(rcfg, gen, "cpu"))
+    e_cfg = restyle_lib.RestyleEncoderConfig(stylegan_size=res)
+    enc = ckpt.tree_to_flat(restyle_lib.init_restyle_encoder(gen, e_cfg))
+    sd = {f"encoder.{k}": torch.from_numpy(v) for k, v in enc.items()}
+    for k in [k for k in sd if k.endswith("running_var")]:
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(3)
+    sd.update({f"decoder.{k}": torch.from_numpy(np.ascontiguousarray(v))
+               for k, v in rosinality_state_dict(dec).items()})
+    avg = torch.randn((512,), generator=gen)
+    src, dest = os.path.join(tmp, "restyle.pt"), os.path.join(tmp,
+                                                              "restyle.npz")
+    torch.save({"state_dict": sd, "latent_avg": avg,
+                "opts": {"encoder_type": e_cfg.encoder_type,
+                         "output_size": res, "input_nc": 6}}, src)
+    t0 = time.perf_counter()
+    convert_weights.main(["restyle", "--src", src, "--dest", dest])
+    convert_s = time.perf_counter() - t0
+    net = restyle_lib.load_net(dest, DEVICE)
+    got_enc = ckpt.tree_to_flat(net.enc_params)
+    got_dec = ckpt.tree_to_flat(net.g_params)
+    same = (sorted(got_enc) == sorted(enc) and all(
+        np.array_equal(got_enc[k], v) for k, v in enc.items())
+        and sorted(got_dec) == sorted(dec) and all(
+            np.array_equal(got_dec[k], v) for k, v in dec.items()
+            if k != "mapping.w_avg")
+        and not got_dec["mapping.w_avg"].any()
+        and np.array_equal(net.latent_avg.cpu().numpy(),
+                           np.tile(avg.numpy()[None], (e_cfg.style_count, 1))))
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    img, w = inference.project_restyle(image, dest, n_iters=RESTYLE_ITERS,
+                                       device=DEVICE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = fmc.fused_modconv3x3.launches
+    print(f"restyle converter: {os.path.getsize(src) / 2 ** 20:.1f} MiB "
+          f"checkpoint converted in {convert_s:.3f} s; load_net's leaves "
+          f"bit-equal to the state dict {same} (w_avg zero, latent_avg "
+          f"tiled); project_restyle on the npz (fp32 config-f G, fused "
+          f"level off) in {wall:.3f} s with loading: W+ {tuple(w.shape)}, "
+          f"fused_modconv3x3 launches {n} (expected 0), on {card}",
+          flush=True)
+    if not (same and n == 0 and bool(torch.isfinite(img).all())
+            and net.g_cfg.synthesis.pallas_level is False):
+        raise AssertionError("restyle converter failed")
+    return n
+
+
+def inferencer_runs(tmp, params, ws, card):
+    """A snapshot of the Forward G and three adaptations: s_delta with zero
+    offsets (target == source bit for bit), with seeded offsets (target
+    differs), and ``original`` holding a second seeded G's synthesis
+    (target == that G's render: the same code path, so within the level's
+    2^-5, and in fact equal).  Returns the fused launches."""
+    g_cfg = inversion_g_config()
+    cfg_dict = {"g_cfg": config_lib.to_dict(g_cfg)}
+    snap = os.path.join(tmp, "inversion_snapshot.npz")
+    ckpt.save_snapshot(snap, g_ema=params, config=cfg_dict)
+    spec = offs_lib.OffsetsSpec.from_string("s_delta")
+    zero = offs_lib.init_offsets(Rng(0), g_cfg.synthesis, spec, DEVICE)
+    gen = torch.Generator().manual_seed(23)
+    seeded = sg2.tree_map(lambda t: (0.2 * torch.randn(
+        t.shape, generator=gen)).to(DEVICE), zero)
+    second = seeded_weights(sg2.init_generator(
+        g_cfg, torch.Generator().manual_seed(24), DEVICE), seed=25)
+    adapts = {"zero": ("parametrization", "s_delta", zero),
+              "seeded": ("parametrization", "s_delta", seeded),
+              "original": ("original", "", {"synthesis":
+                                            second["synthesis"]})}
+    launches = 0
+    for label, (model_type, param, offsets) in adapts.items():
+        path = os.path.join(tmp, f"inversion_{label}.npz")
+        ckpt.save_adaptation(path, model_type=model_type,
+                             parametrization=param, offsets=offsets,
+                             sg2_config=cfg_dict)
+        infer = inference.Inferencer(path, snap, device=DEVICE)
+        fmc.fused_modconv3x3.launches = 0
+        src, trg = infer.from_wplus(ws)
+        torch.cuda.synchronize()
+        n = fmc.fused_modconv3x3.launches
+        launches += n
+        diff = float((trg - src).abs().max())
+        if label == "zero":
+            ok = torch.equal(trg, src)
+        elif label == "seeded":
+            ok = diff > 0
+        else:
+            with torch.no_grad():
+                want = sg2.synthesis_apply(g_cfg.synthesis,
+                                           second["synthesis"], ws,
+                                           noise_mode="const")
+            gap = float((trg - want).square().mean().sqrt()
+                        / want.square().mean().sqrt())
+            ok = gap <= 2 ** -5
+            label += (f" (rel_rms to the second G's plain render {gap:.4g}, "
+                      f"bound {2 ** -5:.4g})")
+        print(f"Inferencer {label}: from_wplus of the ReStyle W+, max|target "
+              f"- source| {diff:.4g}; fused_modconv3x3 launches {n} "
+              f"(expected {2 * expected_launches(g_cfg, 1)}), on {card}",
+              flush=True)
+        if not ok or n != 2 * expected_launches(g_cfg, 1):
+            raise AssertionError(f"Inferencer {label} failed")
+        del infer
+    return launches
+
+
+def ii2s_run(image, params, card):
+    """invert_image for II2S_STEPS steps on the PNG with a random VGG16-LPIPS
+    and a PCA of II2S_PCA samples (mapping on the card, SVD on the host,
+    timed apart): s/step, peak memory, 2 fused launches a step, backward
+    flags II2S_NEEDS only, a finite loss at the result; then one step's W+
+    gradient, pallas vs composed (TF32 off), bound 2^-4 as the projector's
+    latent gradient.  Returns (fused launches, backward flags)."""
+    g_cfg = inversion_g_config()
+    cfg = ii2s.II2SConfig(steps=II2S_STEPS, pca_samples=II2S_PCA)
+    t0 = time.perf_counter()
+    X = ii2s.mapped_samples(g_cfg, params, Rng(31), cfg.pca_samples)
+    map_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pca = ii2s.pca_of(X)
+    svd_s = time.perf_counter() - t0
+    lpips = detectors.make_default("vgg16_lpips", DEVICE)
+    target = image.transpose(2, 0, 1).astype(np.float32) / 127.5 - 1.0
+    per = expected_launches(g_cfg, 1)
+    fmc.fused_modconv3x3.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with BackwardNeeds() as needs:
+        w = ii2s.invert_image(cfg, g_cfg, params, target, lpips_fn=lpips,
+                              pca=pca, rng=Rng(31))
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n = fmc.fused_modconv3x3.launches
+    ref = torch.from_numpy(target).to(DEVICE)[None]
+    loss_fn = ii2s.make_loss(cfg, g_cfg, params, ref, lpips, pca)
+    with torch.no_grad():
+        loss, (l2, percep, pn) = loss_fn(torch.from_numpy(w).to(DEVICE)[None])
+    flags = sorted(set(needs.calls))
+    print(f"II2S: PCA of {cfg.pca_samples} mapped samples, mapping "
+          f"{map_s:.3f} s on the card, SVD {svd_s:.3f} s on the host; "
+          f"{II2S_STEPS} of {ii2s.II2SConfig().steps} steps at {g_cfg.img_resolution}^2 in {wall:.3f} s "
+          f"({wall / II2S_STEPS:.4f} s/step), peak memory "
+          f"{peak / 2 ** 30:.3f} GiB; loss at the result {float(loss):.6f} "
+          f"(l2 {float(l2):.6f}, percep {float(percep):.6f}, p-norm "
+          f"{float(pn):.6f}); fused_modconv3x3 launches {n} (expected "
+          f"{per * II2S_STEPS}); backward (dx, dW, dstyles, ddcoefs, dnoise, "
+          f"dbias) = {flags} in {len(needs.calls)} calls, on {card}",
+          flush=True)
+    if (w.shape != (g_cfg.num_ws, g_cfg.w_dim) or not np.isfinite(w).all()
+            or not np.isfinite(float(loss)) or n != per * II2S_STEPS
+            or len(needs.calls) != per * II2S_STEPS
+            or needs.count(II2S_NEEDS) != per * II2S_STEPS):
+        raise AssertionError("II2S failed")
+    torch.backends.cudnn.allow_tf32 = False
+    grads = {}
+    for label, pallas in (("pallas", True), ("composed", False)):
+        cfg_l = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+            g_cfg.synthesis, pallas_level=pallas))
+        fn = ii2s.make_loss(cfg, cfg_l, params, ref, lpips, pca)
+        latent = ii2s.initial_latent(cfg_l, params, Rng(31)).requires_grad_()
+        (grads[label],) = torch.autograd.grad(fn(latent)[0], [latent])
+    torch.backends.cudnn.allow_tf32 = True
+    err = rel_l2({"w": grads["pallas"]}, {"w": grads["composed"]}, ["w"])
+    print(f"II2S pallas vs composed (TF32 off): the first step's W+ gradient "
+          f"rel_l2 {err:.4g} (bound {2 ** -4:.4g}), on {card}", flush=True)
+    if not err <= 2 ** -4:
+        raise AssertionError("II2S: pallas and composed gradients disagree")
+    return n, flags
+
+
+def edit_runs(params, ws, card):
+    """On the ReStyle W+: an InterFaceGAN sweep (factor_range -2..2 of a
+    seeded direction) rendered; two StyleSpace channel edits on the fused
+    levels composed with a seeded s_delta direction both ways, rendered
+    (they change the image: the edited styles reach the level); a zero edit
+    without a base hook bit-equal to the plain render; StyleFlow at its
+    real config (seeded, x0.01 as its init) editing Age under dopri5 and
+    rk4: steps, host reads, time, the round trip within the solver's
+    tolerance and the _PRESERVE layers unchanged.  Returns the fused
+    launches."""
+    g_cfg = inversion_g_config()
+    syn, per = g_cfg.synthesis, expected_launches(g_cfg, 1)
+    launches = 0
+
+    def render(w, hooks=None):
+        nonlocal launches
+        fmc.fused_modconv3x3.launches = 0
+        with torch.no_grad():
+            img = sg2.synthesis_apply(syn, params["synthesis"], w,
+                                      noise_mode="const", hooks=hooks)
+        launches += fmc.fused_modconv3x3.launches
+        if fmc.fused_modconv3x3.launches != expected_launches(g_cfg,
+                                                              w.shape[0]):
+            raise AssertionError("edit render: fused launches")
+        return img
+
+    direction = torch.randn((512,), generator=torch.Generator().manual_seed(
+        41)).numpy()
+    editor = editing.LatentEditor({"seeded": direction})
+    sweep = editor.apply_interfacegan(ws, "seeded", factor_range=(-2, 3))
+    imgs = render(sweep)
+    print(f"InterFaceGAN: factor_range (-2, 3) of a seeded direction -> W+ "
+          f"{tuple(sweep.shape)}, rendered {tuple(imgs.shape)}, finite "
+          f"{bool(torch.isfinite(imgs).all())}", flush=True)
+    if sweep.shape[0] != 5 or not bool(torch.isfinite(imgs).all()):
+        raise AssertionError("InterFaceGAN edit failed")
+
+    spec = offs_lib.OffsetsSpec.from_string("s_delta")
+    gen = torch.Generator().manual_seed(42)
+    offsets = sg2.tree_map(lambda t: (0.2 * torch.randn(
+        t.shape, generator=gen)).to(DEVICE),
+        offs_lib.init_offsets(Rng(0), syn, spec, DEVICE))
+    base = offs_lib.make_hooks(spec, offsets)
+    plain, based = render(ws), render(ws, base)
+    moved = {}
+    for apply_first in (False, True):
+        hooks = editing.build_style_modification_hooks(syn, STYLE_EDITS, base,
+                                                       apply_first)
+        moved[apply_first] = float((render(ws, hooks) - based).abs().max())
+    zero = editing.build_style_modification_hooks(syn, [((15, 3), 0.0, 1.0)])
+    same = torch.equal(render(ws, zero), plain)
+    print(f"StyleSpace: edits {STYLE_EDITS} with a seeded s_delta direction: "
+          f"max|edited - direction only| {moved[False]:.4g} (direction "
+          f"scaled, then the edit), {moved[True]:.4g} (the edit first); a "
+          f"zero edit without a base hook bit-equal to the plain render "
+          f"{same}; {per} fused launches a render", flush=True)
+    if not (moved[False] > 0 and moved[True] > 0 and same):
+        raise AssertionError("StyleSpace edits failed")
+
+    w_plus = ws[:1].float()
+    attrs = np.random.RandomState(43).uniform(0, 1, 8).astype(np.float32)
+    light = np.random.RandomState(44).uniform(0, 1, 9).astype(np.float32)
+    for solver in ("dopri5", "rk4"):
+        cfg = styleflow.StyleFlowConfig(solver=solver)
+        flow = styleflow.init_styleflow(Rng(45), cfg, DEVICE)
+        editor = styleflow.StyleFlowEditor(flow, cfg, num_ws=g_cfg.num_ws)
+        styleflow.DOPRI5_STATS.update(steps=0, host_reads=0)
+        t0 = time.perf_counter()
+        edited = editor.edit(w_plus, attrs, light, attr_idx=6,
+                             edit_power=0.7)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = dict(styleflow.DOPRI5_STATS)
+        x = w_plus.reshape(g_cfg.num_ws, -1)
+        ctx = editor._context(light, attrs, DEVICE)
+        styleflow.DOPRI5_STATS.update(steps=0, host_reads=0)
+        z_ = styleflow.flow_apply(flow, cfg, x, ctx)
+        back = styleflow.flow_apply(flow, cfg, z_, ctx, reverse=True)
+        steps = (styleflow.DOPRI5_STATS["steps"] if solver == "dopri5"
+                 else cfg.rk4_steps)
+        err = float((back - x).abs().max())
+        bound = 2 * steps * (cfg.atol + cfg.rtol * float(x.abs().max()))
+        kept = all(torch.equal(edited[:, a:b], w_plus[:, a:b]) for a, b in
+                   [(a, g_cfg.num_ws if b is None else b)
+                    for a, b in styleflow._PRESERVE[6]])
+        print(f"StyleFlow {solver} (512 in, 5 x 512 hidden, context 17): "
+              f"Age edit in {wall:.4f} s, {stats['steps']} adaptive steps "
+              f"and {stats['host_reads']} host reads (forward + reverse); "
+              f"max|edit| {float((edited - w_plus).abs().max()):.4g}; "
+              f"round trip max error {err:.4g} (bound {bound:.4g}: 2 x "
+              f"{steps} steps x (atol + rtol max|w|)); _PRESERVE layers "
+              f"unchanged {kept}, on {card}", flush=True)
+        if not (err <= bound and kept and bool(torch.isfinite(edited).all())
+                and float((edited - w_plus).abs().max()) > 0):
+            raise AssertionError(f"StyleFlow {solver} failed")
+    return launches
+
+
+def latent_d_round(params, card):
+    """e4e's adversary on w: real codes from the mapping, fake codes the
+    ReStyle codes of RESTYLE_BATCH inputs through LatentCodesPool(POOL_SIZE);
+    the logistic D loss, R1 and the G non-saturating loss, then D_STEPS
+    Adam steps of D on D loss + 10 R1: all finite, D moved."""
+    net, inputs = restyle_net(restyle_lib.RestyleEncoderConfig.encoder_type,
+                              RESTYLE_BATCH, params)
+    _, latents = restyle_lib.run_on_batch(net, inputs, n_iters=1)
+    pool = e4e_training.LatentCodesPool(POOL_SIZE, seed=0)
+    fake = torch.from_numpy(pool.query(latents[-1])).to(DEVICE)
+    z = Rng(46).normal((RESTYLE_BATCH, 512), DEVICE)
+    g_cfg = inversion_g_config()
+    with torch.no_grad():
+        real = sg2.mapping_apply(g_cfg.mapping, params["mapping"], z,
+                                 broadcast=False)
+    d = e4e_training.init_latent_discriminator(Rng(47), 512, 4, DEVICE)
+    before = {k: t.clone() for k, t in ckpt.tree_to_flat_tensors(d).items()}
+    tx = ts.Adam(1e-4, 0.9, 0.999, 1e-8)
+    state = tx.init(d)
+    losses = []
+    for _ in range(D_STEPS):
+        def loss_fn():
+            d_loss = e4e_training.d_logistic_loss(
+                e4e_training.latent_discriminator_apply(d, real),
+                e4e_training.latent_discriminator_apply(d, fake))
+            r1 = e4e_training.d_r1_loss(d, real)
+            g_loss = e4e_training.g_nonsaturating_loss(
+                e4e_training.latent_discriminator_apply(d, fake))
+            return d_loss + 10.0 * r1, (d_loss, r1, g_loss)
+
+        loss, metrics, grads = round_grads(loss_fn, {"d": d})
+        tx.update_({k[2:]: g for k, g in grads.items()}, state, d)
+        losses.append([float(v.detach()) for v in metrics])
+    moved = max(float((t - before[k]).abs().max())
+                for k, t in ckpt.tree_to_flat_tensors(d).items())
+    print(f"e4e latent D: pool of {POOL_SIZE}, fake codes "
+          f"{tuple(fake.shape)}; (D loss, R1, G loss) per step "
+          + "; ".join(", ".join(f"{v:.6f}" for v in l) for l in losses)
+          + f"; D moved {moved:.4g} in {D_STEPS} Adam steps, on {card}",
+          flush=True)
+    if not (all(np.isfinite(v) for l in losses for v in l) and moved > 0):
+        raise AssertionError("e4e latent D failed")
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -2501,11 +3106,14 @@ def main():
         ga_launches = ga_phase(tmp, card)
         torch.cuda.empty_cache()
         metrics_launches, ppl_launches = metrics_phase(tmp, snap, card)
+        torch.cuda.empty_cache()
+        inversion_launches, ii2s_needs = inversion_phase(tmp, card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
                "remat": remat_launches, "adapt": adapt_launches,
                "fewshot": fewshot_launches, "im2im": im2im_launches,
-               "ga": sum(ga_launches.values()), "metrics": metrics_launches}
+               "ga": sum(ga_launches.values()), "metrics": metrics_launches,
+               "inversion": inversion_launches}
     f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
@@ -2520,6 +3128,7 @@ def main():
         bwd_bound_ms=k["bwd_bound_ms"], bwd_max_rel_err=k["bwd_max_rel_err"],
         bwd_max_rel_l2_err=k["bwd_max_rel_l2_err"],
         im2im_bwd_needs=[[int(f) for f in n] for n in im2im_needs],
+        ii2s_bwd_needs=[[int(f) for f in n] for n in ii2s_needs],
         ga_launches_by_mode=ga_launches, fp32_launches=ppl_launches,
         fp32_ms=f32["ms"], fp32_fold_ms=f32["fold_ms"],
         fp32_plain_ms=f32["plain_ms"], fp32_bound_ms=f32["bound_ms"],
@@ -2540,7 +3149,7 @@ def main():
           f"{fewshot_sec_per_kimg:.4f} s/kimg; im2im: DiFa "
           f"{im2im_rate:.4f} steps/s; im2im_bwd_needs: the level's backward "
           f"flags (dx, dW, dstyles, ddcoefs, dnoise, dbias) asked for by the "
-          f"projector and adapt commands; fp32_*: the same two levels in "
+          f"projector and adapt commands, ii2s_bwd_needs by II2S; fp32_*: the same two levels in "
           f"fp32, the route of the force_fp32 G that PPL samples, whose "
           f"launches on the metrics path fp32_launches counts)")
     print(json.dumps({"kernels": kernels}))

@@ -14,6 +14,8 @@ the state-dict paths of tools/convert_weights.py), without JAX.
         --src pt_inception-2015-12-05.pth --dest inception_v3.npz
     python -m gagan_tpu_torch.cli.convert_weights lpips-alex \\
         --src lpips_alex.pth --dest alex.npz [--alexnet-src alexnet.pth]
+    python -m gagan_tpu_torch.cli.convert_weights restyle --src restyle.pt \\
+        --dest restyle.npz [--size 1024]
 
 * ``rosinality``: a rosinality StyleGAN2 ``.pt`` (its ``g_ema`` entry, or a
   bare state dict) -> a snapshot with ``G_ema/`` only.  The resolution is
@@ -38,6 +40,12 @@ the state-dict paths of tools/convert_weights.py), without JAX.
 * ``lpips-alex``: an ``lpips`` ``LPIPS(net='alex')`` state dict, or the
   package's lin-only ``alex.pth`` with a torchvision AlexNet state dict
   (``--alexnet-src``) -> the npz ``metrics/alexnet.py::load_params`` reads.
+* ``restyle``: a ReStyle pSp / e4e checkpoint (``{"state_dict", "opts",
+  "latent_avg"}``) -> ``{enc/<key>, dec/<key>, latent_avg, __config__}``,
+  which ``inversion/restyle.py::load_net`` (either package's) reads.
+
+``adaptation_from_torch`` (a function, no command) turns a reference
+adaptation checkpoint's offset heads into an offsets tree.
 
 Nothing is fetched: every source is a local file.  A snapshot is ``G_ema/``,
 ``G/``, ``D/`` prefixed dotted keys plus ``__config__`` (JSON as uint8), as
@@ -49,6 +57,7 @@ OpenAI TorchScript archive with ``torch.jit.load``).
 from __future__ import annotations
 
 import argparse
+import json
 import math
 from typing import Dict, List, Optional
 
@@ -58,8 +67,11 @@ import torch
 from .. import resolve_device
 from ..clip.convert import from_hf_state_dict, from_openai_state_dict
 from ..models import stylegan2 as sg2
+from ..params import offsets as offs_lib
+from ..params.sparse import conv_layer_names
 from ..utils import checkpoint as ckpt
 from ..utils.config import generator_config_from_dict
+from ..utils.rng import Rng
 from ..utils.torch_import import _DROP_SUFFIXES
 
 W_AVG_SAMPLES = 4096
@@ -303,12 +315,118 @@ def convert_lpips_alex(src: str, dest: str, alexnet_src: Optional[str] = None):
     print(f"converted LPIPS-alex -> {dest}")
 
 
+# ----------------------------------------------------------------------------
+# ReStyle pSp / e4e checkpoints
+
+
+def restyle_from_torch(ckpt_obj: Dict, size: Optional[int] = None):
+    """A ReStyle checkpoint ({state_dict, opts, latent_avg}) -> (enc_flat,
+    dec_flat, latent_avg, meta): the ``encoder.*`` keys as they are (without
+    ``num_batches_tracked``), the ``decoder.*`` rosinality generator through
+    :func:`rosinality_to_flat` (8 mapping layers), a [512] latent_avg tiled
+    over the W+ layers."""
+    sd = ckpt_obj["state_dict"]
+    opts = ckpt_obj.get("opts", {}) or {}
+    if isinstance(opts, argparse.Namespace):
+        opts = dict(vars(opts))
+    size = size or int(opts.get("output_size", 1024))
+    enc_flat = {k[len("encoder."):]: v for k, v in _numpy(sd).items()
+                if k.startswith("encoder.") and "num_batches_tracked" not in k}
+    dec_sd = {k[len("decoder."):]: v for k, v in _numpy(sd).items()
+              if k.startswith("decoder.")}
+    dec_flat = rosinality_to_flat(dec_sd, size=size, n_mlp=8) if dec_sd else {}
+    latent_avg = ckpt_obj.get("latent_avg")
+    if latent_avg is not None:
+        latent_avg = _numpy({"a": latent_avg})["a"]
+        if latent_avg.ndim == 1:
+            latent_avg = np.tile(latent_avg[None],
+                                 (2 * int(np.log2(size)) - 2, 1))
+    meta = {"encoder_type": opts.get("encoder_type",
+                                     "ProgressiveBackboneEncoder"),
+            "output_size": size,
+            "input_nc": int(opts.get("input_nc", 6))}
+    return enc_flat, dec_flat, latent_avg, meta
+
+
+def convert_restyle(src: str, dest: str, size: Optional[int] = None):
+    enc_flat, dec_flat, latent_avg, meta = restyle_from_torch(_load(src), size)
+    arrays = {f"enc/{k}": v for k, v in enc_flat.items()}
+    arrays.update({f"dec/{k}": v for k, v in dec_flat.items()})
+    if latent_avg is not None:
+        arrays["latent_avg"] = latent_avg
+    arrays["__config__"] = np.frombuffer(json.dumps(meta).encode(),
+                                         dtype=np.uint8)
+    np.savez(dest, **arrays)
+    print(f"converted ReStyle {meta['encoder_type']} -> {dest}")
+
+
+# ----------------------------------------------------------------------------
+# Adaptation checkpoints of the reference
+
+# Offset-head parameter -> offsets leaf, by patch_key.
+_ADAPT_HEAD_LEAF = {
+    "s_delta": {"params_in": "offset"},
+    "s_mod": {"params_in": "offset"},
+    "w_delta": {"w_offsets": "offset"},
+    "w_mod": {"w_offsets": "offset"},
+    "cin_mult": {"params_in": "weights_offset"},
+    "cin_delta": {"params_in": "weights_offset"},
+    "cin_offset": {"params_in": "weights_offset"},
+    "cout_mult": {"params_out": "weights_offset"},
+    "cfull_mult": {"shift": "weights_offset"},
+    "cfull_delta": {"shift": "weights_offset"},
+}
+
+
+def adaptation_from_torch(obj: Dict, syn_cfg: Optional[sg2.SynthesisConfig]
+                          = None):
+    """A reference adaptation checkpoint ({model_type, patch_key,
+    state_dict, sg2_params}) -> (meta, offsets tree of numpy arrays).  The
+    reference trains one head per conv, ``heads.conv_{i}`` over the
+    rosinality conv list (ToRGBs excluded), which maps onto
+    ``conv_layer_names`` in order; the other leaves stay at the zeros of
+    ``init_offsets``.  ``meta`` counts the heads consumed and expected."""
+    patch_key = obj.get("patch_key") or obj.get("parametrization")
+    if patch_key not in _ADAPT_HEAD_LEAF:
+        raise ValueError(f"unsupported patch_key for conversion: {patch_key}")
+    leaf_map = _ADAPT_HEAD_LEAF[patch_key]
+    sd = _numpy(obj["state_dict"])
+    if syn_cfg is None:
+        size = int(obj.get("sg2_params", {}).get("img_size", 1024))
+        syn_cfg = sg2.GeneratorConfig(img_resolution=size).synthesis
+    names = conv_layer_names(syn_cfg)
+    spec = offs_lib.OffsetsSpec.from_string(patch_key)
+    offsets = {name: {k: np.zeros(tuple(v.shape), np.float32)
+                      for k, v in layer.items()}
+               for name, layer in offs_lib.init_offsets(
+                   Rng(0), syn_cfg, spec).items()}
+    consumed = 0
+    for key, arr in sd.items():
+        parts = key.split(".")          # heads.conv_{i}.{param}
+        if len(parts) != 3 or parts[0] != "heads":
+            continue
+        idx = int(parts[1].split("_")[1])
+        leaf = leaf_map.get(parts[2])
+        if leaf is None or idx >= len(names):
+            continue
+        dst = offsets[names[idx]][leaf]
+        offsets[names[idx]][leaf] = arr.reshape(dst.shape).astype(dst.dtype)
+        consumed += 1
+    meta = {"model_type": obj.get("model_type", "parametrization"),
+            "parametrization": patch_key,
+            "sg2_params": dict(obj.get("sg2_params", {})),
+            "heads_consumed": consumed,
+            "heads_expected": sum(1 for k in sd if k.startswith("heads.")
+                                  and k.split(".")[-1] in leaf_map)}
+    return meta, offsets
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description="Convert PyTorch checkpoints to gagan npz files.")
     sub = ap.add_subparsers(dest="cmd", required=True)
     for name in ("rosinality", "nvlabs", "openai-clip", "hf-clip", "vgg16",
-                 "inception", "lpips-alex"):
+                 "inception", "lpips-alex", "restyle"):
         sp = sub.add_parser(name)
         sp.add_argument("--src", required=True)
         sp.add_argument("--dest", required=True)
@@ -319,6 +437,10 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--device", default="cuda",
                             help="torch device of the w_avg mean (default "
                                  "cuda)")
+        if name == "restyle":
+            sp.add_argument("--size", type=int, default=None,
+                            help="the decoder's resolution (default: the "
+                                 "checkpoint's opts.output_size, else 1024)")
         if name == "vgg16":
             sp.add_argument("--lpips-lin", default=None,
                             help="the LPIPS package's VGG lin weights")
@@ -345,6 +467,8 @@ def main(argv: Optional[List[str]] = None):
         convert_inception(args.src, args.dest)
     elif args.cmd == "lpips-alex":
         convert_lpips_alex(args.src, args.dest, args.alexnet_src)
+    elif args.cmd == "restyle":
+        convert_restyle(args.src, args.dest, size=args.size)
     else:
         convert_hf_clip(args.src, args.dest)
 

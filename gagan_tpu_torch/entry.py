@@ -21,6 +21,9 @@
 * :func:`ga_entry`: the GA direction search of
   ``tools/bench_ga_search.py`` (a Swin-T fitness, 32 candidates of 4
   images) at FFHQ-1024, or at a tiny size for the CPU.
+* :func:`restyle_entry`: a ReStyle net (any of the six encoder types) on
+  the FFHQ-1024 generator and a batch of 256^2 inputs, for
+  ``inversion.restyle.run_on_batch`` and ``inference.project_restyle``.
 """
 
 from __future__ import annotations
@@ -36,12 +39,14 @@ from .cli import adapt as adapt_cli
 from .cli import train as train_cli
 from .ga import search as ga_search
 from .inversion import encoders as enc_lib
+from .inversion import restyle as restyle_lib
 from .models import stylegan2 as sg2
 from .models import swin
 from .params import offsets as offs_lib
 from .train import adapt_losses as al
 from .train import adaptation as ad
 from .train import augment, train_step as ts
+from .utils import checkpoint as ckpt_lib
 from .utils.rng import Rng
 from .utils.text_templates import imagenet_templates
 
@@ -326,3 +331,50 @@ def ga_entry(device="cuda", eval_mode: str = "scan", generations: int = 2,
                                    elite=4, generations=generations,
                                    eval_mode=eval_mode)
     return GAEntry(g_cfg, g_params, extract, fitness_fn, cfg)
+
+
+# The tiny generator of CPU ReStyle runs: 256^2 (the encoders' input size,
+# 14 W+ layers) and narrow, with the encoders' 512-wide w.
+TINY_RESTYLE_G = sg2.GeneratorConfig(
+    img_resolution=256, mapping=sg2.MappingConfig(num_layers=2),
+    synthesis=sg2.SynthesisConfig(channel_base=1024, channel_max=64))
+
+
+def restyle_entry(device="cuda", encoder_type: str = "ProgressiveBackboneEncoder",
+                  batch: int = 4, pallas_level: bool = True,
+                  tiny: bool = False, g_params=None):
+    """Returns ``net, inputs``: a ``RestyleNet`` of ``encoder_type`` on a
+    random generator (seed 0) unless ``g_params`` is given, and [batch, 3,
+    256, 256] inputs uniform in [-1, 1] (seed 3).  The encoder is random
+    (``torch.Generator`` seed 1, 6-channel input) with each convolution
+    rescaled to std 1/sqrt(fan-in): at the init's 0.05 the codes pass 1e20
+    and G's demodulation overflows; rescaled they stay O(1-100) over 5
+    iterations.  ``latent_avg`` is the mapping's mean w over 4096 latents
+    (seed 2), on every layer.  G is
+    :func:`entry_config` (FFHQ-1024, 18 W+ layers, ``pallas_level``), or
+    :data:`TINY_RESTYLE_G` with ``tiny``.  Raises without CUDA unless
+    ``device`` is 'cpu'."""
+    device = resolve_device(device)
+    g_cfg = TINY_RESTYLE_G if tiny else entry_config(pallas_level)
+    if g_params is None:
+        g_params = sg2.init_generator(g_cfg, torch.Generator().manual_seed(0),
+                                      device)
+    e_cfg = restyle_lib.RestyleEncoderConfig(encoder_type=encoder_type,
+                                             stylegan_size=g_cfg.img_resolution)
+    e_params = restyle_lib.init_restyle_encoder(
+        torch.Generator().manual_seed(1), e_cfg, device)
+    for w in ckpt_lib.tree_to_flat_tensors(e_params).values():
+        if w.ndim == 4:
+            w.mul_(1.0 / (0.05 * np.sqrt(w[0].numel())))
+    z = torch.randn((4096, g_cfg.z_dim),
+                    generator=torch.Generator().manual_seed(2)).to(device)
+    with torch.no_grad():
+        w_avg = sg2.mapping_apply(g_cfg.mapping, g_params["mapping"], z,
+                                  broadcast=False).mean(dim=0)
+    net = restyle_lib.RestyleNet(
+        enc_cfg=e_cfg, enc_params=e_params, g_cfg=g_cfg, g_params=g_params,
+        latent_avg=w_avg[None].repeat(e_cfg.style_count, 1))
+    inputs = (torch.rand((batch, 3, 256, 256),
+                         generator=torch.Generator().manual_seed(3)) * 2
+              - 1).to(device)
+    return net, inputs

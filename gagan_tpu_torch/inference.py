@@ -3,11 +3,11 @@ gagan_tpu/inference.py): load a snapshot and an adaptation checkpoint, and
 render both generators on the same latents, optionally with MindTheGap's
 latent mixing (the style latents replace w layers 7 and up).
 
-Ported: the ``parametrization`` / ``offsets`` checkpoints (offsets trees
-applied as layer hooks) and the image-to-latent helper ``project_e4e`` with
-its ``preprocess_image``.  Not yet, each raising ``NotImplementedError``:
-``original`` checkpoints, which replace generator weights (ROADMAP item
-15), and ``project_restyle`` (the ReStyle encoders, ROADMAP item 12).
+Checkpoints of model type ``parametrization`` / ``offsets`` apply their
+offsets tree as layer hooks; ``original`` ones hold replacement generator
+weights, merged into a copy of the source generator.  The image-to-latent
+helpers ``project_e4e`` and ``project_restyle`` (with ``preprocess_image``)
+give the W+ latents that ``Inferencer.from_wplus`` renders.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 
 from . import resolve_device
 from .inversion import encoders as enc_lib
+from .inversion import restyle as restyle_lib
 from .models import stylegan2 as sg2
 from .ops.resize import resize2d
 from .params import offsets as offs_lib
@@ -38,14 +39,16 @@ class Inferencer:
                                                         self.device)
         self.model_type = meta["model_type"]
         self.parametrization = meta["parametrization"]
-        if self.model_type == "original":
-            raise NotImplementedError(
-                "model_type 'original' (full generator weights) is not "
-                "ported yet (ROADMAP item 15)")
-        if self.model_type not in ("parametrization", "offsets"):
+        if self.model_type in ("parametrization", "offsets"):
+            self.spec = offs_lib.OffsetsSpec.from_string(self.parametrization)
+            self.hooks = offs_lib.make_hooks(self.spec, offsets)
+            self.g_params_adapted = self.g_params
+        elif self.model_type == "original":
+            # A full finetune: the checkpoint holds replacement G weights.
+            self.hooks = None
+            self.g_params_adapted = self._merge(self.g_params, offsets)
+        else:
             raise ValueError(f"unsupported model_type {self.model_type}")
-        self.spec = offs_lib.OffsetsSpec.from_string(self.parametrization)
-        self.hooks = offs_lib.make_hooks(self.spec, offsets)
 
         self.style_latents = (torch.as_tensor(style_latents,
                                               dtype=torch.float32,
@@ -54,12 +57,24 @@ class Inferencer:
         if extra is not None and "style_latents" in extra:
             self.style_latents = extra["style_latents"]
 
+    @staticmethod
+    def _merge(dst, src):
+        """A copy of the tree ``dst`` with the leaves of ``src`` whose keys
+        it has replaced; keys that ``dst`` lacks are dropped."""
+        out = dict(dst)
+        for k, v in src.items():
+            if k in dst:
+                out[k] = Inferencer._merge(dst[k], v) if isinstance(v, dict) \
+                    else v
+        return out
+
     def _pair(self, ws: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        synth = self.g_params["synthesis"]
         with torch.no_grad():
-            src = sg2.synthesis_apply(self.g_cfg.synthesis, synth, ws,
+            src = sg2.synthesis_apply(self.g_cfg.synthesis,
+                                      self.g_params["synthesis"], ws,
                                       noise_mode="const")
-            trg = sg2.synthesis_apply(self.g_cfg.synthesis, synth, ws,
+            trg = sg2.synthesis_apply(self.g_cfg.synthesis,
+                                      self.g_params_adapted["synthesis"], ws,
                                       noise_mode="const", hooks=self.hooks)
         return src, trg
 
@@ -130,7 +145,19 @@ def project_e4e(image, e_cfg, e_params, g_cfg, g_params,
     return img, ws
 
 
-def project_restyle(*args, **kwargs):
-    raise NotImplementedError(
-        "project_restyle needs the ReStyle encoders, not ported yet (ROADMAP "
-        "item 12: ReStyle comes after the projector and e4e)")
+def project_restyle(image, net, n_iters: int = 5, device="cuda"
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Image -> iterative ReStyle W+ -> reconstruction: (images, w_plus) of
+    the last of ``n_iters`` iterations.  ``net`` is an
+    ``inversion.restyle.RestyleNet`` (run on the device of its latent_avg)
+    or the path of a converted ReStyle npz (``cli/convert_weights.py
+    restyle``), loaded on ``device``; ``image`` is one HWC / CHW image
+    (preprocess_image) or a batch [N, 3, 256, 256] in [-1, 1]."""
+    if isinstance(net, str):
+        net = restyle_lib.load_net(net, device)
+    device = net.latent_avg.device
+    ndim = image.ndim if hasattr(image, "ndim") else np.ndim(image)
+    x = (preprocess_image(image, device) if ndim != 4 else
+         torch.as_tensor(image, dtype=torch.float32, device=device))
+    images, latents = restyle_lib.run_on_batch(net, x, n_iters=n_iters)
+    return images[-1], latents[-1]

@@ -186,48 +186,70 @@ def encode_image_to_wplus(cfg: EncoderConfig, params: Params,
 # Random initialisation (pretrained weights convert to the same keys).
 
 
-def init_encoder(gen: torch.Generator, cfg: EncoderConfig,
-                 device="cpu") -> Params:
-    """Random encoder parameters (the JAX module's shapes and scales) drawn
-    on the CPU from ``gen``, each moved to ``device`` as it is drawn."""
-    def conv(o, i, k, bias=False):
-        p = {"weight": (torch.randn((o, i, k, k), generator=gen)
-                        * 0.05).to(device)}
-        if bias:
-            p["bias"] = torch.zeros((o,), device=device)
-        return p
+def _init_conv(gen, o, i, k, bias=False, device="cpu") -> Params:
+    p = {"weight": (torch.randn((o, i, k, k), generator=gen) * 0.05).to(device)}
+    if bias:
+        p["bias"] = torch.zeros((o,), device=device)
+    return p
 
-    def bn(n):
-        return {"weight": torch.ones((n,), device=device),
-                "bias": torch.zeros((n,), device=device),
-                "running_mean": torch.zeros((n,), device=device),
-                "running_var": torch.ones((n,), device=device)}
 
-    def prelu(n):
-        return {"weight": torch.full((n,), 0.25, device=device)}
+def _init_bn(n, device="cpu") -> Params:
+    return {"weight": torch.ones((n,), device=device),
+            "bias": torch.zeros((n,), device=device),
+            "running_mean": torch.zeros((n,), device=device),
+            "running_var": torch.ones((n,), device=device)}
 
-    p: Params = {"input_layer": {"0": conv(64, 3, 3), "1": bn(64),
-                                 "2": prelu(64)},
-                 "body": {}, "styles": {},
-                 "latlayer1": conv(512, 256, 1, bias=True),
-                 "latlayer2": conv(512, 128, 1, bias=True)}
+
+def _init_prelu(n, device="cpu") -> Params:
+    return {"weight": torch.full((n,), 0.25, device=device)}
+
+
+def _init_ir_body(gen, mode: str, device="cpu") -> Params:
+    """The 24 IR-50 units (``body``), with squeeze-excitation in ir_se
+    mode."""
+    body: Params = {}
     for i, (in_c, depth, _) in enumerate(ir50_blocks()):
-        res = {"0": bn(in_c), "1": conv(depth, in_c, 3), "2": prelu(depth),
-               "3": conv(depth, depth, 3), "4": bn(depth)}
-        if cfg.mode == "ir_se":
-            res["5"] = {"fc1": conv(depth // 16, depth, 1),
-                        "fc2": conv(depth, depth // 16, 1)}
+        res = {"0": _init_bn(in_c, device),
+               "1": _init_conv(gen, depth, in_c, 3, device=device),
+               "2": _init_prelu(depth, device),
+               "3": _init_conv(gen, depth, depth, 3, device=device),
+               "4": _init_bn(depth, device)}
+        if mode == "ir_se":
+            res["5"] = {"fc1": _init_conv(gen, depth // 16, depth, 1,
+                                          device=device),
+                        "fc2": _init_conv(gen, depth, depth // 16, 1,
+                                          device=device)}
         blk: Params = {"res_layer": res}
         if in_c != depth:
-            blk["shortcut_layer"] = {"0": conv(depth, in_c, 1), "1": bn(depth)}
-        p["body"][str(i)] = blk
-    for j in range(cfg.style_count):
-        spatial = 16 if j < cfg.coarse_ind else (
-            32 if j < cfg.middle_ind else 64)
-        p["styles"][str(j)] = {
-            "convs": {str(2 * i): conv(512, 512, 3, bias=True)
+            blk["shortcut_layer"] = {
+                "0": _init_conv(gen, depth, in_c, 1, device=device),
+                "1": _init_bn(depth, device)}
+        body[str(i)] = blk
+    return body
+
+
+def _init_style_block(gen, spatial: int, device="cpu") -> Params:
+    """A GradualStyleBlock: log2(spatial) 3x3 convs and the linear head."""
+    return {"convs": {str(2 * i): _init_conv(gen, 512, 512, 3, bias=True,
+                                             device=device)
                       for i in range(int(np.log2(spatial)))},
             "linear": {"weight": torch.randn((512, 512),
                                              generator=gen).to(device),
                        "bias": torch.zeros((512,), device=device)}}
+
+
+def init_encoder(gen: torch.Generator, cfg: EncoderConfig,
+                 device="cpu") -> Params:
+    """Random encoder parameters (the JAX module's shapes and scales) drawn
+    on the CPU from ``gen``, each moved to ``device`` as it is drawn."""
+    p: Params = {"input_layer": {"0": _init_conv(gen, 64, 3, 3, device=device),
+                                 "1": _init_bn(64, device),
+                                 "2": _init_prelu(64, device)},
+                 "latlayer1": _init_conv(gen, 512, 256, 1, True, device),
+                 "latlayer2": _init_conv(gen, 512, 128, 1, True, device)}
+    p["body"] = _init_ir_body(gen, cfg.mode, device)
+    p["styles"] = {
+        str(j): _init_style_block(gen, 16 if j < cfg.coarse_ind else (
+            32 if j < cfg.middle_ind else 64), device)
+        for j in range(cfg.style_count)}
     return p

@@ -437,3 +437,48 @@ def test_ga_and_metrics_phases_drive_the_full_size_path():
     fp32 = [(c.c_in, c.h) for c in cs.KERNEL_CASES
             if c.on_path and c.dtype == torch.float32]
     assert fp32 == [(256, 128), (128, 256)]
+
+
+# ----------------------------------------------------------------------------
+# The inversion phase's control flow
+
+
+def test_inversion_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """The inversion phase on the CPU with entry.TINY_RESTYLE_G (256^2,
+    the encoders' 14 heads): every encoder type for 1 iteration, the
+    converter, the three Inferencer adaptations, II2S for 2 steps (PCA of
+    600 samples) with a stand-in detector, the editors (StyleFlow at its
+    real config) and the latent D.  No CUDA kernels here: every expected
+    launch and backward count is 0."""
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.metrics import detectors
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "inversion_g_config", lambda: entry.TINY_RESTYLE_G)
+    monkeypatch.setattr(detectors, "make_default", toy_detector)
+    for name, value in (("DEVICE", "cpu"), ("RESTYLE_ITERS", 1),
+                        ("RESTYLE_BATCH", 1), ("RESTYLE_TIMED", 1),
+                        ("II2S_STEPS", 2), ("II2S_PCA", 600),
+                        ("D_STEPS", 1)):
+        monkeypatch.setattr(cs, name, value)
+    launches, needs = cs.inversion_phase(str(tmp_path), "cpu")
+    assert launches == 0 and needs == []
+
+
+def test_inversion_phase_drives_the_full_size_path():
+    """On the card: FFHQ-1024 (18 W+ layers, the fused level at b128.conv1
+    and b256.conv1, the edits' layers), 5 ReStyle iterations, batch 4, 20
+    II2S steps on a PCA of 100,000 samples, a pool of 50."""
+    g = cs.inversion_g_config()
+    assert g.num_ws == 18 and g.synthesis.pallas_level
+    names = g.synthesis.layer_names()
+    assert [names[layer] for (layer, _), _, _ in cs.STYLE_EDITS] == [
+        "b128.conv1", "b256.conv1"]
+    assert cs.expected_launches(g, 1) == 2
+    assert (cs.RESTYLE_ITERS, cs.RESTYLE_BATCH, cs.II2S_STEPS, cs.II2S_PCA,
+            cs.POOL_SIZE, cs.D_STEPS) == (5, 4, 20, 100_000, 50, 3)
+    assert cs.II2S_NEEDS == (True, False, True, True, False, False)
+    assert cs.RESTYLE_HELD_ITERS == 3

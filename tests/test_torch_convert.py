@@ -465,3 +465,23 @@ def test_lpips_alex_command_matches_the_tool(tool, tmp_path, layout):
     torch.save(lins, src)
     with pytest.raises(KeyError, match="AlexNet conv weights missing"):
         tcw.main(["lpips-alex", "--src", src, "--dest", got])
+
+
+# ----------------------------------------------------------------------------
+# ReStyle
+
+
+def test_restyle_command_matches_the_tool(tool, tmp_path):
+    """The restyle command on a torch.save'd checkpoint (encoder with BN
+    num_batches_tracked, rosinality decoder, opts, a [512] latent_avg)
+    writes the JAX tool's npz, array for array."""
+    from .test_torch_restyle import restyle_checkpoint
+
+    src = str(tmp_path / "restyle.pt")
+    torch.save(restyle_checkpoint("ResNetProgressiveBackboneEncoder", 4, 16),
+               src)
+    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+    tcw.main(["restyle", "--src", src, "--dest", ours])
+    tool.convert_restyle(src, theirs)
+    _same_npz(ours, theirs)
+    assert "latent_avg" in _npz(ours)

@@ -8,6 +8,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -76,7 +77,12 @@ def test_port_imports_with_jax_blocked():
             "gagan_tpu_torch.metrics.inception_score, "
             "gagan_tpu_torch.metrics.ppl, gagan_tpu_torch.metrics.clip_eval, "
             "gagan_tpu_torch.metrics.metric_main, "
-            "gagan_tpu_torch.cli.calc_metrics\n"
+            "gagan_tpu_torch.cli.calc_metrics, "
+            "gagan_tpu_torch.inversion.restyle, gagan_tpu_torch.inversion.ii2s, "
+            "gagan_tpu_torch.inversion.e4e_training, gagan_tpu_torch.editing, "
+            "gagan_tpu_torch.editing.interfacegan, "
+            "gagan_tpu_torch.editing.stylespace, "
+            "gagan_tpu_torch.editing.styleflow\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -322,6 +328,56 @@ def test_calc_metrics_and_ga_run_without_pil_yaml_or_jax(tmp_path):
     assert os.path.exists(tmp_path / "metric-kid1k.jsonl")
 
 
+def test_inversion_and_editing_run_without_jax_pil_yaml_or_cv2(tmp_path):
+    """With JAX, the JAX package, Pillow, click, PyYAML, regex, ftfy and cv2
+    blocked: the inversion and editing modules import, the restyle command
+    converts a reference-layout checkpoint, project_restyle runs on the npz
+    and on a PNG read back, and each editor edits its W+."""
+    from gagan_tpu_torch.utils.png import write_png
+
+    from .test_torch_restyle import restyle_checkpoint
+
+    src, dest = str(tmp_path / "restyle.pt"), str(tmp_path / "restyle.npz")
+    torch.save(restyle_checkpoint("ResNetBackboneEncoder", 0, 256), src)
+    image = str(tmp_path / "face.png")
+    write_png(image, np.random.RandomState(0).randint(0, 256, (40, 30, 3),
+                                                      np.uint8))
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu', 'PIL', 'click', 'yaml', 'regex', "
+            "'ftfy', 'cv2'):\n"
+            "    sys.modules[m] = None\n"
+            "import numpy as np, torch\n"
+            "from gagan_tpu_torch import editing, inference\n"
+            "from gagan_tpu_torch.cli import convert_weights\n"
+            "from gagan_tpu_torch.data.dataset import read_rgb\n"
+            "from gagan_tpu_torch.editing import styleflow\n"
+            "from gagan_tpu_torch.inversion import e4e_training, ii2s, "
+            "restyle\n"
+            "from gagan_tpu_torch.utils.rng import Rng\n"
+            f"convert_weights.main(['restyle', '--src', {src!r}, '--dest', "
+            f"{dest!r}])\n"
+            f"img, ws = inference.project_restyle(read_rgb({image!r}), "
+            f"{dest!r}, n_iters=1, device='cpu')\n"
+            "assert tuple(ws.shape) == (1, 14, 512)\n"
+            "ed = editing.LatentEditor({'d': np.ones(512, np.float32)})\n"
+            "assert ed.apply_interfacegan(ws, 'd', factor_range=(0, 2))"
+            ".shape[0] == 2\n"
+            "cfg = styleflow.StyleFlowConfig(hidden_dims=(64,), rk4_steps=4, "
+            "solver='rk4')\n"
+            "sf = styleflow.StyleFlowEditor(styleflow.init_styleflow(Rng(0), "
+            "cfg), cfg, num_ws=14)\n"
+            "out = sf.edit(ws, np.zeros(8), np.zeros(9), 0, 1.0)\n"
+            "assert torch.isfinite(out).all()\n"
+            "for m in ('yaml', 'regex', 'ftfy', 'PIL', 'click', 'cv2'):\n"
+            "    assert sys.modules[m] is None\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_entry_refuses_cpu_fallback():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -339,6 +395,8 @@ def test_entry_refuses_cpu_fallback():
         entry.im2im_entry()
     with pytest.raises(RuntimeError, match="CUDA"):
         entry.ga_entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.restyle_entry()
 
 
 def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
