@@ -12,9 +12,10 @@ no ok line):
                the SASS (cuobjdump, where the toolkit has it);
   3. kernels - each hand kernel against its plain PyTorch version on the card
                (KERNEL_CASES: the main path's shapes in bf16 and in fp32
-               (PPL's force_fp32 route), and edge cases, TF32 off), timed
-               beside its bound, its fold launch alone, the plain version
-               and one cuDNN call; at the main path's two bf16 levels also
+               (PPL's force_fp32 route), and edge cases in both, TF32 off),
+               its fold launch bit-equal to the plain fold, timed beside
+               its bound, its fold launch alone, the plain version and one
+               cuDNN call; at the main path's two bf16 levels also
                the level's backward against autograd through the plain
                version in fp32, timed alone and with the forward;
   4. main    - the FFHQ-1024 generator forward through the port's entry point
@@ -98,8 +99,10 @@ no ok line):
                warning, the second run's dataset statistics read from the
                cache and bit-equal); the compute functions of pr50k3, is50k
                and ppl2_wend at 256 samples (PPL's fused launches in fp32);
-               Inception features pallas vs composed; the generator-stats
-               rate (G + resize + Inception) and its peak memory;
+               ppl2_wend's per-sample distances pallas vs composed (fp32,
+               TF32 off, 64 samples); Inception features pallas vs
+               composed; the generator-stats rate (G + resize +
+               Inception) and its peak memory;
  15. inversion - image -> W+ -> edits -> (source, adapted) pairs at FFHQ-1024
                on a 1024^2 PNG rendered by G: inference.project_restyle for
                each of the six ReStyle encoder types (random towers of the
@@ -125,11 +128,13 @@ Imports nothing of JAX or the JAX package.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -228,6 +233,9 @@ GA_GENERATIONS, GA_SEED, GA_EVAL_IMAGES = 2, 3, 32
 # --batch METRICS_BATCH; then the compute functions of pr50k3, is50k and
 # ppl2_wend at METRICS_SAMPLES generated samples.
 METRICS, METRICS_BATCH, METRICS_SAMPLES = ("fid1k", "kid1k"), 32, 256
+# ppl2_wend's per-sample distances, kernel against composed fp32 path, at
+# this many samples.
+PPL_CHECK_SAMPLES = 64
 
 
 class Case(NamedTuple):
@@ -246,8 +254,10 @@ class Case(NamedTuple):
 
 
 # The main path's two levels, the same two in fp32 (the route of a
-# force_fp32 G: the PPL metric's), and edge cases: ragged H, W and C_in off
-# the 64-wide tile, several C_out tiles, no noise / clamp / demodulation.
+# force_fp32 G: the PPL metric's), and edge cases in both dtypes: ragged H
+# and W (C_in 48 is also off bf16's 64-channel chunk; the predicate's
+# C_in % 16 keeps fp32's 8-channel chunks whole), N = 1 with several C_out
+# tiles, no noise / clamp / demodulation.
 KERNEL_CASES = (
     Case("b128.conv1", BATCH, 256, 256, 128, 128, torch.bfloat16, on_path=True),
     Case("b256.conv1", BATCH, 128, 128, 256, 256, torch.bfloat16, on_path=True),
@@ -259,6 +269,10 @@ KERNEL_CASES = (
     Case("plain epilogue", 2, 128, 128, 32, 128, torch.bfloat16, noise=False,
          clamp=None, demodulate=False),
     Case("3 C_out tiles", 1, 256, 384, 16, 128, torch.bfloat16),
+    Case("edge fp32", 3, 48, 256, 7, 136, torch.float32),
+    Case("plain epilogue fp32", 2, 128, 128, 32, 128, torch.float32,
+         noise=False, clamp=None, demodulate=False),
+    Case("3 C_out tiles fp32", 1, 256, 384, 16, 128, torch.float32),
 )
 
 
@@ -330,10 +344,47 @@ def build_phase():
         print(f"  SASS: {hgmma} HGMMA (wgmma), {hmma} HMMA (mma.sync)")
         if src == "fused_modconv.cu" and (hgmma == 0 or hmma != 0):
             raise AssertionError("the bf16 kernel must issue wgmma, not mma.sync")
+        if src == "fused_modconv.cu":
+            n, loop = sass_hot_loop(sass, "modconv_fp32_kernel")
+            print(f"  modconv_fp32_kernel SASS: {n} instructions; its "
+                  f"innermost loop with the most FFMA: "
+                  f"{sum(loop.values())} instructions, "
+                  f"{loop.get('FFMA', 0)} FFMA, {loop.get('LDS', 0)} LDS")
     for dt in (torch.bfloat16, torch.float32):
         print(f"fused_modconv conv kernel, {str(dt)[6:]}: "
               f"{fmc.smem_bytes(dt)} bytes of dynamic shared memory a block")
     print(f"build_s {build_s:.1f}")
+
+
+def sass_hot_loop(sass: str, kernel: str):
+    """(instructions, {opcode: count} of its innermost loop with the most
+    FFMA) of the first function of ``cuobjdump -sass`` output whose name
+    holds ``kernel``.  A loop runs from a backward branch's target to the
+    branch; it is innermost when no other loop lies inside it.  Opcodes
+    drop their modifiers (LDS.128 counts as LDS)."""
+    text = sass[sass.index(kernel):]
+    end = text.find("Function :")
+    code = []                                   # (address, opcode, line)
+    for ln in (text if end < 0 else text[:end]).splitlines():
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                     ln)
+        if m:
+            code.append((int(m.group(1), 16), m.group(2), ln))
+    loops = []                                  # (first, last) indices
+    for i, (addr, op, ln) in enumerate(code):
+        m = re.search(r"BRA (0x[0-9a-f]+)", ln)
+        if op == "BRA" and m and int(m.group(1), 16) < addr:
+            loops.append((next(k for k, c in enumerate(code)
+                               if c[0] == int(m.group(1), 16)), i))
+    best = {}
+    for first, last in loops:
+        if any(first <= f and l < last for f, l in loops
+               if (f, l) != (first, last)):
+            continue
+        ops = collections.Counter(c[1] for c in code[first:last + 1])
+        if ops["FFMA"] > best.get("FFMA", 0):
+            best = dict(ops)
+    return len(code), best
 
 
 def level_inputs(case: Case, seed: int, device="cuda"):
@@ -353,12 +404,19 @@ def level_inputs(case: Case, seed: int, device="cuda"):
                 noise=noise if case.noise else None, bias=randn(c_out) * 0.1)
 
 
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """The bit patterns of a float32 or bfloat16 tensor, as integers."""
+    return t.contiguous().view(torch.int32 if t.element_size() == 4
+                               else torch.int16)
+
+
 def kernel_phase(peaks):
     """Each case of KERNEL_CASES: kernel vs plain, then times.  Tolerances:
     bf16, one bf16 ulp of max|y| (kernel and plain fold the taps to bf16 at
     the same places and sum in fp32, so they differ by summation order and
     may round one ulp apart); fp32, 1e-4 of max|y| (summation order over
-    9 * C_in products)."""
+    9 * C_in products).  The fold launch alone equals the plain fold bit for
+    bit (both compute (w * s) * d in fp32 and round once to the dtype)."""
     phase("kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -382,6 +440,11 @@ def kernel_phase(peaks):
         tol = bf16_ulp(peak) if dt == torch.bfloat16 else 1e-4 * peak
         if not (np.isfinite(err) and err <= tol):
             raise AssertionError(f"{label}: max_abs_err {err} > {tol}")
+        fold = (a["w"], a["styles"], a["dcoefs"], dt)
+        if not torch.equal(bits(fmc.fold_taps(*fold)),
+                           bits(fmc._fold_taps_ref(*fold))):
+            raise AssertionError(f"{label}: the fold launch's taps differ "
+                                 f"from the plain fold")
 
         xs = (a["x"] * a["styles"].to(dt)[:, :, None, None]).contiguous()
         wl = a["w"].to(dt)
@@ -404,11 +467,11 @@ def kernel_phase(peaks):
         bound_by = "operations" if flops / peak_ops >= nbytes / hbm else "bytes"
         print(f"{label}: x {n}x{ci}x{h}x{w} C_out {co} {str(dt)[6:]} "
               f"max|y| {peak:.4g} max_abs_err {err:.4g} (tol {tol:.4g}) "
-              f"kernel_ms {kernel_ms:.4f} fold_ms {fold_ms:.4f} "
-              f"plain_ms {plain_ms:.4f} "
+              f"fold bit-equal kernel_ms {kernel_ms:.4f} "
+              f"fold_ms {fold_ms:.4f} plain_ms {plain_ms:.4f} "
               f"library_ms {library_ms:.4f} bound_ms {bound_ms:.4f} "
-              f"({bound_by}) kernel_tflops {flops / kernel_ms / 1e9:.1f}",
-              flush=True)
+              f"({bound_by}) kernel_tflops {flops / kernel_ms / 1e9:.1f} "
+              f"({100 * bound_ms / kernel_ms:.1f}% of the bound)", flush=True)
         if case.on_path and dt == torch.bfloat16:
             bwd = backward_case(case, a, peaks)
             for k, v in bwd.items():
@@ -2359,6 +2422,8 @@ def metrics_phase(tmp, snap, card):
                 or not np.isfinite(results[name]).all()):
             raise AssertionError(f"{name}: the metric failed")
     torch.cuda.empty_cache()
+    ppl_pallas_check(opts, card)
+    torch.cuda.empty_cache()
     inception_pallas_check(g_cfg, params, card)
     torch.cuda.empty_cache()
     generator_stats_rate(opts(), card)
@@ -2444,6 +2509,58 @@ def metrics_cli_runs(tmp, snap, card):
           f"first run's, bit for bit; metric-{{{','.join(METRICS)}}}.jsonl "
           f"hold 2 lines each")
     return launches
+
+
+def ppl_pallas_check(opts, card):
+    """ppl2_wend's per-sample distances at PPL_CHECK_SAMPLES samples, twice
+    on the same seeds and noise: the fused levels' fp32 route (the kernel)
+    and the composed fp32 path (cuDNN), TF32 off.
+
+    The tolerance, from the worst case: a render of the two differs by
+    summation order and the place of the modulation's rounding only, about
+    1e-6 of the image (the kernels phase holds a level to 1e-4 of max|y|
+    and finds far less).  A distance is |f(t + eps) - f(t)|^2 / eps^2 with
+    eps = 1e-4; over t in [0, 1] the path between two independent latents
+    changes the image by about all of itself, so the eps-difference is
+    about 1e-4 of the image.  Were the two ends' rounding errors
+    independent, a 1e-6 error would move the difference by ~1e-2 relative
+    and the squared distance by ~2e-2, more where a sample's path is
+    locally flat.  (The ends go through the same code 1e-4 apart, so their
+    errors mostly cancel and the run shows far less; the bound does not
+    count on it.)  The mean is the distance-weighted average of the
+    per-sample relative differences, whatever their signs, so flat samples
+    weigh little in it: bound 2^-4 relative on the means (PPL's trimmed
+    mean; at 64 samples its 1st and 99th percentiles are the minimum and
+    the maximum), three times 2e-2 for the layers downstream of the two
+    levels.  The per-sample maximum is printed, not bound.  A wrong kernel
+    changes the images by O(1), and the distances with them."""
+    torch.backends.cudnn.allow_tf32 = False
+    g_cfg = opts().g_cfg
+    plain = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+        g_cfg.synthesis, pallas_level=False))
+    dist, dets = {}, {}
+    for label, g in (("pallas", g_cfg), ("composed", plain)):
+        o = opts()
+        o.g_cfg, o.detectors = g, dets          # one LPIPS tower for both
+        fmc.fused_modconv3x3.launches = 0
+        dist[label] = ppl_lib.path_distances(
+            o, num_samples=PPL_CHECK_SAMPLES, epsilon=1e-4, space="w",
+            sampling="end", crop=False)
+        if label == "composed" and fmc.fused_modconv3x3.launches:
+            raise AssertionError("ppl: the composed path launched the kernel")
+    torch.backends.cudnn.allow_tf32 = True
+    a, b = dist["pallas"], dist["composed"]
+    rel = np.abs(a - b) / np.abs(b)
+    means = [ppl_lib.trimmed_mean(d) for d in (a, b)]
+    mean_rel = abs(means[0] - means[1]) / abs(means[1])
+    print(f"ppl2_wend pallas vs composed (fp32 G, TF32 off) at "
+          f"{PPL_CHECK_SAMPLES} samples: per-sample relative difference "
+          f"median {float(np.median(rel)):.4g} max {float(rel.max()):.4g}; "
+          f"means {means[0]:.8g} / {means[1]:.8g}, relative {mean_rel:.4g} "
+          f"(bound {2 ** -4:.4g}), on {card}", flush=True)
+    if not (np.isfinite(a).all() and np.isfinite(b).all()
+            and mean_rel <= 2 ** -4):
+        raise AssertionError("ppl: pallas and composed distances disagree")
 
 
 def inception_pallas_check(g_cfg, params, card):

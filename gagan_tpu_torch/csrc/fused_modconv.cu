@@ -11,23 +11,76 @@
 // so this kernel and its plain PyTorch version agree up to summation order.
 //
 // What bounds it here: at the FFHQ-1024 levels it serves (b128.conv1,
-// N x 256 x 128 x 128 and b256.conv1, N x 128 x 256 x 256, bf16) one image is
-// 19.3 GFLOP over 16.8 / 33.5 MB of x + y, about 576 FLOP per byte: above the
-// H100's bf16 ridge (~295), so the level is bound by tensor-core operations,
-// not by HBM as on the TPU the Pallas kernel was written for.  Inside the SM
-// the next limit is the stream from L2 into shared memory: every pixel tile
-// reads its sample's taps again, and x with a 1.5x row halo.
+// N x 256 x 128 x 128 and b256.conv1, N x 128 x 256 x 256) one image is
+// 19.3 GFLOP over x + y of 16.8 / 33.5 MB in bf16 and 33.5 / 67.1 MB in
+// fp32: 1150 / 576 FLOP per byte in bf16, above the H100's bf16 ridge
+// (~295), and 576 / 288 in fp32, far above its fp32 ridge (~20: 67 TFLOP/s
+// of FFMA over 3.35 TB/s).  So each route is bound by operations, not by
+// HBM as on the TPU the Pallas kernel was written for.  Inside the SM the
+// next limits are the stream from L2 into shared memory (every pixel tile
+// reads its sample's taps again, and x with a row halo) and, for FFMA, the
+// dispatch slots and shared-memory wavefronts that feed it.
 //
 // Two launches, each behind its own C entry point so that they can be timed
 // apart:
 //  1. fold_taps_kernel folds modulation and demodulation into the 9 taps
-//     into a scratch [N, 9, C_out, C_in] in x's dtype.  One thread per
-//     (n, o, i) reads w's 9 taps (36 contiguous bytes) once and writes the 9
-//     folded values, each store coalesced along i.  Folding inside every
+//     into a scratch in x's dtype: bf16 [N, 9, C_out, C_in] (the TMA map's
+//     K-major rows), fp32 [N, 9, C_in, C_out] (output channels innermost,
+//     so that a thread reads its taps as 16-byte vectors).  One thread per
+//     (n, o, i), the innermost index fastest so that its 9 stores coalesce,
+//     reads w's 9 taps (36 contiguous bytes) once.  Folding inside every
 //     block instead would repeat the fold once per pixel tile.
-//  2. bf16: modconv_bf16_kernel, below.  fp32: modconv_fp32_kernel, an FFMA
-//     implicit GEMM (128 channels x 4 x 32 pixels a block, 16-channel K
-//     chunks staged through registers), so that fp32 stays fp32.
+//  2. bf16: modconv_bf16_kernel; fp32: modconv_fp32_kernel.  Both below.
+//
+// modconv_fp32_kernel, an FFMA implicit GEMM per sample (fp32 stays fp32:
+// no TF32, no tensor cores).  The H100 dispatches one warp instruction a clock
+// on each of an SM's 4 schedulers and retires 4 warp-FFMA a clock, so
+// every instruction that is not an FFMA costs an FFMA slot, and the SM
+// serves one 128-byte shared-memory wavefront a clock.  The design keeps
+// both small beside the FFMA:
+//  * Tile: a block owns 128 output channels x 4 x 64 pixels and walks C_in
+//    in chunks of 8.  Each block streams its sample's taps from L2 once, so
+//    256 pixels a tile bring 151 MB an image at b128.conv1 (a 4 x 32 tile:
+//    302 MB).  256 threads; a thread owns 8 channels x 16 contiguous
+//    pixels of one row (128 fp32 accumulators).  Warp w: channel half
+//    w % 2 and column run w / 2; lane l: channel group l % 8 (channels
+//    4 (l % 8) + 0..3 and + 32 of the half) and row l / 8.
+//  * Sliding window: per (input channel, dy) a thread loads its 16 pixels
+//    plus the two halo pixels once (4 LDS.128 + 2 LDS.32) and reuses them
+//    from registers for dx = 0, 1, 2; per dx it loads its 8 taps as 2
+//    LDS.128.  So per (channel, dy): 384 FFMA for 12 LDS, 32 FFMA per
+//    load instruction (8 x 8 scattered pixels read as scalars: 4).
+//  * Wavefronts: a tap LDS.128 reads 8 distinct 16-byte vectors that the
+//    warp's 4 rows share (128 contiguous bytes: 1 wavefront); an x LDS.128
+//    reads 4 rows whose starts lie 8 banks apart (XS = 72 floats: 1
+//    wavefront); an LDS.32 reads 4 words (1).  12 wavefronts per 384
+//    warp-FFMA: 32 FFMA a wavefront, the shared-memory pipe busy an eighth
+//    of the time.
+//  * Code: the dy steps stay a rolled loop of 404 instructions (384 FFMA,
+//    12 LDS, 8 of loop and address: 95% FFMA), unrolled over the chunk's 8
+//    channels.  A body that small stays in the instruction cache; unrolling
+//    dy too (1,200 instructions a channel) ran a few percent slower.
+//  * A ring of 3 stages (49.5 KB each: taps [8][9][128] and x [8][6][72],
+//    columns w0 - 4 .. w0 + 68) filled by 16-byte cp.async with zero-fill,
+//    two chunks ahead of the FFMA, one __syncthreads a chunk.  x's span
+//    starts 16-byte aligned since W % 4 == 0 and tiles start at multiples
+//    of 64, so zero-fill is per whole vector (outside the image, ragged H
+//    and W); C_out is a multiple of 4 (whole tap vectors, zero past C_out)
+//    and C_in of 8 (whole chunks).
+//  * Epilogue: the accumulators go to a [128][4][72] tile in the drained
+//    ring (bank-even 16-byte stores), then each half-warp adds noise (16-
+//    byte loads) and bias, applies the scaled leaky ReLU and the clamp in
+//    fp32 and writes 256 contiguous bytes of one output row with 16-byte
+//    stores, clipped at the ragged edge.
+//  * One block of 8 warps an SM (152 KB of shared memory, up to 255
+//    registers a thread): each scheduler interleaves 2 warps, each with
+//    128 independent accumulator chains.
+//  * What is left between it and the FFMA peak: the 5% of dispatch slots
+//    that are not FFMA, the last partial wave of blocks (1024 blocks on
+//    132 SMs at b128.conv1 are 7.76 waves), and stalls that the SASS does
+//    not show (register-bank conflicts of the FFMA operands are a likely
+//    part), with only 2 warps a scheduler to cover them: 8 x 16
+//    accumulators leave no registers for more warps.
 //
 // modconv_bf16_kernel, an implicit GEMM per sample on wgmma:
 //  * A block owns 128 output channels x a 4 x 64 pixel tile: M = 128 (two
@@ -78,7 +131,8 @@
 //    stream from L2), a persistent grid that overlaps one tile's epilogue
 //    with the next tile's loads.
 // bf16 needs W % 8 == 0 (16-byte TMA strides), C_in % 8 == 0 and
-// C_out % 128 == 0; fp32 needs C_in % 16 == 0.
+// C_out % 128 == 0; fp32 needs W % 4 == 0, C_in % 8 == 0, C_out % 4 == 0
+// and 16-byte aligned x, noise, taps and y.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -99,32 +153,35 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// taps = T((w * s) * d): bf16 [N, 9, C_out, C_in], fp32 [N, 9, C_in, C_out].
 template <typename T>
 __global__ void fold_taps_kernel(const float* __restrict__ w,       // [O,I,3,3]
                                  const float* __restrict__ styles,  // [N,I]
                                  const float* __restrict__ dcoefs,  // [N,O]
-                                 T* __restrict__ taps,              // [N,9,O,I]
+                                 T* __restrict__ taps,
                                  int N, int C_out, int C_in) {
+  constexpr bool kOInner = sizeof(T) == 4;
   const long long plane = (long long)C_out * C_in;
   const long long total = (long long)N * plane;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
     const int n = (int)(idx / plane);
-    const long long oi = idx - n * plane;
-    const int o = (int)(oi / C_in);
-    const int i = (int)(oi - (long long)o * C_in);
+    const long long at = idx - n * plane;  // (o, i) within a tap's plane
+    const int outer = (int)(at / (kOInner ? C_out : C_in));
+    const int inner = (int)(at - (long long)outer * (kOInner ? C_out : C_in));
+    const int o = kOInner ? inner : outer;
+    const int i = kOInner ? outer : inner;
     const float s = styles[(long long)n * C_in + i];
     const float d = dcoefs[(long long)n * C_out + o];
-    const float* wp = w + oi * 9;
-    T* tp = taps + n * 9 * plane + oi;
+    const float* wp = w + ((long long)o * C_in + i) * 9;
+    T* tp = taps + n * 9 * plane + at;
 #pragma unroll
     for (int t = 0; t < 9; ++t) tp[t * plane] = from_float<T>((wp[t] * s) * d);
   }
 }
 
 struct Epilogue {
-  const float* noise;  // [H, W] of this sample, or nullptr
-  const float* bias;   // [C_out]
+  const float* bias;  // [C_out]
   float act_gain, act_slope, clamp;
   int has_clamp;
 
@@ -133,83 +190,121 @@ struct Epilogue {
     if (has_clamp) v = v < -clamp ? -clamp : (v > clamp ? clamp : v);
     return v;
   }
-
-  __device__ __forceinline__ float operator()(float v, int o, int h, int w,
-                                              int W) const {
-    if (noise != nullptr) v = v + noise[(long long)h * W + w];
-    return act(v + bias[o]);
-  }
 };
 
 // ---------------------------------------------------------------------------
-// fp32: FFMA implicit GEMM.  A block owns 128 output channels x a 4 x 32
-// pixel tile and walks C_in in chunks of 16: the chunk's taps and the
-// (4+2) x (32+2) halo of x go to shared memory channel-innermost, zero
-// outside the image, then 9 shifted products accumulate in registers.
+// fp32: FFMA implicit GEMM with a sliding register window (see the note at
+// the top).
 namespace fp32 {
 
-constexpr int BM = 128;  // output channels per block
-constexpr int TH = 4;    // output rows per block
-constexpr int TW = 32;   // output columns per block
-constexpr int BK = 16;   // input channels per K chunk
-constexpr int HALO_W = TW + 2;
-constexpr int HALO = (TH + 2) * HALO_W;
-// Taps are read as broadcasts (16, keeps 16-byte rows); the halo stride of
-// 17 words puts 16 neighbouring pixels in distinct banks.
-constexpr int A_LD = 16;
-constexpr int X_LD = 17;
-constexpr size_t kSmemBytes = sizeof(float) * (9 * BM * A_LD + HALO * X_LD);
+constexpr int BM = 128;   // output channels per block
+constexpr int TH = 4;     // output rows per block
+constexpr int TW = 64;    // output columns per block
+constexpr int BK = 8;     // input channels per K chunk
+constexpr int RUN = 16;   // contiguous pixels of one row a thread owns
+constexpr int kStages = 3;
+// A stage: taps [BK][9][BM] (channels innermost), then x [BK][TH + 2][XS]
+// holding columns w0 - 4 .. w0 + TW + 4.  XS = 72 = 8 (mod 32): the four
+// rows that a warp reads start 8 banks apart.
+constexpr int XS = TW + 8;
+constexpr int XPLANE = (TH + 2) * XS;
+constexpr int kTapFloats = BK * 9 * BM;
+constexpr int kStageFloats = kTapFloats + BK * XPLANE;
+// Epilogue tile [BM slots][TH][YS] in the drained ring.  A thread's 8
+// channels go to slots 8 apart (slot_of below), so that the 8 channel groups
+// of a warp take consecutive slots; OS = 73 16-byte units puts their 16-byte
+// stores, with the rows' 18-unit offsets, evenly on the banks.
+constexpr int YS = TW + 8;
+constexpr int OS = TH * YS + 4;
+constexpr size_t kSmemBytes = sizeof(float) * kStages * kStageFloats;
 
-// Taps of one K chunk: [9][BM][BK] -> A_s rows (tap*BM + o), 16-byte copies.
-__device__ __forceinline__ void stage_taps(float* A_s,
+static_assert(BM == 128 && TH == 4 && BK == 8 && TW == 64 && RUN == 16 &&
+                  kThreads == 256,
+              "thread map: warps 2 channel halves x 4 column runs, lanes 8 "
+              "channel groups x 4 rows; the copies' index maps");
+static_assert(XS % 32 == 8, "x rows 8 banks apart");
+static_assert(BM * OS <= kStages * kStageFloats, "epilogue tile fits the ring");
+static_assert(kSmemBytes <= 232448, "more shared memory than a block may take");
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One K chunk into a stage, 16-byte copies zero-filled outside the image and
+// past C_out.  Taps [9][C_in][C_out] of the sample -> [ci][tap][o]: a warp
+// copies one (ci, tap) row of 128 channels at a time.  x rows h0 - 1 ..
+// h0 + TH of each channel -> [ci][row][XS]: the 64 columns of the tile as
+// 16 vectors a line, then the 4 columns on either side.
+__device__ __forceinline__ void load_chunk(uint32_t stage,
+                                           const float* __restrict__ xn,
                                            const float* __restrict__ tn,
-                                           int o0, int c0, int C_out,
-                                           int C_in) {
-  constexpr int VEC = 4;
-  constexpr int VPR = BK / VEC;
-  for (int v = threadIdx.x; v < 9 * BM * VPR; v += kThreads) {
-    const int col = (v % VPR) * VEC;
-    const int row = v / VPR;
-    const int o = row % BM;
-    const int t = row / BM;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (o0 + o < C_out)
-      val = *reinterpret_cast<const uint4*>(
-          tn + ((long long)t * C_out + o0 + o) * C_in + c0 + col);
-    *reinterpret_cast<uint4*>(A_s + row * A_LD + col) = val;
+                                           int c0, int o0, int h0, int w0,
+                                           int C_in, int C_out, int H, int W) {
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int o = o0 + 4 * lane;
+  for (int row = tid / 32; row < BK * 9; row += kThreads / 32) {
+    const int ci = row / 9, tap = row - 9 * ci;
+    const bool valid = o < C_out;
+    const float* src =
+        valid ? tn + ((long long)tap * C_in + c0 + ci) * C_out + o : tn;
+    cp_async16(stage + 16u * (row * 32 + lane), src, valid);
+  }
+  constexpr int kLines = BK * (TH + 2);  // line = row * BK + ci
+  constexpr int kMid = kLines * TW / 4;
+  static_assert(kMid % kThreads == 0 && 2 * kLines <= kThreads,
+                "whole x copies a thread");
+#pragma unroll
+  for (int k = 0; k < kMid / kThreads; ++k) {
+    const int v = tid + k * kThreads;
+    const int col = v % (TW / 4), ci = v / (TW / 4) % BK;
+    const int row = v / (TW / 4) / BK;
+    const int hh = h0 - 1 + row, ww = w0 + 4 * col;
+    const bool valid = hh >= 0 && hh < H && ww < W;
+    const float* src =
+        valid ? xn + ((long long)(c0 + ci) * H + hh) * W + ww : xn;
+    cp_async16(stage + 4u * (kTapFloats + ci * XPLANE + row * XS + 4 + 4 * col),
+               src, valid);
+  }
+  if (tid < 2 * kLines) {
+    const int side = tid % 2, ci = tid / 2 % BK, row = tid / 2 / BK;
+    const int hh = h0 - 1 + row, ww = side ? w0 + TW : w0 - 4;
+    const bool valid = hh >= 0 && hh < H && ww >= 0 && ww < W;
+    const float* src =
+        valid ? xn + ((long long)(c0 + ci) * H + hh) * W + ww : xn;
+    cp_async16(
+        stage + 4u * (kTapFloats + ci * XPLANE + row * XS + side * (TW + 4)),
+        src, valid);
   }
 }
 
-// Halo of x for one K chunk, channel-innermost: X_s[pix][ci], zero outside
-// the image.
-__device__ __forceinline__ void stage_x(float* X_s,
-                                        const float* __restrict__ xn, int c0,
-                                        int h0, int w0, int H, int W) {
-  const long long plane = (long long)H * W;
-  for (int v = threadIdx.x; v < BK * HALO; v += kThreads) {
-    const int pix = v % HALO;
-    const int ci = v / HALO;
-    const int hh = h0 - 1 + pix / HALO_W;
-    const int ww = w0 - 1 + pix % HALO_W;
-    float val = 0.f;
-    if (hh >= 0 && hh < H && ww >= 0 && ww < W)
-      val = xn[(c0 + ci) * plane + (long long)hh * W + ww];
-    X_s[pix * X_LD + ci] = val;
-  }
+// Slot of the epilogue tile for local channel o (its inverse in the kernel).
+__device__ __forceinline__ int slot_of(int o) {
+  return (o & ~31) | ((o & 3) << 3) | ((o >> 2) & 7);
 }
 
 }  // namespace fp32
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 modconv_fp32_kernel(const float* __restrict__ x,     // [N, C_in, H, W]
-                    const float* __restrict__ taps,  // [N, 9, C_out, C_in]
+                    const float* __restrict__ taps,  // [N, 9, C_in, C_out]
                     float* __restrict__ y,           // [N, C_out, H, W]
                     Epilogue ep, const float* __restrict__ noise,
                     int C_in, int C_out, int H, int W, int tiles_w) {
   using namespace fp32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* A_s = reinterpret_cast<float*>(smem_raw);
-  float* X_s = A_s + 9 * BM * A_LD;
+  extern __shared__ __align__(16) float smem_f[];
+  const uint32_t smem_s = static_cast<uint32_t>(__cvta_generic_to_shared(smem_f));
 
   const int n = blockIdx.z;
   const int o0 = blockIdx.y * BM;
@@ -217,55 +312,117 @@ modconv_fp32_kernel(const float* __restrict__ x,     // [N, C_in, H, W]
   const int w0 = (blockIdx.x % tiles_w) * TW;
   const long long plane = (long long)H * W;
   const float* xn = x + (long long)n * C_in * plane;
-  const float* tn = taps + (long long)n * 9 * C_out * C_in;
+  const float* tn = taps + (long long)n * 9 * C_in * C_out;
   float* yn = y + (long long)n * C_out * plane;
-  if (noise != nullptr) ep.noise = noise + n * plane;
 
-  // Thread (ty, tx): output channels ty + 16j, pixels tx + 16k of the
-  // 4 x 32 tile (row k / 2, column tx + 16 (k % 2)).
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
-  float acc[8][8];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int half = warp & 1, run = warp >> 1;  // channel half, column run
+  const int grp = lane & 7, r = lane >> 3;     // channel group, row
+  // This thread's taps: local channels 64 half + 4 grp + (0..3, 32..35).
+  const float* a_s = smem_f + 64 * half + 4 * grp;
+  // Its x window: row r (+ dy), columns RUN run - 1 .. RUN run + RUN.
+  const float* x_s = smem_f + kTapFloats + r * XS + RUN * run + 3;
+
+  float acc[8][RUN];
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int k = 0; k < 8; ++k) acc[j][k] = 0.f;
+    for (int p = 0; p < RUN; ++p) acc[j][p] = 0.f;
 
-  for (int c0 = 0; c0 < C_in; c0 += BK) {
-    stage_taps(A_s, tn, o0, c0, C_out, C_in);
-    stage_x(X_s, xn, c0, h0, w0, H, W);
-    __syncthreads();
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-#pragma unroll 4
-      for (int ci = 0; ci < BK; ++ci) {
-        float a[8], b[8];
+  const int n_chunks = C_in / BK;
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
-          a[j] = A_s[(tap * BM + ty + 16 * j) * A_LD + ci];
+  for (int k = 0; k < kStages - 1; ++k) {
+    if (k < n_chunks)
+      load_chunk(smem_s + 4u * k * kStageFloats, xn, tn, k * BK, o0, h0, w0,
+                 C_in, C_out, H, W);
+    cp_async_commit();
+  }
+  int s_use = 0, s_fill = kStages - 1;
+  for (int k = 0; k < n_chunks; ++k) {
+    cp_async_wait<kStages - 2>();  // chunk k has landed (this thread's copies)
+    __syncthreads();               // ... all threads'; chunk k - 1 is consumed
+    if (k + kStages - 1 < n_chunks)
+      load_chunk(smem_s + 4u * s_fill * kStageFloats, xn, tn,
+                 (k + kStages - 1) * BK, o0, h0, w0, C_in, C_out, H, W);
+    cp_async_commit();
+    const float* as = a_s + s_use * kStageFloats;
+    const float* xs = x_s + s_use * kStageFloats;
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-          b[k] = X_s[(((k >> 1) + dy) * HALO_W + tx + 16 * (k & 1) + dx) *
-                         X_LD + ci];
+    for (int ci = 0; ci < BK; ++ci) {
+#pragma unroll 1
+      for (int dy = 0; dy < 3; ++dy) {
+        const float* xr = xs + ci * XPLANE + dy * XS;
+        float xv[RUN + 2];
+        xv[0] = xr[0];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int q = 0; q < RUN / 4; ++q) {
+          const float4 v = *reinterpret_cast<const float4*>(xr + 1 + 4 * q);
+          xv[1 + 4 * q] = v.x;
+          xv[2 + 4 * q] = v.y;
+          xv[3 + 4 * q] = v.z;
+          xv[4 + 4 * q] = v.w;
+        }
+        xv[RUN + 1] = xr[RUN + 1];
 #pragma unroll
-          for (int k = 0; k < 8; ++k) acc[j][k] = fmaf(a[j], b[k], acc[j][k]);
+        for (int dx = 0; dx < 3; ++dx) {
+          const float* ar = as + (ci * 9 + dy * 3 + dx) * BM;
+          const float4 t0 = *reinterpret_cast<const float4*>(ar);
+          const float4 t1 = *reinterpret_cast<const float4*>(ar + 32);
+          const float t[8] = {t0.x, t0.y, t0.z, t0.w, t1.x, t1.y, t1.z, t1.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+#pragma unroll
+            for (int p = 0; p < RUN; ++p)
+              acc[j][p] = fmaf(t[j], xv[p + dx], acc[j][p]);
+        }
       }
     }
-    __syncthreads();
+    s_use = s_use == kStages - 1 ? 0 : s_use + 1;
+    s_fill = s_fill == kStages - 1 ? 0 : s_fill + 1;
   }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is drained: it becomes the epilogue tile
 
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const int o = o0 + ty + 16 * j;
-    if (o >= C_out) continue;
+    const int slot = slot_of(64 * half + 32 * (j / 4) + 4 * grp + j % 4);
+    float* row = smem_f + slot * OS + r * YS + RUN * run;
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int h = h0 + (k >> 1);
-      const int w = w0 + tx + 16 * (k & 1);
-      if (h < H && w < W)
-        yn[o * plane + (long long)h * W + w] = ep(acc[j][k], o, h, w, W);
+    for (int q = 0; q < RUN / 4; ++q)
+      *reinterpret_cast<float4*>(row + 4 * q) =
+          make_float4(acc[j][4 * q], acc[j][4 * q + 1], acc[j][4 * q + 2],
+                      acc[j][4 * q + 3]);
+  }
+  __syncthreads();
+
+  // Half-warp per output row: 16 x 16 bytes of one (channel, row).
+  const float* nz = noise != nullptr ? noise + n * plane : nullptr;
+  constexpr int kVecs = TW / 4;
+#pragma unroll 4
+  for (int v = threadIdx.x; v < BM * TH * kVecs; v += kThreads) {
+    const int line = v / kVecs;  // slot * TH + row
+    const int vec = v - kVecs * line;
+    const int slot = line / TH, rr = line - TH * slot;
+    const int o = o0 + ((slot & ~31) | ((slot & 7) << 2) | ((slot >> 3) & 3));
+    const int h = h0 + rr, w = w0 + 4 * vec;
+    if (o >= C_out || h >= H || w >= W) continue;
+    float4 val =
+        *reinterpret_cast<const float4*>(smem_f + slot * OS + rr * YS + 4 * vec);
+    if (nz != nullptr) {
+      const float4 nv =
+          *reinterpret_cast<const float4*>(nz + (long long)h * W + w);
+      val.x += nv.x;
+      val.y += nv.y;
+      val.z += nv.z;
+      val.w += nv.w;
     }
+    const float b = ep.bias[o];
+    val.x = ep.act(val.x + b);
+    val.y = ep.act(val.y + b);
+    val.z = ep.act(val.z + b);
+    val.w = ep.act(val.w + b);
+    *reinterpret_cast<float4*>(yn + (long long)o * plane + (long long)h * W +
+                               w) = val;
   }
 }
 
@@ -730,7 +887,12 @@ int launch_fp32(const float* x, const float* taps, const float* noise,
                 const float* bias, float* y, int N, int C_in, int C_out, int H,
                 int W, Epilogue ep, cudaStream_t stream) {
   using namespace fp32;
-  if (C_in % BK != 0) return (int)cudaErrorInvalidValue;
+  if (C_in % BK != 0 || C_out % 4 != 0 || W % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(taps) |
+       reinterpret_cast<uintptr_t>(noise) | reinterpret_cast<uintptr_t>(y)) &
+      15)
+    return (int)cudaErrorMisalignedAddress;
   cudaError_t err = cudaFuncSetAttribute(
       modconv_fp32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)kSmemBytes);
@@ -804,7 +966,7 @@ extern "C" int gagan_fused_modconv3x3_conv(
     float act_gain, float act_slope, float clamp, int has_clamp,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Epilogue ep{nullptr, bias, act_gain, act_slope, clamp, has_clamp};
+  const Epilogue ep{bias, act_gain, act_slope, clamp, has_clamp};
   if (dtype == 0)
     return launch_fp32(static_cast<const float*>(x),
                        static_cast<const float*>(taps), noise, bias,

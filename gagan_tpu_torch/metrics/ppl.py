@@ -34,6 +34,23 @@ def compute_ppl(opts: fs.MetricOptions, num_samples: int,
                 epsilon: float = 1e-4, space: str = "w",
                 sampling: str = "end", crop: bool = True,
                 detector_name: str = "vgg16_lpips") -> float:
+    return trimmed_mean(path_distances(opts, num_samples, epsilon, space,
+                                       sampling, crop, detector_name))
+
+
+def trimmed_mean(dist: np.ndarray) -> float:
+    """The mean of the distances between their 1st and 99th percentiles."""
+    lo = np.percentile(dist, 1, method="lower")
+    hi = np.percentile(dist, 99, method="higher")
+    return float(np.extract((dist >= lo) & (dist <= hi), dist).mean())
+
+
+def path_distances(opts: fs.MetricOptions, num_samples: int,
+                   epsilon: float = 1e-4, space: str = "w",
+                   sampling: str = "end", crop: bool = True,
+                   detector_name: str = "vgg16_lpips") -> np.ndarray:
+    """The ``num_samples`` per-sample distances whose trimmed mean
+    :func:`compute_ppl` returns."""
     from ..models import stylegan2 as sg2
 
     g_cfg = opts.g_cfg
@@ -92,7 +109,4 @@ def compute_ppl(opts: fs.MetricOptions, num_samples: int,
             dist.append(sampler(z0, z1, c, t, kn).cpu().numpy())
             n_done += batch
 
-    dist = np.concatenate(dist)[:num_samples]
-    lo = np.percentile(dist, 1, method="lower")
-    hi = np.percentile(dist, 99, method="higher")
-    return float(np.extract((dist >= lo) & (dist <= hi), dist).mean())
+    return np.concatenate(dist)[:num_samples]

@@ -11,10 +11,12 @@ into the weight taps in fp32 and rounded to ``x.dtype`` (as the Pallas
 kernel does), and the products accumulate in fp32.
 
 The kernel is two launches: ``fold_taps`` folds the taps into a scratch
-[N, 9, C_out, C_in], then the convolution reads them (bf16: TMA + wgmma;
-fp32: FFMA).  ``fused_modconv3x3`` runs both on CUDA tensors and its plain
-PyTorch version ``fused_modconv3x3_ref`` on CPU tensors; a CUDA tensor never
-takes the plain version.  Forward only: the composed backward
+(bf16 [N, 9, C_out, C_in]; fp32 [N, 9, C_in, C_out], output channels
+innermost), then the convolution reads them (bf16: TMA + wgmma; fp32: FFMA
+from a sliding register window, 8-channel K chunks).  ``fused_modconv3x3``
+runs both on CUDA tensors and its plain PyTorch version
+``fused_modconv3x3_ref`` on CPU tensors; a CUDA tensor never takes the
+plain version.  Forward only: the composed backward
 (pallas_modconv.py::_bwd) comes with the training slice.
 """
 
@@ -32,7 +34,7 @@ from .modulated_conv2d import demod_coefs
 
 LRELU_SLOPE = 0.2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_K_CHUNK = 16      # C_in must be a multiple of this (the fp32 K chunk)
+_K_CHUNK = 16      # C_in must be a multiple of this (whole fp32 K chunks of 8)
 _BM = 128          # output channels per block of the kernel
 
 
@@ -42,7 +44,8 @@ def supported_shape(x_shape, w_shape, up: int = 1, down: int = 1) -> bool:
     Accepts every shape that the Pallas kernel's ``supported_shape`` accepts
     and more, since nothing on Hopper needs the TPU's (8, 128) tiling: W >= 128
     need only be a multiple of 8 (16-byte TMA strides and x loads), C_in
-    a multiple of 16 (the fp32 kernel's K chunk), and H is free (ragged pixel
+    a multiple of 16 (whole 8-channel K chunks of the fp32 kernel; the bf16
+    kernel zero-fills its 64-channel chunks), and H is free (ragged pixel
     tiles read zeros and are clipped on store).  C_out stays a multiple of
     128, the kernel's channel tile, so no level pays for a half-empty tile,
     and W >= 128 keeps the kernel to the high-resolution levels where its
@@ -94,6 +97,9 @@ def _check(x, w, styles, dcoefs, noise, bias):
     if x.dtype == torch.bfloat16 and (wd % 8 or c_out % _BM):
         raise ValueError(f"bfloat16 needs W % 8 == 0 and C_out % {_BM} == 0, "
                          f"got W={wd}, C_out={c_out}")
+    if x.dtype == torch.float32 and (wd % 4 or c_out % 4):
+        raise ValueError(f"float32 needs W % 4 == 0 and C_out % 4 == 0 "
+                         f"(16-byte vectors), got W={wd}, C_out={c_out}")
     want = {"w": (w, (c_out, c_in, 3, 3)), "styles": (styles, (n, c_in)),
             "dcoefs": (dcoefs, (n, c_out)), "bias": (bias, (c_out,))}
     if noise is not None:
@@ -141,7 +147,9 @@ def _raise_on(status: int, what: str):
 
 def fold_taps(w, styles, dcoefs, dtype) -> torch.Tensor:
     """The kernel's first launch: the folded taps [N, 9, C_out, C_in] in
-    ``dtype`` (float32 or bfloat16), rounded once after the fp32 fold."""
+    ``dtype`` (float32 or bfloat16), rounded once after the fp32 fold.  On
+    the card float32 taps are stored [N, 9, C_in, C_out] (the fp32 kernel's
+    layout) and returned as a transposed view."""
     if w.device.type == "cpu":
         return _fold_taps_ref(w, styles, dcoefs, dtype)
     if dtype not in _DTYPES:
@@ -152,13 +160,15 @@ def fold_taps(w, styles, dcoefs, dtype) -> torch.Tensor:
                           "styles": (styles, (n, c_in)),
                           "dcoefs": (dcoefs, (n, c_out))})
     lib = _lib()
+    o_inner = dtype == torch.float32
+    shape = (n, 9, c_in, c_out) if o_inner else (n, 9, c_out, c_in)
     with torch.cuda.device(w.device):
-        taps = torch.empty((n, 9, c_out, c_in), dtype=dtype, device=w.device)
+        taps = torch.empty(shape, dtype=dtype, device=w.device)
         _raise_on(lib.gagan_fused_modconv3x3_fold(
             _DTYPES[dtype], w.data_ptr(), styles.data_ptr(), dcoefs.data_ptr(),
             taps.data_ptr(), n, c_in, c_out,
             torch.cuda.current_stream(w.device).cuda_stream), "fold")
-    return taps
+    return taps.transpose(2, 3) if o_inner else taps
 
 
 def smem_bytes(dtype) -> int:

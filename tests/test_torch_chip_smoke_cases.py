@@ -19,6 +19,9 @@ torch.set_num_threads(2)
 # The bf16 kernel's tile (csrc/fused_modconv.cu, namespace tc): 4 x 64
 # pixels, 64-channel chunks of C_in, 128 output channels.
 TILE_ROWS, TILE_COLS, CHANNEL_CHUNK, C_OUT_TILE = 4, 64, 64, 128
+# The fp32 kernel's (namespace fp32): 4 x 64 pixels, 8-channel chunks, 128
+# output channels.
+FP32_TILE = (4, 64, 8, 128)
 
 CASES = pytest.mark.parametrize("case", cs.KERNEL_CASES,
                                 ids=[c.label for c in cs.KERNEL_CASES])
@@ -32,14 +35,20 @@ def test_case_inside_predicate(case):
 
 def test_cases_cover_the_kernel_edges():
     bf16 = [c for c in cs.KERNEL_CASES if c.dtype == torch.bfloat16]
-    assert any(c.h % TILE_ROWS for c in bf16)                # ragged H
-    assert any(c.w % TILE_COLS for c in bf16)                # ragged W
     assert any(c.c_in % CHANNEL_CHUNK for c in bf16)         # partial chunk
-    assert any(c.c_out > 2 * C_OUT_TILE for c in bf16)       # 3 C_out tiles
-    assert any(c.n == 1 for c in bf16)
-    assert any(not c.noise and c.clamp is None and not c.demodulate
-               for c in bf16)
-    assert any(c.dtype == torch.float32 for c in cs.KERNEL_CASES)
+    for dtype, (rows, cols, chunk, c_out_tile) in (
+            (torch.bfloat16, (TILE_ROWS, TILE_COLS, CHANNEL_CHUNK,
+                              C_OUT_TILE)),
+            (torch.float32, FP32_TILE)):
+        cases = [c for c in cs.KERNEL_CASES if c.dtype == dtype]
+        assert any(c.h % rows for c in cases)                # ragged H
+        assert any(c.w % cols for c in cases)                # ragged W
+        assert any(c.c_out > 2 * c_out_tile for c in cases)  # 3 C_out tiles
+        assert any(c.n == 1 for c in cases)
+        assert any(not c.noise and c.clamp is None and not c.demodulate
+                   for c in cases)
+    # The predicate's C_in % 16 keeps every fp32 chunk whole.
+    assert all(c.c_in % FP32_TILE[2] == 0 for c in cs.KERNEL_CASES)
     on_path = [(c.c_in, c.h, c.dtype) for c in cs.KERNEL_CASES if c.on_path]
     assert on_path == [(256, 128, torch.bfloat16), (128, 256, torch.bfloat16),
                        (256, 128, torch.float32), (128, 256, torch.float32)]
@@ -482,3 +491,33 @@ def test_inversion_phase_drives_the_full_size_path():
             cs.POOL_SIZE, cs.D_STEPS) == (5, 4, 20, 100_000, 50, 3)
     assert cs.II2S_NEEDS == (True, False, True, True, False, False)
     assert cs.RESTYLE_HELD_ITERS == 3
+
+
+def test_sass_hot_loop_counts_the_innermost_loop_with_most_ffma():
+    """The build phase's SASS summary of the fp32 kernel, on a cut-down
+    ``cuobjdump -sass`` listing: a loop is the span from a backward
+    branch's target to the branch; the outer loop (more FFMA, one loop
+    inside) is passed over for the inner one; opcodes drop their
+    modifiers; the next function is not counted."""
+    sass = """
+        Function : _Z19modconv_fp32_kernelPKf
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   LDS.128 R4, [R2] ;
+        /*0020*/                   FFMA R8, R4, R5, R8 ;
+        /*0030*/                   FFMA R9, R4, R6, R9 ;
+        /*0040*/              @!P0 BRA 0x10 ;
+        /*0050*/                   LDS R4, [R2] ;
+        /*0060*/                   FFMA R8, R4, R5, R8 ;
+        /*0070*/              @!P1 BRA 0x10 ;
+        /*0080*/                   FFMA R8, R4, R5, R8 ;
+        /*0090*/                   BRA 0x80 ;
+        /*00a0*/                   EXIT ;
+        Function : _Z19modconv_bf16_kernelPK13__nv_bfloat16
+        /*0000*/                   FFMA R8, R4, R5, R8 ;
+        /*0010*/                   FFMA R8, R4, R5, R8 ;
+        /*0020*/                   FFMA R8, R4, R5, R8 ;
+        /*0030*/                   BRA 0x0 ;
+"""
+    n, loop = cs.sass_hot_loop(sass, "modconv_fp32_kernel")
+    assert n == 11
+    assert loop == {"LDS": 1, "FFMA": 2, "BRA": 1}
