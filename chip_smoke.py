@@ -29,13 +29,23 @@ no ok line):
                variants, each checked (finite metrics, state moved, kernel
                launches) then timed with its peak memory, the s/kimg of the
                schedule, one GA Dmain round, pallas vs composed gradients of
-               one main round (TF32 off), one torch.profiler trace of a step;
-  7. loop    - a training run as users start it, at FFHQ-1024 on 32 random
-               1024^2 PNGs (gagan_tpu_torch.cli.train, --cfg auto --batch 32
-               --kimg 1: 32 batches, R1 with a remat'd D): stats.jsonl, the
-               image grid, the network snapshot, the fused launches, the
-               loop's own sec/kimg and its wait on the loader; the PNG
-               decode rate (filter 0 and Paeth) on this host;
+               one main round (TF32 off), one torch.profiler trace of a step
+               (the ADA pipe takes the native-resolution "fast" warp, as the
+               JAX command's jitted step does);
+     warp    - the ADA pipe (bgc bf16, batch 32, 1024^2, p = 1) with the
+               "fast" and the "exact" geometry: forward and forward+backward
+               ms and peak memory; "fast" on the card against the CPU;
+     dataset - 32 seeded 1024^2 PNGs through data/dataset_tool.py into a
+               zip (Pillow's per-row filters: Paeth rows), read back by
+               NativeZipDataset (the C++ loader built with g++ and zlib) and
+               ImageFolderDataset: equal pixels, labels and order, the time
+               of a batch of 32 each;
+  7. loop    - a training run as users start it, at FFHQ-1024 on that zip
+               (gagan_tpu_torch.cli.train, --cfg auto --batch 32 --kimg 1:
+               32 batches, R1 with a remat'd D): the loader it took,
+               stats.jsonl, the image grid, the network snapshot, the fused
+               launches, the loop's own sec/kimg and its wait on the loader;
+               the PNG decode rate (filter 0 and Paeth) on this host;
   8. remat   - one Gmain+Dmain round and one R1 round at live batch 8 (TF32
                off) with G and D remat'd and not: gradients against each
                other, times, peak memory, fused launches;
@@ -122,7 +132,14 @@ no ok line):
                (real config, dopri5 and rk4: steps, host reads, round trip)
                edits; e4e's latent D through a pool of 50 (losses, R1, 3 Adam
                steps);
- 16. a JSON line of the kernels, then the JSON ok line.
+ 16. face    - a seeded 1024^2 photo through the MTCNN cascade (seeded
+               random nets) on the card and on the CPU (counts by stage,
+               boxes and landmarks), align_face_auto to 1024^2 (4096^2 quad
+               map and Lanczos on the card) against the host route,
+               MTCNN.align to 112^2, and inference.project_e4e of the
+               aligned face (2 fused launches) against the composed level;
+               the time of each step;
+ 17. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
 
@@ -155,6 +172,11 @@ from gagan_tpu_torch.cli import generate, style_mixing  # noqa: E402
 from gagan_tpu_torch.cli import projector as projector_cli  # noqa: E402
 from gagan_tpu_torch.cli import train as train_cli  # noqa: E402
 from gagan_tpu_torch.data import ImageFolderDataset  # noqa: E402
+from gagan_tpu_torch.data import dataset_tool  # noqa: E402
+from gagan_tpu_torch.data import native_loader  # noqa: E402
+from gagan_tpu_torch.face import align as face_align  # noqa: E402
+from gagan_tpu_torch.face import mtcnn as face_mtcnn_lib  # noqa: E402
+from gagan_tpu_torch.inversion import encoders as enc_lib  # noqa: E402
 from gagan_tpu_torch.cli import calc_metrics as calc_metrics_cli  # noqa: E402
 from gagan_tpu_torch.cli import convert_weights  # noqa: E402
 from gagan_tpu_torch.data.dataset import read_rgb  # noqa: E402
@@ -162,8 +184,8 @@ from gagan_tpu_torch.editing import styleflow  # noqa: E402
 from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
                                    adapt_entry, entry, entry_config,
                                    fewshot_entry, ga_entry, im2im_entry,
-                                   restyle_entry, train_configs, train_entry,
-                                   train_run)
+                                   rescale_random_convs, restyle_entry,
+                                   train_configs, train_entry, train_run)
 from gagan_tpu_torch.ga import evaluation as ga_eval  # noqa: E402
 from gagan_tpu_torch.ga import search as ga_search  # noqa: E402
 from gagan_tpu_torch.inversion import e4e_training, ii2s  # noqa: E402
@@ -185,6 +207,7 @@ from gagan_tpu_torch.train import train_step as ts  # noqa: E402
 from gagan_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from gagan_tpu_torch.utils import config as config_lib  # noqa: E402
 from gagan_tpu_torch.utils import png  # noqa: E402
+from gagan_tpu_torch.ops.resize import resize_uint8  # noqa: E402
 from gagan_tpu_torch.utils.rng import Rng  # noqa: E402
 
 # Published dense peaks of the H100 SXM (NVIDIA data sheet, at 700 W):
@@ -197,6 +220,20 @@ TRAIN_BATCH = 32
 SCHEDULE = {"none": 12, "greg": 3, "both": 1}
 # The loop phase: a run of --kimg 1 at --batch 32 on this many 1024^2 PNGs.
 LOOP_RES, LOOP_BATCH, LOOP_IMAGES, LOOP_KIMG = 1024, 32, 32, 1
+# The loop's figure before the fast warp (the loop phase's Timing/
+# sec_per_kimg over PRs 4-10, H100 80GB HBM3, 700 W; PERF.md section 5).
+LOOP_SEC_PER_KIMG_BEFORE = "72.39-100.79"
+# The warp phase: the ADA pipe at the train phase's batch and 1024^2 (padded
+# to 1536^2 by the fast branch), WARP_ITERS timed calls a mode; the card
+# against the CPU on WARP_CHECK_BATCH images of WARP_CHECK_RES^2.
+WARP_RES, WARP_ITERS, WARP_CHECK_BATCH, WARP_CHECK_RES = 1024, 3, 4, 64
+# The face phase: a seeded 1024^2 photo, MTCNN random weights from this
+# generator seed (regression heads scaled, see face_mtcnn) and thresholds
+# that keep a few to a few hundred boxes at each stage (the reference's
+# defaults, which align_face_auto and MTCNN.align use; tuned on the CPU
+# route, which runs the same arithmetic).
+FACE_RES, FACE_TRANSFORM, FACE_MTCNN_SEED = 1024, 4096, 0
+FACE_THRESHOLDS = (0.15, 0.25, 0.35)
 REMAT_BATCH = 8
 DEVICE = "cuda"
 # The adapt phase: cli/adapt.py on this config for ADAPT_ITERS steps with a
@@ -928,6 +965,115 @@ def trace_train_step(step, state, inputs, key, top=12):
           f"{bwd_us / 1e3:.4f} ms ({100 * bwd_us / total:.2f}%)")
 
 
+class HostRng:
+    """A draw source whose draws are made on the CPU (by ``Rng``) and then
+    moved to the device asked for, so that the card and the CPU see the same
+    numbers."""
+
+    def __init__(self, key):
+        self.key = key
+
+    def split(self, n):
+        return [HostRng(k) for k in self.key.split(n)]
+
+    def fold_in(self, data):
+        return HostRng(self.key.fold_in(data))
+
+    def normal(self, shape, device="cpu"):
+        return self.key.normal(shape).to(device)
+
+    def uniform(self, shape, device="cpu"):
+        return self.key.uniform(shape).to(device)
+
+    def randint(self, shape, low, high, device="cpu"):
+        return self.key.randint(shape, low, high).to(device)
+
+
+def wall_ms(fn, iters):
+    """Host wall time per call, the card synchronised before and after (the
+    exact branch reads its margin to the host inside the call)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def warp_phase(card):
+    """The ADA pipe of the train step (bgc in bf16, the JAX command's
+    1024^2 plan) at the train phase's batch, p = 1 (every transform drawn),
+    with geom_mode "fast" (the native-resolution warp, padded 1024 -> 1536)
+    and "exact" (the 2x pyramid): forward and forward + backward wall ms
+    and the peak memory above the inputs.  Then "fast" on the card against
+    the same call on the CPU (fp32, TF32 off, draws made on the host):
+    within 1e-4 of max|out|, fp32 sums over a band of 2-4 taps in another
+    order (~1e-6); a wrong tap or weight misses by ~1e-1."""
+    phase("warp")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, _, _, aug_cfg = train_configs(TRAIN_BATCH)
+    x = (torch.rand((TRAIN_BATCH, 3, WARP_RES, WARP_RES),
+                    generator=torch.Generator().manual_seed(9)) * 2
+         - 1).to(DEVICE)
+    out = {}
+    for mode in ("fast", "exact"):
+        cfg = dataclasses.replace(aug_cfg, geom_mode=mode)
+
+        def fwd():
+            with torch.no_grad():
+                return augment.augment_pipe(cfg, x, 1.0, Rng(7))
+
+        xg = x.clone().requires_grad_(True)
+
+        def fwd_bwd():
+            y = augment.augment_pipe(cfg, xg, 1.0, Rng(7))
+            y.float().square().mean().backward()
+            xg.grad = None
+
+        y = fwd()
+        if (tuple(y.shape) != tuple(x.shape) or y.dtype != x.dtype
+                or not bool(torch.isfinite(y).all())):
+            raise AssertionError(f"warp {mode}: {y.dtype} {tuple(y.shape)}")
+        del y
+        peaks = []
+        for fn in (fwd, fwd_bwd):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peaks.append((torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+        out[mode] = (wall_ms(fwd, WARP_ITERS), wall_ms(fwd_bwd, WARP_ITERS),
+                     *peaks)
+        del xg
+        torch.cuda.empty_cache()
+    for mode, (f, fb, pf, pfb) in out.items():
+        print(f"ADA pipe bgc bf16, batch {TRAIN_BATCH}, {WARP_RES}^2, p = 1, "
+              f"geom_mode {mode}: forward {f:.3f} ms ({pf:.3f} GiB peak "
+              f"above the inputs), forward+backward {fb:.3f} ms ({pfb:.3f} "
+              f"GiB), on {card}", flush=True)
+
+    cfg = dataclasses.replace(augment.make_config("bgc"), geom_mode="fast")
+    small = torch.rand((WARP_CHECK_BATCH, 3, WARP_CHECK_RES, WARP_CHECK_RES),
+                       generator=torch.Generator().manual_seed(4)) * 2 - 1
+    want = augment.augment_pipe(cfg, small, 1.0, HostRng(Rng(3)))
+    got = augment.augment_pipe(cfg, small.to(DEVICE), 1.0,
+                               HostRng(Rng(3))).cpu()
+    err = float((got - want).abs().max())
+    peak = float(want.abs().max())
+    moved = float((want - small).abs().max())
+    print(f"fast warp, card vs CPU (bgc fp32, {WARP_CHECK_BATCH} x "
+          f"{WARP_CHECK_RES}^2, p = 1): max_abs_err {err:.4g} (bound "
+          f"{1e-4 * peak:.4g} = 1e-4 max|out|; the pipe moved pixels by "
+          f"up to {moved:.4g})")
+    torch.backends.cudnn.allow_tf32 = True
+    if not (err <= 1e-4 * peak and moved > 1e-2):
+        raise AssertionError("fast warp: card and CPU disagree")
+    return out
+
+
 def cli_phase(params):
     phase("cli")
     with tempfile.TemporaryDirectory() as tmp:
@@ -994,29 +1140,124 @@ def png_decode_rate(tmp, card):
               f"({3 * 2 ** 20 / ms / 1e3:.2f} MB/s) on the host of {card}")
 
 
+def png_filter_rows(data: bytes) -> collections.Counter:
+    """The rows of a PNG by filter type (0-4)."""
+    import struct
+    import zlib
+
+    pos, idat, w, c = 8, [], 0, 0
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IHDR":
+            w = struct.unpack(">I", data[pos + 8:pos + 12])[0]
+            c = {0: 1, 2: 3, 4: 2, 6: 4}[data[pos + 17]]
+        elif tag == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    raw = zlib.decompress(b"".join(idat))
+    return collections.Counter(raw[::w * c + 1])
+
+
+def dataset_phase(tmp, card):
+    """The dataset tool and both loaders on the loop's data: LOOP_IMAGES
+    seeded 1024^2 images (64^2 noise, Pillow-bicubic upsampled) written as
+    unfiltered PNGs (the folder the later phases read), converted by
+    data/dataset_tool.py into a zip (Pillow's per-row filter choice: Sub
+    and Paeth rows), then read back
+    by NativeZipDataset (the C++ loader, built here with g++ and zlib) and
+    by ImageFolderDataset: equal pixels, labels and order (the first
+    LOOP_BATCH images by index, in one read_batch and in one threaded batch
+    as data_loader makes it), and each one's time for that batch.  Returns
+    the zip and whether the native loader is available."""
+    phase("dataset")
+    src, zpath = os.path.join(tmp, "data"), os.path.join(tmp, "data.zip")
+    os.makedirs(src)
+    rng = np.random.RandomState(0)
+    labels = []
+    n = max(LOOP_RES // 16, 4)
+    for i in range(LOOP_IMAGES):
+        img = resize_uint8(rng.randint(0, 256, (n, n, 3)).astype(np.uint8),
+                           (LOOP_RES, LOOP_RES), "bicubic")
+        name = f"{i:05d}.png"
+        png.write_png(os.path.join(src, name), img, level=1)
+        labels.append([name, i % 4])
+    with open(os.path.join(src, "dataset.json"), "w") as f:
+        json.dump({"labels": labels}, f)
+    t0 = time.perf_counter()
+    dataset_tool.main(["--source", src, "--dest", zpath])
+    tool_s = time.perf_counter() - t0
+    import zipfile
+    rows = collections.Counter()
+    with zipfile.ZipFile(zpath) as z:
+        names = sorted(n for n in z.namelist() if n.endswith(".png"))
+        for n in names:
+            rows += png_filter_rows(z.read(n))
+    print(f"dataset_tool: {len(names)} PNGs of {LOOP_RES}^2 in "
+          f"{os.path.getsize(zpath) / 2 ** 20:.1f} MiB, {tool_s:.2f} s on "
+          f"the host of {card}; rows by filter type "
+          f"{dict(sorted(rows.items()))}", flush=True)
+    if len(names) != LOOP_IMAGES or rows[4] == 0:
+        raise AssertionError("dataset_tool: wrong images or no Paeth rows")
+
+    idxs = list(range(LOOP_BATCH))
+    py = ImageFolderDataset(zpath, use_labels=True)
+    t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        items = list(pool.map(py.__getitem__, idxs))
+    py_ms = (time.perf_counter() - t0) * 1e3
+    py_imgs = np.stack([im for im, _ in items])
+    py_labels = np.stack([lb for _, lb in items])
+    if not native_loader.native_available():
+        print(f"native loader: not available on {card}: "
+              f"{native_loader.build_error()}; the phase checks "
+              f"ImageFolderDataset alone: a batch of {LOOP_BATCH} in "
+              f"{py_ms:.1f} ms", flush=True)
+        return zpath, False
+    nat = native_loader.NativeZipDataset(zpath, use_labels=True)
+    t0 = time.perf_counter()
+    nat_imgs, nat_labels = nat.read_batch(idxs)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    same = (np.array_equal(nat_imgs, py_imgs)
+            and np.array_equal(nat_labels, py_labels)
+            and len(nat) == len(py) and nat.image_shape == py.image_shape)
+    nat.close()
+    print(f"read a batch of {LOOP_BATCH} {LOOP_RES}^2 PNGs: NativeZipDataset "
+          f"{nat_ms:.1f} ms, ImageFolderDataset (4 threads) {py_ms:.1f} ms "
+          f"({py_ms / nat_ms:.1f}x); pixels, labels and order equal {same}; "
+          f"on the host of {card}", flush=True)
+    if not same:
+        raise AssertionError("native and folder readers disagree")
+    return zpath, True
+
+
 def loop_phase(tmp, card, train_sec_per_kimg):
     """A training run through the command users start, at FFHQ-1024 on
-    LOOP_IMAGES random PNGs, --kimg 1 at --batch 32: the loop's plan gives
+    the dataset phase's zip of LOOP_IMAGES PNGs (read by the native loader
+    where it builds), --kimg 1 at --batch 32: the loop's plan gives
     main rounds of 8 (fused level in G's forward, 2 levels a round), Greg
     rounds of 16 (pallas_level off) and R1 with a remat'd D.  Returns the
     run dir, the fused launches and the loop's own sec/kimg."""
+    data, native = dataset_phase(tmp, card)
     phase("loop")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
-    data, run_dir = os.path.join(tmp, "data"), os.path.join(tmp, "run")
-    os.makedirs(data)
-    rng = np.random.RandomState(0)
-    for i in range(LOOP_IMAGES):
-        png.write_png(os.path.join(data, f"{i:05d}.png"), rng.randint(
-            0, 256, (LOOP_RES, LOOP_RES, 3)).astype(np.uint8), level=1)
-    loaders = []
+    run_dir = os.path.join(tmp, "run")
+    loaders, taken = [], []
     orig_loader = loop_lib.data_loader
+    orig_native = loop_lib.nl.native_data_loader
 
-    def timed_loader(*a, **k):
-        loaders.append(TimedLoader(orig_loader(*a, **k)))
-        return loaders[-1]
+    def timed(name, fn):
+        def make(*a, **k):
+            taken.append(name)
+            loaders.append(TimedLoader(fn(*a, **k)))
+            return loaders[-1]
+        return make
 
-    loop_lib.data_loader = timed_loader
+    loop_lib.data_loader = timed("data_loader (ImageFolderDataset)",
+                                 orig_loader)
+    loop_lib.nl.native_data_loader = timed(
+        "native_data_loader (NativeZipDataset)", orig_native)
     fmc.fused_modconv3x3.launches = 0
     t0 = time.perf_counter()
     try:
@@ -1029,7 +1270,14 @@ def loop_phase(tmp, card, train_sec_per_kimg):
         torch.cuda.synchronize()
     finally:
         loop_lib.data_loader = orig_loader
+        loop_lib.nl.native_data_loader = orig_native
     wall = time.perf_counter() - t0
+    print(f"loop: cli/train.py --data {os.path.basename(data)} read by "
+          f"{taken}")
+    if taken != ["native_data_loader (NativeZipDataset)" if native
+                 else "data_loader (ImageFolderDataset)"]:
+        raise AssertionError(f"loop: loader {taken}, native available "
+                             f"{native}")
     launches = fmc.fused_modconv3x3.launches
 
     run = train_cli.build_run(LOOP_RES, batch=LOOP_BATCH, kimg=LOOP_KIMG)
@@ -1079,8 +1327,9 @@ def loop_phase(tmp, card, train_sec_per_kimg):
     sec_per_kimg = last["Timing/sec_per_kimg"]
     print(f"loop {LOOP_RES}^2 batch {LOOP_BATCH}, one tick of {batches} "
           f"batches: {sec_per_kimg:.4f} s/kimg (the loop's Timing/"
-          f"sec_per_kimg; the train phase's schedule: "
-          f"{train_sec_per_kimg:.4f} s/kimg); waited {wait:.4f} s on the "
+          f"sec_per_kimg, the fast warp; the train phase's schedule: "
+          f"{train_sec_per_kimg:.4f} s/kimg; before the fast warp and the "
+          f"zip: {LOOP_SEC_PER_KIMG_BEFORE}); waited {wait:.4f} s on the "
           f"loader ({100 * wait / wall:.2f}% of the command's {wall:.2f} s); "
           f"the tick includes the first steps' warm-up; on {card}",
           flush=True)
@@ -2061,14 +2310,20 @@ def im2im_cli_run(tmp, snap, style, config, g_cfg, card, flags):
 
 def im2im_grads_check(params, card):
     """Pallas vs composed (TF32 off, CLIP fp32), on the same weights and
-    draws.  The offsets' gradient of one DiFa step (offsets 0.2 * N(0, 1)):
-    bound 2^-3 relative L2, as the adapt phase argues (the CLIP edit
-    between the halves multiplies the level's rounding).  It is taken at
-    step 0, where the SCC term weighs 0 and e4e's backward carries zeros:
-    with e4e's random weights its latents reach ~1e10, so which channels
-    the SCC loss keeps and the signs of its L1 follow the rounding of the
-    two paths; its gradient is held against JAX on the CPU
-    (tests/test_torch_im2im_difa.py).  Then one projector step without the
+    draws.  The offsets' gradient of one DiFa step (offsets 0.2 * N(0, 1)),
+    twice, each bound 2^-3 relative L2, as the adapt phase argues (the CLIP
+    edit between the halves multiplies the level's rounding):
+      - at step 0 with the phase's bf16 G, where the SCC term weighs 0;
+      - at the trainer's last step (iter_num), where SCC weighs its full
+        6.0, so e4e's forward and backward through both halves' images are
+        in the gradient, with G's levels in fp32 (num_fp16_res 0: the fused
+        level's fp32 route).  entry.im2im_entry rescales the random e4e's
+        convolutions, so its latents stay O(1).  SCC's L1 keeps the 60% of
+        channels with the smallest |trg - src| and takes their signs, which
+        the two routes' bf16 rounding (2^-5 of an image) flips: 0.2286 at
+        bf16 (H100 run, this check's first form); in fp32 the routes agree
+        to ~1e-6 and the signs with them.
+    Then one projector step without the
     noise penalty (which does not pass through G): the latent's gradient,
     bound 2^-4 as the fewshot phase's; and the noise buffers' gradients
     against the same step of an fp32 G (no bf16 levels, composed path).
@@ -2078,19 +2333,30 @@ def im2im_grads_check(params, card):
     buffers and at each fused level (a wrong d(noise) errs by O(100%))."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    grads, proj = {}, {}
+    grads, scc_grads, proj = {}, {}, {}
     for label, pallas in (("pallas", True), ("composed", False)):
         trainer = im2im_entry(DEVICE, batch=IM2IM_BATCH, pallas_level=pallas,
                               clip_dtype="float32", g_params=params)
         gen = torch.Generator().manual_seed(5)
         for t in leaves_of([trainer.offsets]):
             t.copy_(0.2 * torch.randn(t.shape, generator=gen))
-        fmc.fused_modconv3x3.launches = 0
-        losses, grads[label] = trainer.loss_and_grads(trainer.rng.fold_in(77))
-        torch.cuda.synchronize()
-        print(f"im2im gradient check, {label}: DiFa losses "
-              + ", ".join(f"{k} {float(v):.6f}" for k, v in losses.items())
-              + f", fused launches {fmc.fused_modconv3x3.launches}, on {card}")
+        for at, fp32, out in ((0, False, grads), (trainer.cfg.iter_num, True,
+                                                  scc_grads)):
+            if fp32:
+                trainer.g_cfg = dataclasses.replace(
+                    trainer.g_cfg, synthesis=dataclasses.replace(
+                        trainer.g_cfg.synthesis, num_fp16_res=0))
+            trainer.current_step = at
+            fmc.fused_modconv3x3.launches = 0
+            losses, out[label] = trainer.loss_and_grads(
+                trainer.rng.fold_in(77))
+            torch.cuda.synchronize()
+            print(f"im2im gradient check, {label}, step {at} "
+                  f"({'fp32' if fp32 else 'bf16'} G): DiFa losses "
+                  + ", ".join(f"{k} {float(v):.6f}" for k, v in
+                              losses.items())
+                  + f", fused launches {fmc.fused_modconv3x3.launches}, on "
+                  f"{card}")
         del trainer
         torch.cuda.empty_cache()
     lpips = detectors.make_default("vgg16_lpips", DEVICE)
@@ -2110,6 +2376,8 @@ def im2im_grads_check(params, card):
             on_step=lambda step, dist, g: proj.__setitem__(label, g))
     a, b = grads["pallas"], grads["composed"]
     err = rel_l2(a, b, list(a))
+    scc_err = rel_l2(scc_grads["pallas"], scc_grads["composed"],
+                     list(scc_grads["pallas"]))
     level = {k: rel_l2(a, b, [k]) for k in a
              if k.startswith(("b128.conv1", "b256.conv1"))}
     lat = rel_l2(proj["pallas"], proj["composed"], ["latent"])
@@ -2122,14 +2390,15 @@ def im2im_grads_check(params, card):
         to_fp32[name] = tuple(rel_l2(proj[p], proj["fp32"], keys)
                               for p in ("pallas", "composed"))
     print(f"pallas vs composed (TF32 off, CLIP fp32): DiFa offset gradients "
-          f"rel_l2 {err:.4g} (bound {2 ** -3:.4g})"
+          f"rel_l2 {err:.4g} at step 0, bf16 G, {scc_err:.4g} at SCC 6.0, "
+          f"fp32 G (bound {2 ** -3:.4g} each)"
           + "".join(f", {k} {v:.4g}" for k, v in level.items())
           + f"; projector step: latent gradient rel_l2 {lat:.4g} (bound "
           f"{2 ** -4:.4g}); noise gradients' rel_l2 to the fp32 G, pallas / "
           f"composed: " + ", ".join(f"{k} {p:.4g} / {c:.4g}" for k, (p, c)
                                     in to_fp32.items())
           + f" (bound: pallas <= 1.25 x composed), on {card}")
-    if not (err <= 2 ** -3 and lat <= 2 ** -4 and all(
+    if not (err <= 2 ** -3 and scc_err <= 2 ** -3 and lat <= 2 ** -4 and all(
             p <= 1.25 * c for p, c in to_fp32.values())):
         raise AssertionError("im2im: pallas and composed gradients disagree")
 
@@ -2778,9 +3047,8 @@ def restyle_timing(params, card):
                  1e3 * float(np.mean(secs)), ranges=("e4e_backbone",))
 
 
-# The iterations of restyle_pallas_check held to 2^(k - 5); the later ones
-# are printed with their growth.
-RESTYLE_HELD_ITERS = 3
+# The iterations of restyle_pallas_check held to 2^(k - 5): all of them.
+RESTYLE_HELD_ITERS = 5
 
 
 def restyle_pallas_check(params, card):
@@ -2790,11 +3058,11 @@ def restyle_pallas_check(params, card):
     level routes round differently, at most 2^-5 relative RMS in an image
     (main_phase's bound), and each iteration feeds its decode back into the
     encoder: with a loop that at most doubles what it is fed, iteration k
-    is within 2^(k - 5).  The random encoder's codes grow 2.2-2.4x an
-    iteration over the first three and 4x at the last (H100 runs), so
-    iterations 0 to RESTYLE_HELD_ITERS - 1 are held to it and the rest are
-    printed with the codes' growth, and must stay below 1 (unrelated
-    paths); a wrong kernel misses by O(1) at iteration 0."""
+    is within 2^(k - 5).  entry.restyle_entry scales the random heads by
+    RESTYLE_HEAD_SCALE so that the loop contracts (unscaled, the codes grew
+    2.2-4x an iteration), and every iteration is held to its bound; the
+    codes' growth is printed beside it.  A wrong kernel misses by O(1) at
+    iteration 0."""
     torch.backends.cudnn.allow_tf32 = False
     out = {}
     for label, pallas in (("pallas", True), ("composed", False)):
@@ -3195,6 +3463,166 @@ def latent_d_round(params, card):
         raise AssertionError("e4e latent D failed")
 
 
+def face_photo():
+    """The face phase's seeded 1024^2 "photo": 32^2 noise, Pillow-bicubic
+    upsampled (host-made, so the CPU route sees the same pixels)."""
+    rng = np.random.RandomState(0)
+    return resize_uint8(rng.randint(0, 256, (32, 32, 3)).astype(np.uint8),
+                        (FACE_RES, FACE_RES), "bicubic")
+
+
+def face_mtcnn(device):
+    """MTCNN with random weights from FACE_MTCNN_SEED, its regression heads
+    (P/R/O-Net box offsets, O-Net landmarks) scaled by 0.01 and O-Net's
+    landmark bias set to the reference 5-point layout in box coordinates:
+    at the init's scale the random offsets move boxes by whole box widths
+    and put landmarks thousands of pixels away (a quad of ~1e5 pixels), so
+    the alignment after them would pad the photo to ~6e4^2.  The
+    classification heads keep their random weights."""
+    net = face_mtcnn_lib.MTCNN(
+        generator=torch.Generator().manual_seed(FACE_MTCNN_SEED),
+        device=device)
+    for name, layer in (("pnet", "conv4_2"), ("rnet", "conv5_2"),
+                        ("onet", "conv6_2"), ("onet", "conv6_3")):
+        net.params[name][layer]["w"].mul_(0.01)
+    ref = face_align.get_reference_facial_points(default_square=True) / 112.0
+    net.params["onet"]["conv6_3"]["b"].copy_(torch.from_numpy(
+        np.concatenate([ref[:, 0], ref[:, 1]]).astype(np.float32)))
+    return net
+
+
+def face_g_config():
+    """The generator behind e4e: FFHQ-1024 with the fused level."""
+    return entry_config()
+
+
+def face_phase(card):
+    """A photo in front of e4e: the MTCNN cascade (seeded random weights,
+    see face_mtcnn) on the card and on the CPU, the FFHQ alignment to
+    1024^2 on the card (quad map at 4096^2 and Lanczos in torch) against
+    the host route, MTCNN.align to 112^2, and inference.project_e4e of the
+    aligned face (random e4e with rescaled convolutions, FFHQ-1024 G with
+    the fused level) against pallas_level=False.
+
+    Tolerances.  Detections: the same number of boxes, boxes and landmarks
+    within 2 px: both routes resize the pyramid and the crops to Pillow's
+    exact pixels and run the nets in fp32 (TF32 off), so their scores and
+    offsets differ by ~1e-6; a box coordinate can still round the other
+    way (np.round after stages 1 and 2: 1 px, carried into the landmarks).
+    Alignment: 1 level (the quad map and the Lanczos are the same float64
+    arithmetic on both devices; a sum that lands on a rounding boundary
+    can move a pixel by 1).  e4e + G: the main phase's bounds, 2^-5
+    relative RMS and 2^-3 of max|img|."""
+    phase("face")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    img = face_photo()
+    card_net, host_net = face_mtcnn(DEVICE), face_mtcnn("cpu")
+    card_net.detect_faces(img, thresholds=FACE_THRESHOLDS)     # warm-up
+    boxes, lms = card_net.detect_faces(img, thresholds=FACE_THRESHOLDS)
+    counts = dict(face_mtcnn_lib.STAGE_COUNTS)
+    card_s = dict(face_mtcnn_lib.STAGE_SECONDS)
+    hboxes, hlms = host_net.detect_faces(img, thresholds=FACE_THRESHOLDS)
+    host_s = dict(face_mtcnn_lib.STAGE_SECONDS)
+    print(f"MTCNN on a {FACE_RES}^2 photo, thresholds {FACE_THRESHOLDS}: "
+          f"boxes by stage {counts} (host route "
+          f"{dict(face_mtcnn_lib.STAGE_COUNTS)}); seconds by stage, card "
+          + ", ".join(f"{k} {v:.4f}" for k, v in card_s.items())
+          + "; host " + ", ".join(f"{k} {v:.4f}" for k, v in host_s.items())
+          + f"; on {card}", flush=True)
+    if len(boxes) == 0:
+        raise AssertionError("face: the cascade returned no box")
+    if len(hboxes) != len(boxes):
+        raise AssertionError(f"face: {len(boxes)} boxes on the card, "
+                             f"{len(hboxes)} on the host")
+    order = np.lexsort(np.round(boxes[:, :4]).T[::-1])
+    horder = np.lexsort(np.round(hboxes[:, :4]).T[::-1])
+    box_err = float(np.abs(boxes[order, :4] - hboxes[horder, :4]).max())
+    lm_err = float(np.abs(lms[order] - hlms[horder]).max())
+    print(f"card vs host detections: max |box| diff {box_err:.4g} px, max "
+          f"|landmark| diff {lm_err:.4g} px (bound 2)")
+    if not (box_err <= 2 and lm_err <= 2):
+        raise AssertionError("face: card and host detections disagree")
+
+    best = int(np.argmax(boxes[:, 4]))
+    pts = np.stack([lms[best][:5], lms[best][5:]], axis=1)
+    face_align.align_face_5p(img, pts, output_size=FACE_RES,
+                             transform_size=FACE_TRANSFORM,
+                             device=DEVICE)                   # warm-up
+    t0 = time.perf_counter()
+    face = face_align.align_face_auto(img, output_size=FACE_RES,
+                                      transform_size=FACE_TRANSFORM,
+                                      mtcnn=card_net, device=DEVICE)
+    auto_s = time.perf_counter() - t0
+    steps = dict(face_align.STEP_SECONDS)
+    host_face = face_align.align_face_5p(img, pts, output_size=FACE_RES,
+                                         transform_size=FACE_TRANSFORM,
+                                         device="cpu")
+    host_steps = dict(face_align.STEP_SECONDS)
+    diff = np.abs(face.astype(int) - host_face.astype(int))
+    print(f"align_face_auto to {FACE_RES}^2 (transform {FACE_TRANSFORM}): "
+          f"{auto_s:.3f} "
+          f"s on the card with detection; steps, card "
+          + ", ".join(f"{k} {v:.4f}" for k, v in steps.items())
+          + " s; host route " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                          host_steps.items())
+          + f" s; card vs host max diff {int(diff.max())} levels, "
+          f"{100 * float((diff > 0).mean()):.4f}% of values differ "
+          f"(bound 1); on {card}", flush=True)
+    if face.shape != (FACE_RES, FACE_RES, 3) or diff.max() > 1 \
+            or face.std() == 0:
+        raise AssertionError("face: card and host alignments disagree")
+    face112, tfm = card_net.align(img)
+    if face112 is None or face112.shape != (112, 112, 3):
+        raise AssertionError("face: MTCNN.align failed")
+    print(f"MTCNN.align: {face112.shape}, transform "
+          f"{np.round(tfm, 4).tolist()}")
+
+    e_cfg = enc_lib.EncoderConfig(stylegan_size=face_g_config().img_resolution)
+    e_params = enc_lib.init_encoder(torch.Generator().manual_seed(5), e_cfg,
+                                    DEVICE)
+    rescale_random_convs(e_params)
+    g_cfg = face_g_config()
+    g_params = sg2.init_generator(g_cfg, torch.Generator().manual_seed(0),
+                                  DEVICE)
+    z = torch.randn((4096, g_cfg.z_dim),
+                    generator=torch.Generator().manual_seed(2)).to(DEVICE)
+    with torch.no_grad():
+        w_avg = sg2.mapping_apply(g_cfg.mapping, g_params["mapping"], z,
+                                  broadcast=False).mean(dim=0)
+    avg = w_avg[None].repeat(g_cfg.num_ws, 1)
+    fmc.fused_modconv3x3.launches = 0
+    rec, ws = inference.project_e4e(face, e_cfg, e_params, g_cfg, g_params,
+                                    latent_avg=avg)
+    torch.cuda.synchronize()
+    launches = fmc.fused_modconv3x3.launches
+    plain = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
+        g_cfg.synthesis, pallas_level=False))
+    ref, ref_ws = inference.project_e4e(face, e_cfg, e_params, plain,
+                                        g_params, latent_avg=avg)
+    diff = (rec - ref).float()
+    rel_rms = float(diff.square().mean().sqrt() / ref.square().mean().sqrt())
+    max_err = float(diff.abs().max())
+    peak = float(ref.abs().max())
+    torch.backends.cudnn.allow_tf32 = True
+    ms = wall_ms(lambda: inference.project_e4e(
+        face, e_cfg, e_params, g_cfg, g_params, latent_avg=avg), 5)
+    print(f"project_e4e of the aligned face: {tuple(rec.shape)}, "
+          f"|w+| rms {float(ws.square().mean().sqrt()):.4g}, fused launches "
+          f"{launches} (expected {expected_launches(g_cfg, 1)}); vs "
+          f"pallas_level=False: rel_rms {rel_rms:.4g} (bound "
+          f"{2 ** -5:.4g}), max_abs_err {max_err:.4g} (bound "
+          f"{2 ** -3 * peak:.4g}); e4e + G {ms:.3f} ms a call (TF32 "
+          f"convolutions on); on {card}", flush=True)
+    if not (launches == expected_launches(g_cfg, 1)
+            and tuple(rec.shape) == (1, 3, FACE_RES, FACE_RES)
+            and bool(torch.isfinite(rec).all())
+            and torch.equal(ws, ref_ws)
+            and rel_rms <= 2 ** -5 and max_err <= 2 ** -3 * peak):
+        raise AssertionError("face: e4e reconstruction failed")
+    return launches
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -3204,6 +3632,8 @@ def main():
     del params
     torch.cuda.empty_cache()
     train_launches, seconds, peak_mem, sec_per_batch = train_phase(card)
+    torch.cuda.empty_cache()
+    warp_times = warp_phase(card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         snap, loop_launches, loop_sec_per_kimg = loop_phase(
@@ -3225,12 +3655,14 @@ def main():
         metrics_launches, ppl_launches = metrics_phase(tmp, snap, card)
         torch.cuda.empty_cache()
         inversion_launches, ii2s_needs = inversion_phase(tmp, card)
+        torch.cuda.empty_cache()
+    face_launches = face_phase(card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
                "remat": remat_launches, "adapt": adapt_launches,
                "fewshot": fewshot_launches, "im2im": im2im_launches,
                "ga": sum(ga_launches.values()), "metrics": metrics_launches,
-               "inversion": inversion_launches}
+               "inversion": inversion_launches, "face": face_launches}
     f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",
@@ -3259,7 +3691,10 @@ def main():
           f"{ {n: round(v, 4) for n, v in seconds.items()} }, peak GiB "
           f"{ {n: round(v / 2 ** 30, 3) for n, v in peak_mem.items()} }, "
           f"{sec_per_batch / TRAIN_BATCH * 1000:.4f} s/kimg; loop: "
-          f"{loop_sec_per_kimg:.4f} s/kimg; adapt: {adapt_rate:.4f} "
+          f"{loop_sec_per_kimg:.4f} s/kimg (PRs 4-10: "
+          f"{LOOP_SEC_PER_KIMG_BEFORE}); ADA pipe ms (fwd, fwd+bwd) "
+          f"{ {m: (round(v[0], 3), round(v[1], 3)) for m, v in warp_times.items()} }; "
+          f"adapt: {adapt_rate:.4f} "
           f"steps/s; fewshot: s/step "
           f"{ {n: round(v, 4) for n, v in fewshot_seconds.items()} }, peak "
           f"GiB { {n: round(v / 2 ** 30, 3) for n, v in fewshot_mem.items()} }, "

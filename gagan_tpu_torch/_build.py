@@ -1,10 +1,12 @@
-"""Build and bind the package's CUDA kernels (``csrc/*.cu``).
+"""Build and bind the package's CUDA kernels (``csrc/*.cu``) and its host
+library (``csrc/gagan_loader.cpp``, the dataset-zip loader).
 
-Each source is compiled at first use by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, under ``build/`` beside this file,
-named by a hash of the source so that an edited source is rebuilt.  The
-libraries are loaded with ``ctypes``.  All sources are compiled in parallel,
-one ``nvcc`` each.  Nothing is built when the package is imported.
+Each source is compiled at first use (``nvcc`` for ``sm_90a``; ``g++`` for
+the host library) into a shared library with a plain C interface, under
+``build/`` beside this file, named by a hash of the source and flags so that
+an edited source is rebuilt.  The libraries are loaded with ``ctypes``.  All
+CUDA sources are compiled in parallel, one ``nvcc`` each.  Nothing is built
+when the package is imported.
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ def _nvcc() -> str:
                        "$CUDA_HOME/bin); the CUDA kernels cannot be built")
 
 
-def _lib_path(src: str) -> str:
+def _lib_path(src: str, flags=NVCC_FLAGS) -> str:
     with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(f.read() + " ".join(flags).encode())
     name = os.path.splitext(os.path.basename(src))[0]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
@@ -83,4 +85,34 @@ def load(name: str) -> ctypes.CDLL:
             path = build_all([os.path.join(CSRC_DIR, name + ".cu")])[
                 name + ".cu"]
             _libs[name] = ctypes.CDLL(path)
+        return _libs[name]
+
+
+HOST_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+HOST_LIBS = ["-lz", "-pthread"]
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library built from ``csrc/<name>.cpp`` with ``g++``
+    (built if needed).  Raises with the compiler's output when it does not
+    build (e.g. no ``zlib.h``)."""
+    with _lock:
+        if name not in _libs:
+            src = os.path.join(CSRC_DIR, name + ".cpp")
+            lib = _lib_path(src, HOST_FLAGS + HOST_LIBS)
+            if not os.path.exists(lib):
+                cxx = shutil.which(os.environ.get("CXX", "g++"))
+                if cxx is None:
+                    raise RuntimeError(f"{name}: no C++ compiler (g++) on "
+                                       f"PATH to build {src}")
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{lib}.{os.getpid()}.tmp"
+                proc = subprocess.run(
+                    [cxx, *HOST_FLAGS, src, "-o", tmp, *HOST_LIBS],
+                    capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed to build {src} (it needs "
+                                       f"zlib.h and -lz):\n{proc.stderr}")
+                os.replace(tmp, lib)
+            _libs[name] = ctypes.CDLL(lib)
         return _libs[name]

@@ -8,7 +8,10 @@ flag, plus ``--device``.  :func:`build_run` turns a dataset's shape and the
 options into the run's G, D, train, augment and loop configs and the memory
 plan (accumulation rounds, remat), as the JAX command does; the generator
 routes its eligible levels to the fused kernel (``pallas_level=True``).
-The dataset is always an :class:`ImageFolderDataset` (folder or zip).
+A ``.zip`` is read by the C++ batch decoder (:class:`NativeZipDataset`)
+when its library builds and the zip's first image decodes, as the JAX
+command prefers it; otherwise, and for a folder, by
+:class:`ImageFolderDataset`.  The command prints which loader it took.
 
 ``--use-domain-modulation --domain-modulation-parametrization P`` trains an
 offsets tree of grammar P (few-shot domain adaptation, e.g.
@@ -29,6 +32,7 @@ import json
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..data import ImageFolderDataset
+from ..data import native_loader as nl
 from ..models import stylegan2 as sg2
 from ..train import augment as aug_lib
 from ..train import gan_loss
@@ -262,6 +266,26 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def open_dataset(data: str, **kw):
+    """The training data and a line saying which loader reads it: for a
+    ``.zip``, :class:`NativeZipDataset` when the native library builds and
+    opens the zip (GIL-free PNG decode threads), else
+    :class:`ImageFolderDataset`, as ``gagan_tpu/cli/train.py`` picks."""
+    why = ""
+    if data.endswith(".zip"):
+        if nl.native_available():
+            try:
+                return (nl.NativeZipDataset(data, **kw),
+                        f"Loader: NativeZipDataset (C++ batch decode) for "
+                        f"{data}")
+            except IOError as e:
+                why = f" (the native loader refused the zip: {e})"
+        else:
+            why = f" (the native loader did not build: {nl.build_error()})"
+    return (ImageFolderDataset(data, **kw),
+            f"Loader: ImageFolderDataset for {data}{why}")
+
+
 def main(argv: Optional[List[str]] = None):
     """Parse, configure, print the plan, then train (unless --dry-run).
     Returns the final train state, or None for a dry run."""
@@ -270,7 +294,7 @@ def main(argv: Optional[List[str]] = None):
     data, mirror, subset = args.pop("data"), args.pop("mirror"), args.pop(
         "subset")
     dry_run, device = args.pop("dry_run"), args.pop("device")
-    dataset = ImageFolderDataset(
+    dataset, loader_line = open_dataset(
         data, use_labels=args["cond"], xflip=mirror, max_size=subset,
         random_seed=args["seed"])
     try:
@@ -287,6 +311,7 @@ def main(argv: Optional[List[str]] = None):
     if dry_run:
         print("Dry run; exiting.")
         return None
+    print(loader_line)
     return loop_lib.training_loop(
         run.loop_cfg, run.train_cfg, run.g_cfg, run.d_cfg, dataset,
         augment_cfg=run.augment_cfg, parametrization=run.parametrization,

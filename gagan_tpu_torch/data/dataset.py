@@ -66,7 +66,12 @@ def read_rgb(fname: str) -> np.ndarray:
     the port's reader (gray repeated, alpha dropped), a palette PNG or any
     other format by Pillow."""
     with open(fname, "rb") as f:
-        data = f.read()
+        return decode_rgb(f.read(), fname)
+
+
+def decode_rgb(data: bytes, fname: str = "<bytes>") -> np.ndarray:
+    """:func:`read_rgb` of an image file's bytes; ``fname`` names it in an
+    error."""
     # Byte 25 is the PNG's colour type (3: palette).
     if data[:8] == PNG_SIGNATURE and len(data) > 25 and data[25] != 3:
         img = read_png(data)

@@ -245,7 +245,9 @@ def im2im_entry(device="cuda", batch: int = 4, pallas_level: bool = True,
     loss (weight 6.0) on e4e latents, a random 1024^2 style image
     (``RandomState(11)``) and no style latents, random CLIP towers (seed 0),
     random unit domain embeddings (``torch.Generator`` seed 10 + i), a
-    random e4e (seed 5), the trainer's draws from ``Rng(3)`` and a random
+    random e4e (seed 5, convolutions rescaled by
+    :func:`rescale_random_convs`: unscaled, its latents reach ~1e10), the
+    trainer's draws from ``Rng(3)`` and a random
     generator (seed 0) unless ``g_params`` is given.  On CUDA: G is
     :func:`entry_config` (``pallas_level``), the towers ViT-B, e4e IR-SE-50
     with 18 style heads; on the CPU: :data:`TINY_G`, :data:`TINY_CLIP` and
@@ -272,6 +274,7 @@ def im2im_entry(device="cuda", batch: int = 4, pallas_level: bool = True,
     e_cfg = enc_lib.EncoderConfig(stylegan_size=res)
     e_params = enc_lib.init_encoder(torch.Generator().manual_seed(5), e_cfg,
                                     device)
+    rescale_random_convs(e_params)
     cfg = ad.AdaptationConfig(
         trainer="im2im_difa", batch_size=batch, iter_num=301,
         parametrization="s_delta", clip_layer=1 if tiny else 8,
@@ -340,6 +343,22 @@ TINY_RESTYLE_G = sg2.GeneratorConfig(
     synthesis=sg2.SynthesisConfig(channel_base=1024, channel_max=64))
 
 
+# The random ReStyle heads' linear weights are multiplied by this: with the
+# convolutions rescaled alone, the codes' change grew 2.2-2.4x an iteration
+# (3.8 -> 183 over 5, H100 runs); the head is linear and bias-free at init,
+# so the factor scales each iteration's change and the loop's gain with it.
+RESTYLE_HEAD_SCALE = 0.02
+
+
+def rescale_random_convs(params) -> None:
+    """Multiply, in place, each 4-D convolution weight of a random encoder
+    (drawn at std 0.05, ``enc._init_conv``) so that its std is
+    1/sqrt(fan-in): unit gain a layer instead of ~0.05 * sqrt(fan-in)."""
+    for w in ckpt_lib.tree_to_flat_tensors(params).values():
+        if w.ndim == 4:
+            w.mul_(1.0 / (0.05 * np.sqrt(w[0].numel())))
+
+
 def restyle_entry(device="cuda", encoder_type: str = "ProgressiveBackboneEncoder",
                   batch: int = 4, pallas_level: bool = True,
                   tiny: bool = False, g_params=None):
@@ -347,9 +366,11 @@ def restyle_entry(device="cuda", encoder_type: str = "ProgressiveBackboneEncoder
     random generator (seed 0) unless ``g_params`` is given, and [batch, 3,
     256, 256] inputs uniform in [-1, 1] (seed 3).  The encoder is random
     (``torch.Generator`` seed 1, 6-channel input) with each convolution
-    rescaled to std 1/sqrt(fan-in): at the init's 0.05 the codes pass 1e20
-    and G's demodulation overflows; rescaled they stay O(1-100) over 5
-    iterations.  ``latent_avg`` is the mapping's mean w over 4096 latents
+    rescaled by :func:`rescale_random_convs` (at the init's 0.05 the codes
+    pass 1e20 and G's demodulation overflows) and each style head's linear
+    weight by :data:`RESTYLE_HEAD_SCALE`, so that the decode-to-encoder
+    loop contracts: an iteration's change of the codes stays a small
+    fraction of ``latent_avg`` over 5 iterations.  ``latent_avg`` is the mapping's mean w over 4096 latents
     (seed 2), on every layer.  G is
     :func:`entry_config` (FFHQ-1024, 18 W+ layers, ``pallas_level``), or
     :data:`TINY_RESTYLE_G` with ``tiny``.  Raises without CUDA unless
@@ -363,9 +384,9 @@ def restyle_entry(device="cuda", encoder_type: str = "ProgressiveBackboneEncoder
                                              stylegan_size=g_cfg.img_resolution)
     e_params = restyle_lib.init_restyle_encoder(
         torch.Generator().manual_seed(1), e_cfg, device)
-    for w in ckpt_lib.tree_to_flat_tensors(e_params).values():
-        if w.ndim == 4:
-            w.mul_(1.0 / (0.05 * np.sqrt(w[0].numel())))
+    rescale_random_convs(e_params)
+    for head in e_params["styles"].values():
+        head["linear"]["weight"].mul_(RESTYLE_HEAD_SCALE)
     z = torch.randn((4096, g_cfg.z_dim),
                     generator=torch.Generator().manual_seed(2)).to(device)
     with torch.no_grad():

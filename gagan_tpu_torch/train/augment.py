@@ -7,10 +7,15 @@ resample and a 2x wavelet downsample.  Color transforms compose into one
 4x4 matrix; then image-space filtering, additive noise and cutout.  All
 probability gating is ``torch.where`` over per-sample draws.
 
-The port runs eagerly, so the geometric step is always the JAX module's
-eager exact branch (its data-dependent margin is read to the host: one
-sync per call).  ``geom_mode="fast"`` (the TPU's gather-free warp,
-train/warp.py) is not ported and raises.
+The geometric step runs one of the JAX module's two branches, chosen by
+``geom_mode``: "exact" is its eager pyramid (the data-dependent margin is
+read to the host: one sync per call); "fast" is the native-resolution warp
+of train/warp.py behind a static reflect margin (``jit_margin_divisor``),
+which the JAX package runs whenever the pipe is traced.  "auto" resolves as
+the JAX module resolves it: the train step, the loop and ``cli/train.py``
+take the pipe through :func:`make_augment_fn`, which stands where JAX jits
+it and so resolves "auto" to "fast"; a direct call of :func:`augment_pipe`
+is eager and resolves "auto" to "exact".
 
 Every draw comes from the caller's key (utils/rng.py), split into 32 keys
 and taken in the JAX module's order, so a test can inject JAX's draws.  The
@@ -34,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from .warp import affine_warp
 
 # Wavelet low-pass coefficients.
 WAVELETS = {
@@ -82,13 +88,14 @@ class AugmentConfig:
     cutout: float = 0.0
     noise_std: float = 0.1
     cutout_size: float = 0.5
-    # The JAX package's static margin of its jit-only fast warp; kept so
-    # configs round-trip, unused by the port.
+    # The fast warp's static reflect margin: width // jit_margin_divisor.
     jit_margin_divisor: int = 4
     # Reduced-precision image dtype for the pipe ("bfloat16") or None.
     compute_dtype: Optional[str] = None
-    # "auto" and "exact": the exact pyramid (the port is eager); "fast"
-    # (the TPU's gather-free warp) is not ported.
+    # "exact": the 2x-pyramid grid sample; "fast": the native-resolution
+    # warp (train/warp.py) behind a static margin, zeros past it; "auto":
+    # "fast" in the train step (make_augment_fn), "exact" in a direct call
+    # of augment_pipe, as the JAX module under jit and eagerly.
     geom_mode: str = "auto"
 
 
@@ -256,10 +263,8 @@ def augment_pipe(cfg: AugmentConfig, images: torch.Tensor, p, key,
     """Apply the ADA pipe to images [N, C, H, W] with overall probability
     ``p``; ``key`` is an :class:`~gagan_tpu_torch.utils.rng.Rng` (or any
     object with its methods).  Differentiable in ``images`` to any order."""
-    if cfg.geom_mode == "fast":
-        raise NotImplementedError(
-            "geom_mode='fast' (the TPU's gather-free warp, train/warp.py) is "
-            "not ported; use 'auto' or 'exact'")
+    if cfg.geom_mode not in ("auto", "exact", "fast"):
+        raise ValueError(f"geom_mode {cfg.geom_mode!r}: auto, exact or fast")
     batch, channels, height, width = images.shape
     dev = images.device
     in_dtype = images.dtype
@@ -353,8 +358,19 @@ def augment_pipe(cfg: AugmentConfig, images: torch.Tensor, p, key,
         g_inv = g_inv @ translate2d_inv(t[:, 0] * width, t[:, 1] * height,
                                         b, dev)
 
-    # ----- Execute geometric transformations: the exact pyramid -----
-    if geometric:
+    # ----- Execute geometric transformations -----
+    if geometric and cfg.geom_mode == "fast":
+        # The native-resolution warp behind a static reflect margin: zeros
+        # where an extreme draw reaches past it (the exact branch reflects
+        # by a data-dependent margin instead).
+        sx = min(width // cfg.jit_margin_divisor, width - 1)
+        sy = min(height // cfg.jit_margin_divisor, height - 1)
+        images = F.pad(images, (sx, sx, sy, sy), mode="reflect")
+        g_n = (scale2d(2 / images.shape[3], 2 / images.shape[2], (), dev)
+               @ g_inv @ scale2d_inv(2 / width, 2 / height, (), dev))
+        images = affine_warp(images, g_n[:, :2, :], height, width,
+                             antialias=True)
+    elif geometric:
         hz_geom = setup_filter(_HZ_GEOM_TAPS, device=dev)
         cx = (width - 1) / 2
         cy = (height - 1) / 2
@@ -509,7 +525,12 @@ def augment_pipe(cfg: AugmentConfig, images: torch.Tensor, p, key,
 
 
 def make_augment_fn(cfg: AugmentConfig):
-    """Adapter to the trainer's augment signature (img, p, key) -> img."""
+    """Adapter to the trainer's augment signature (img, p, key) -> img.
+
+    This is the train step's pipe, which the JAX package jits, so "auto"
+    resolves to "fast" here (a direct augment_pipe call keeps "exact")."""
+    if cfg.geom_mode == "auto":
+        cfg = dataclasses.replace(cfg, geom_mode="fast")
 
     def fn(images, p, key):
         return augment_pipe(cfg, images, p, key)

@@ -14,8 +14,12 @@ With a ``parametrization`` (few-shot domain adaptation, ``cli/train.py
 an ``adaptation-NNNNNN.npz`` of the offsets' EMA.  As in the JAX loop, the
 snapshot grid is drawn from G_ema without the offsets.
 
+A :class:`~gagan_tpu_torch.data.native_loader.NativeZipDataset` is read
+by its C++ batch decoder (``native_data_loader``), any other dataset by the
+threaded ``data_loader``, as in the JAX loop.
+
 Not ported yet, each raising ``NotImplementedError``: more than one device
-and spatial sharding (ROADMAP item 10), and the native zip loader (item 15).
+and spatial sharding (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..data import native_loader as nl
 from ..data.dataset import data_loader
 from ..models import stylegan2 as sg2
 from ..params import offsets as offs_lib
@@ -97,11 +102,6 @@ def _refuse(loop_cfg, dataset, spatial_shard_min_res):
         raise NotImplementedError(
             "the port trains on one card: n_devices other than 1 and "
             "spatial_shard_min_res are not ported yet (ROADMAP item 10)")
-    if type(dataset).__name__ == "NativeZipDataset":
-        raise NotImplementedError(
-            "NativeZipDataset is not ported yet (ROADMAP item 15); use "
-            "ImageFolderDataset, which reads the same images in the same "
-            "order")
 
 
 def training_loop(
@@ -190,8 +190,13 @@ def training_loop(
     if device.type == "cuda":
         def pin(batch):
             return tuple(torch.from_numpy(a).pin_memory() for a in batch)
-    loader = data_loader(dataset, train_cfg.batch_size,
-                         seed=loop_cfg.random_seed, to_device=pin)
+    if isinstance(dataset, nl.NativeZipDataset):
+        loader = nl.native_data_loader(dataset, train_cfg.batch_size,
+                                       seed=loop_cfg.random_seed,
+                                       to_device=pin)
+    else:
+        loader = data_loader(dataset, train_cfg.batch_size,
+                             seed=loop_cfg.random_seed, to_device=pin)
 
     # Snapshot grid latents.
     grid_n = loop_cfg.grid_size[0] * loop_cfg.grid_size[1]

@@ -60,7 +60,8 @@ def _images(seed=0, n=4, res=32):
 def _run_both(spec, p, seed=0, **cfg_kw):
     jcfg = dataclasses.replace(jaug.make_config(spec), geom_mode="exact",
                                **cfg_kw)
-    tcfg = dataclasses.replace(taug.make_config(spec), **cfg_kw)
+    tcfg = dataclasses.replace(taug.make_config(spec), geom_mode="exact",
+                               **cfg_kw)
     img = _images(seed)
     key = jax.random.PRNGKey(seed + 10)
     dt = jnp.bfloat16 if cfg_kw.get("compute_dtype") else jnp.float32
@@ -109,7 +110,7 @@ def test_augment_bf16_matches_jax():
                                     ("cutout", 0.4)])
 def test_debug_percentile_matches_jax(spec, q):
     img = _images(5)
-    cfg = taug.make_config(spec)
+    cfg = dataclasses.replace(taug.make_config(spec), geom_mode="exact")
     jcfg = dataclasses.replace(jaug.make_config(spec), geom_mode="exact")
     key = jax.random.PRNGKey(2)
     want = jaug.augment_pipe(jcfg, jnp.asarray(img), 1.0, key,
@@ -128,7 +129,7 @@ def test_augment_gradients_match_jax(spec):
     wts = np.random.RandomState(8).randn(*img.shape).astype(np.float32)
     key = jax.random.PRNGKey(9)
     jcfg = dataclasses.replace(jaug.make_config(spec), geom_mode="exact")
-    tcfg = taug.make_config(spec)
+    tcfg = dataclasses.replace(taug.make_config(spec), geom_mode="exact")
 
     def jf(x):
         return jnp.sum(wts * jaug.augment_pipe(jcfg, x, 1.0, key) ** 2)
@@ -166,13 +167,27 @@ def test_torch_rng_is_a_key_tree():
 
 
 def test_default_pipe_runs_and_fast_mode_raises():
+    """The default pipe runs; "fast" now runs too (it raised before the
+    warp was ported), and an unknown mode raises.  "auto" is "exact" in a
+    direct call and "fast" through make_augment_fn (the train step's)."""
     img = torch.from_numpy(_images(11))
     out = taug.augment_pipe(taug.make_config("bgcfnc"), img, 0.7,
                             trng.Rng(0))
     assert out.shape == img.shape and bool(torch.isfinite(out).all())
     cfg = dataclasses.replace(taug.make_config("bg"), geom_mode="fast")
-    with pytest.raises(NotImplementedError, match="fast"):
-        taug.augment_pipe(cfg, img, 0.5, trng.Rng(0))
+    fast = taug.augment_pipe(cfg, img, 0.5, trng.Rng(0))
+    assert fast.shape == img.shape and bool(torch.isfinite(fast).all())
+    auto = taug.make_config("bg")
+    torch.testing.assert_close(
+        taug.make_augment_fn(auto)(img, 0.5, trng.Rng(0)), fast,
+        rtol=0, atol=0)
+    exact = dataclasses.replace(auto, geom_mode="exact")
+    torch.testing.assert_close(
+        taug.augment_pipe(auto, img, 0.5, trng.Rng(0)),
+        taug.augment_pipe(exact, img, 0.5, trng.Rng(0)), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="geom_mode"):
+        taug.augment_pipe(dataclasses.replace(auto, geom_mode="warp"), img,
+                          0.5, trng.Rng(0))
 
 
 def test_filter_bank_matches_jax():

@@ -490,7 +490,7 @@ def test_inversion_phase_drives_the_full_size_path():
     assert (cs.RESTYLE_ITERS, cs.RESTYLE_BATCH, cs.II2S_STEPS, cs.II2S_PCA,
             cs.POOL_SIZE, cs.D_STEPS) == (5, 4, 20, 100_000, 50, 3)
     assert cs.II2S_NEEDS == (True, False, True, True, False, False)
-    assert cs.RESTYLE_HELD_ITERS == 3
+    assert cs.RESTYLE_HELD_ITERS == 5
 
 
 def test_sass_hot_loop_counts_the_innermost_loop_with_most_ffma():
@@ -521,3 +521,53 @@ def test_sass_hot_loop_counts_the_innermost_loop_with_most_ffma():
     n, loop = cs.sass_hot_loop(sass, "modconv_fp32_kernel")
     assert n == 11
     assert loop == {"LDS": 1, "FFMA": 2, "BRA": 1}
+
+
+# ----------------------------------------------------------------------------
+# The warp and face phases' control flow
+
+
+def test_warp_phase_runs_on_cpu(monkeypatch):
+    """The warp phase on the CPU at 64^2, batch 2: both geometry modes
+    timed, then the card-vs-CPU check with the CPU on both sides."""
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    for fn in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: 0)
+    for name, value in (("DEVICE", "cpu"), ("TRAIN_BATCH", 2),
+                        ("WARP_RES", 64), ("WARP_ITERS", 1)):
+        monkeypatch.setattr(cs, name, value)
+    out = cs.warp_phase("cpu")
+    assert set(out) == {"fast", "exact"}
+    assert all(v[0] > 0 and v[1] > 0 for v in out.values())
+
+
+def test_face_phase_runs_on_cpu(monkeypatch):
+    """The face phase on the CPU: the 1024^2 photo's cascade (the CPU on
+    both sides), the alignment at 1024 from a 2048 transform, MTCNN.align
+    and e4e in front of a narrow 1024^2 generator.  No CUDA kernels here:
+    0 launches expected."""
+    from gagan_tpu_torch.models import stylegan2 as sg2
+
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "face_g_config", lambda: sg2.GeneratorConfig(
+        img_resolution=1024, mapping=sg2.MappingConfig(num_layers=2),
+        synthesis=sg2.SynthesisConfig(channel_base=8192, channel_max=8,
+                                      pallas_level=True)))
+    for name, value in (("DEVICE", "cpu"), ("FACE_TRANSFORM", 2048)):
+        monkeypatch.setattr(cs, name, value)
+    assert cs.face_phase("cpu") == 0
+
+
+def test_face_and_warp_phases_drive_the_full_size_path():
+    """On the card: a 1024^2 photo aligned through a 4096^2 quad map, e4e
+    in front of the FFHQ-1024 generator with the fused level (2 launches);
+    the ADA pipe at the train phase's batch and 1024^2."""
+    g = cs.face_g_config()
+    assert g.img_resolution == 1024 and g.synthesis.pallas_level
+    assert cs.expected_launches(g, 1) == 2
+    assert (cs.FACE_RES, cs.FACE_TRANSFORM) == (1024, 4096)
+    assert cs.FACE_THRESHOLDS == (0.15, 0.25, 0.35)
+    assert (cs.WARP_RES, cs.TRAIN_BATCH) == (1024, 32)

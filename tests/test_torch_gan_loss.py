@@ -77,7 +77,7 @@ def tiny_batch(seed=0, n=BATCH):
 def augment_fns():
     jcfg = dataclasses.replace(jaug.make_config("bgc"), geom_mode="exact")
     return jaug.make_augment_fn(jcfg), taug.make_augment_fn(
-        taug.make_config("bgc"))
+        dataclasses.replace(taug.make_config("bgc"), geom_mode="exact"))
 
 
 def torch_leaves(flat):

@@ -82,7 +82,12 @@ def test_port_imports_with_jax_blocked():
             "gagan_tpu_torch.inversion.e4e_training, gagan_tpu_torch.editing, "
             "gagan_tpu_torch.editing.interfacegan, "
             "gagan_tpu_torch.editing.stylespace, "
-            "gagan_tpu_torch.editing.styleflow\n"
+            "gagan_tpu_torch.editing.styleflow, gagan_tpu_torch.train.warp, "
+            "gagan_tpu_torch.face, gagan_tpu_torch.face.align, "
+            "gagan_tpu_torch.face.mtcnn, gagan_tpu_torch.data.style_dataset, "
+            "gagan_tpu_torch.data.lmdb_reader, "
+            "gagan_tpu_torch.data.dataset_tool, "
+            "gagan_tpu_torch.data.native_loader\n"
             "assert 'triton' not in sys.modules\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
@@ -102,28 +107,79 @@ def _port_modules():
     return mods
 
 
-def test_port_imports_with_pil_and_click_blocked():
-    """The card's machine has neither Pillow nor click: every module of the
-    port imports without them (and without JAX)."""
+def test_port_imports_with_pil_and_click_blocked(tmp_path):
+    """The card's machine has neither Pillow, cv2, click nor lmdb: every
+    module of the port imports without them (and without JAX), and the
+    real-image paths run with them blocked, on the CPU: the random MTCNN
+    cascade, align_face_auto (from fixed landmarks: random nets give
+    degenerate ones), the cv2-free warp-crop, ImagesDataset on a PNG and
+    the dataset tool on a PNG folder."""
     mods = _port_modules()
     assert {"gagan_tpu_torch.train.loop", "gagan_tpu_torch.cli.train",
             "gagan_tpu_torch.cli.style_mixing", "gagan_tpu_torch.data.dataset",
             "gagan_tpu_torch.utils.png", "gagan_tpu_torch.utils.stats",
             "gagan_tpu_torch.utils.observability",
-            "gagan_tpu_torch.utils.registry"} <= set(mods)
+            "gagan_tpu_torch.utils.registry", "gagan_tpu_torch.train.warp",
+            "gagan_tpu_torch.face", "gagan_tpu_torch.face.align",
+            "gagan_tpu_torch.face.mtcnn", "gagan_tpu_torch.data.style_dataset",
+            "gagan_tpu_torch.data.lmdb_reader",
+            "gagan_tpu_torch.data.dataset_tool",
+            "gagan_tpu_torch.data.native_loader"} <= set(mods)
+    rng = np.random.RandomState(1)
+    src = tmp_path / "src"
+    src.mkdir()
+    from gagan_tpu_torch.utils.png import write_png
+    for i in range(2):
+        img = np.repeat(np.repeat(rng.randint(0, 256, (12, 12, 3)), 8, 0),
+                        8, 1).astype(np.uint8)
+        write_png(str(src / f"im{i}.png"), img, filter_type=4)
     code = ("import importlib, sys\n"
-            "for m in ('PIL', 'click', 'jax', 'gagan_tpu'):\n"
+            "for m in ('PIL', 'click', 'cv2', 'lmdb', 'jax', 'gagan_tpu'):\n"
             "    sys.modules[m] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import chip_smoke\n"
             "assert 'triton' not in sys.modules\n"
+            "import numpy as np\n"
+            "from gagan_tpu_torch.face import align, mtcnn\n"
+            "from gagan_tpu_torch.data import dataset_tool, style_dataset\n"
+            "from gagan_tpu_torch.data.dataset import read_rgb\n"
+            f"img = read_rgb({str(src / 'im0.png')!r})\n"
+            "net = mtcnn.MTCNN(device='cpu')\n"
+            "boxes, lms = net.detect_faces(img)\n"
+            "lm = np.array([[30., 40.], [60., 40.], [45., 55.], [34., 70.],"
+            " [58., 70.]])\n"
+            "face = align.align_face_5p(img, lm, output_size=32,"
+            " transform_size=64, device='cpu')\n"
+            "assert face.shape == (32, 32, 3)\n"
+            "class Fixed:\n"
+            "    def detect_faces(self, image):\n"
+            "        return (np.array([[20., 30., 70., 80., 0.9]]),"
+            " np.concatenate([lm[:, 0], lm[:, 1]])[None])\n"
+            "out = align.align_face_auto(img, output_size=32,"
+            " transform_size=64, mtcnn=Fixed(), device='cpu')\n"
+            "assert out.shape == (32, 32, 3)\n"
+            "crop, _ = align.warp_and_crop_face(img, lm, net.reference,"
+            " (112, 112))\n"
+            "assert crop.shape == (112, 112, 3)\n"
+            f"ds = style_dataset.ImagesDataset(64, {str(src)!r})\n"
+            "assert ds[1]['image_low_res'].shape == (256, 256, 3)\n"
+            f"dataset_tool.main(['--source', {str(src)!r}, '--dest',"
+            f" {str(tmp_path / 'out.zip')!r}, '--width', '32',"
+            " '--height', '32'])\n"
+            "assert 'PIL' not in [k for k, v in sys.modules.items()"
+            " if v is not None]\n"
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+    import zipfile
+    with zipfile.ZipFile(tmp_path / "out.zip") as z:
+        assert sorted(z.namelist()) == ["00000/img00000000.png",
+                                        "00000/img00000001.png",
+                                        "dataset.json"]
 
 
 def test_adaptation_runs_without_yaml_regex_or_ftfy(tmp_path):

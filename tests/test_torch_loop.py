@@ -166,7 +166,8 @@ def _loop_parity(data_dir, jax_snapshot, tmp_path, parametrization=None,
     state = tloop.training_loop(
         _loop_cfg(tloop, tdir, resume_from=path), ttrain, tg,
         td, ImageFolderDataset(data_dir),
-        augment_cfg=taug.make_config("bgc"), device="cpu",
+        augment_cfg=dataclasses.replace(taug.make_config("bgc"),
+                                        geom_mode="exact"), device="cpu",
         rng=JaxRng(jax.random.PRNGKey(5)), parametrization=parametrization,
         weight_parts=parts)
 
@@ -300,18 +301,38 @@ def test_loop_resumes_and_aborts(data_dir, jax_snapshot, tmp_path):
 
 @pytest.mark.parametrize("kw,match", [
     ({"spatial_shard_min_res": 64}, "item 10"),
-    ({"n_devices": 2}, "item 10"),
-    ({"native": True}, "item 15")])
+    ({"n_devices": 2}, "item 10")])
 def test_loop_refuses_unported_options(kw, match, data_dir, tmp_path):
     tg, td = _cfgs(tsg)
     dataset = ImageFolderDataset(data_dir)
-    if kw.pop("native", False):
-        dataset = type("NativeZipDataset", (), {})()
     loop_kw = {"n_devices": kw.pop("n_devices")} if "n_devices" in kw else {}
     with pytest.raises(NotImplementedError, match=match):
         tloop.training_loop(_loop_cfg(tloop, str(tmp_path), **loop_kw),
                             _train_cfg(tts, tgl), tg, td, dataset,
                             device="cpu", **kw)
+
+
+def test_loop_reads_a_native_zip_as_the_folder_reader(data_dir, tmp_path):
+    """A NativeZipDataset (the C++ batch decoder) trains the loop to the
+    same state as an ImageFolderDataset of the same zip: the same images in
+    the same order.  Skips where the library does not build."""
+    from gagan_tpu_torch.data import dataset_tool, native_loader
+
+    if not native_loader.native_available():
+        pytest.skip(f"native loader: {native_loader.build_error()}")
+    data = str(tmp_path / "data.zip")
+    dataset_tool.convert_dataset(data_dir, data)
+    tg, td = _cfgs(tsg)
+    states = []
+    for name, ds in (("native", native_loader.NativeZipDataset(data)),
+                     ("folder", ImageFolderDataset(data))):
+        states.append(tloop.training_loop(
+            _loop_cfg(tloop, str(tmp_path / name), total_kimg=0.004,
+                      image_snapshot_ticks=None, network_snapshot_ticks=None),
+            _train_cfg(tts, tgl), tg, td, ds, device="cpu"))
+    a, b = (tck.tree_to_flat_tensors(s.g_params) for s in states)
+    assert states[0].cur_nimg == states[1].cur_nimg > 0
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_loop_refuses_cpu_fallback(data_dir, tmp_path):

@@ -128,3 +128,38 @@ def test_png_rejects_what_it_cannot_read(tmp_path):
         png.read_png(bytes(data))
     with pytest.raises(ValueError, match="uint8"):
         png.write_png(str(tmp_path / "x.png"), np.zeros((4, 4, 3), np.float32))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_many_average_and_paeth_rows_take_the_diagonal_sweep(channels,
+                                                             monkeypatch):
+    """An image whose rows mix all five filter types, most of them Average
+    and Paeth, and Pillow's own adaptive encoding of a smooth image: the
+    pixels written, as Pillow reads them, by the diagonal sweep (its
+    threshold set to 0 at this small size) and by the row loop."""
+    rng = np.random.RandomState(channels)
+    h, w = 96, 80
+    img = rng.randint(0, 256, (h, w, channels)).astype(np.uint8)
+    types = rng.choice([0, 1, 2, 3, 4], size=h, p=[0.1, 0.1, 0.1, 0.3, 0.4])
+    rows = np.stack([png._filter(img[y:y + 1] if y == 0 else img[y - 1:y + 1],
+                                 int(t))[-1] for y, t in enumerate(types)])
+    raw = np.concatenate([types.astype(np.uint8)[:, None], rows], axis=1)
+    colour = {1: 0, 3: 2, 4: 6}[channels]
+    data = (png.SIGNATURE
+            + png._chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour,
+                                              0, 0, 0))
+            + png._chunk(b"IDAT", zlib.compress(raw.tobytes()))
+            + png._chunk(b"IEND", b""))
+    want = np.asarray(PIL.Image.open(io.BytesIO(data)))
+    loop = png.read_png(data)
+    monkeypatch.setattr(png, "_SWEEP_BYTES_PER_DIAGONAL", 0)
+    got = png.read_png(data)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(loop, want)
+    np.testing.assert_array_equal(got.reshape(h, w, channels), img)
+    smooth = np.asarray(PIL.Image.fromarray(img[:12, :12, :3] if channels > 1
+                                            else img[:12, :12, 0])
+                        .resize((256, 256), PIL.Image.BICUBIC))
+    buf = io.BytesIO()
+    PIL.Image.fromarray(smooth).save(buf, format="png", compress_level=0)
+    np.testing.assert_array_equal(png.read_png(buf.getvalue()), smooth)
