@@ -139,6 +139,22 @@ no ok line):
                MTCNN.align to 112^2, and inference.project_e4e of the
                aligned face (2 fused launches) against the composed level;
                the time of each step;
+     state   - (after train) save_train_state / load_train_state of the
+               train phase's state (G, D, G_ema, both Adam states, ADA):
+               every leaf bit-equal, the bytes on disk, the save and load
+               seconds; one step from the restored state against two from
+               the original (deterministic algorithms);
+     tail    - (after state) the FFHQ-1024 forward with packed_tail_blocks
+               1, 2 and 3, with the fused torgb and without, and an "orig"
+               G, each against the unpacked composed forward, with its
+               fused launches and ms at batch 32; a "none" train step with
+               packed_tail_blocks 2;
+     examples - (after face) the five examples at FFHQ-1024 on a seeded
+               snapshot and two adaptation checkpoints: PNGs, fused
+               launches, wall time, against the pallas_level=False run;
+     zoo     - make_generator of stylegan2, proggan, sn_anime, sn_mnist and
+               biggan (BigGAN-PyTorch's 128^2 widths) at batch 8: forward,
+               gen_shifted, images/s, the card against the CPU at batch 1;
  17. a JSON line of the kernels, then the JSON ok line.
 Imports nothing of JAX or the JAX package.
 """
@@ -182,10 +198,13 @@ from gagan_tpu_torch.cli import convert_weights  # noqa: E402
 from gagan_tpu_torch.data.dataset import read_rgb  # noqa: E402
 from gagan_tpu_torch.editing import styleflow  # noqa: E402
 from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
-                                   adapt_entry, entry, entry_config,
-                                   fewshot_entry, ga_entry, im2im_entry,
-                                   rescale_random_convs, restyle_entry,
-                                   train_configs, train_entry, train_run)
+                                   ZOO_MODELS, adapt_entry, entry,
+                                   entry_config, examples_config,
+                                   examples_entry, fewshot_entry, ga_entry,
+                                   im2im_entry, rescale_random_convs,
+                                   restyle_entry, train_configs, train_entry,
+                                   train_run, zoo_entry)
+from gagan_tpu_torch.examples import numpy_latents  # noqa: E402
 from gagan_tpu_torch.ga import evaluation as ga_eval  # noqa: E402
 from gagan_tpu_torch.ga import search as ga_search  # noqa: E402
 from gagan_tpu_torch.inversion import e4e_training, ii2s  # noqa: E402
@@ -273,6 +292,13 @@ METRICS, METRICS_BATCH, METRICS_SAMPLES = ("fid1k", "kid1k"), 32, 256
 # ppl2_wend's per-sample distances, kernel against composed fp32 path, at
 # this many samples.
 PPL_CHECK_SAMPLES = 64
+# The state phase saves the train phase's state as this step.  The tail
+# phase runs the FFHQ-1024 forward with these packed_tail_blocks, and one
+# train step with TAIL_TRAIN.  The examples run at EXAMPLES_RES^2; the zoo
+# models at batch ZOO_BATCH.
+STATE_STEP = 16
+TAIL_BLOCKS, TAIL_TRAIN = (1, 2, 3), 2
+EXAMPLES_RES, ZOO_BATCH = 1024, 8
 
 
 class Case(NamedTuple):
@@ -641,9 +667,12 @@ def seeded_weights(params, seed=0):
 
 
 def expected_launches(cfg: sg2.GeneratorConfig, batch: int) -> int:
-    """conv1 levels outside the packed last block that the predicate takes."""
+    """conv1 levels outside the packed tail (packed_tail_blocks trailing
+    blocks of a "skip" G, never the 4x4 one) that the predicate takes."""
     s = cfg.synthesis
-    res = s.block_resolutions[:-1] if s.packed_last_block else s.block_resolutions
+    res = s.block_resolutions
+    if s.packed_last_block and s.architecture == "skip":
+        res = res[:len(res) - max(0, min(s.packed_tail_blocks, len(res) - 1))]
     return sum(fmc.supported_shape((batch, s.channels(r), r, r),
                                    (s.channels(r), s.channels(r), 3, 3))
                for r in res)
@@ -834,13 +863,15 @@ def run_variants(label, steps, state, real, z, key, want, cfg, card, trees,
     return seconds, peak_mem, launches_total, metrics
 
 
-def train_phase(card):
+def train_phase(card, keep=None):
     """The adversarial train step at FFHQ-1024, global batch 32, with the
     JAX training CLI's 1024^2 configuration (entry.train_configs): rounds of
     8 live samples (Greg 16), bf16 ADA pipe "bgc" at p = 0.2 (ADA starts at
     0, which would leave every transform off).  The checked and timed steps
     run with PyTorch's default math (TF32 convolutions on, TF32 matmuls off);
-    the pallas-vs-composed gradient check runs with TF32 off."""
+    the pallas-vs-composed gradient check runs with TF32 off.  With a dict
+    ``keep``, the steps, the final state and the inputs are left in it (for
+    the state phase)."""
     phase("train")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = True
@@ -893,6 +924,8 @@ def train_phase(card):
                 augment_fn)
     torch.backends.cudnn.allow_tf32 = True
     trace_train_step(steps["none"], state, inputs, key.fold_in(40))
+    if keep is not None:
+        keep.update(steps=steps, state=state, inputs=inputs)
     return launches_total, seconds, peak_mem, sec_per_batch
 
 
@@ -3623,6 +3656,371 @@ def face_phase(card):
     return launches
 
 
+# ----------------------------------------------------------------------------
+# The train state, the packed tail, the examples and the model zoo
+
+
+def state_phase(keep, card):
+    """save_train_state / load_train_state of the train phase's FFHQ-1024
+    state (G, D, G_ema, both Adam states, ADA p, pl_mean, the image count):
+    every leaf bit-equal after the round trip, on the state's devices and
+    dtypes; the bytes on disk and the save and load seconds.  Then one
+    "none" step from the restored state and two from copies of the
+    original, under the same draws and PyTorch's deterministic algorithms
+    (warn only): the restored step may differ from the original one only as
+    much as two original steps differ from each other, run-to-run
+    (ROADMAP section 3 item 2); bound 4 times that difference, relative L2
+    over G's and over D's weights, as the remat phase argues (one pair is
+    one sample of that noise), which is 0 when the two runs are
+    bit-equal."""
+    import copy
+
+    phase("state")
+    steps, state, (real, _, z, _, key) = (keep["steps"], keep["state"],
+                                          keep["inputs"])
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_train_state(tmp, STATE_STEP, state)
+        save_s = time.perf_counter() - t0
+        path = os.path.join(tmp, f"step_{STATE_STEP:08d}", "state.pt")
+        size = os.path.getsize(path)
+        if ckpt.latest_step(tmp) != STATE_STEP:
+            raise AssertionError("state: latest_step")
+        t0 = time.perf_counter()
+        restored = ckpt.load_train_state(tmp, STATE_STEP, state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    a, b = ckpt.train_state_leaves(state), ckpt.train_state_leaves(restored)
+    groups = collections.Counter(k.split("/")[0] for k in a)
+    for need in ("g_params", "d_params", "g_ema", "g_opt_state",
+                 "d_opt_state", "ada_p"):
+        if not groups[need]:
+            raise AssertionError(f"state: no {need} leaves")
+    bad = [k for k, v in a.items()
+           if (not (torch.is_tensor(b[k]) and v.dtype == b[k].dtype
+                    and v.device == b[k].device and torch.equal(v, b[k]))
+               if torch.is_tensor(v) else v != b[k])]
+    n_bytes = sum(v.numel() * v.element_size() for v in a.values()
+                  if torch.is_tensor(v))
+    print(f"state: {len(a)} leaves ({dict(groups)}), {n_bytes / 2 ** 30:.4f} "
+          f"GiB of tensors, {size} bytes on disk ({size / 2 ** 30:.4f} GiB); "
+          f"save {save_s:.3f} s, load {load_s:.3f} s on {card}")
+    if bad:
+        raise AssertionError(f"state: {len(bad)} leaves differ after the "
+                             f"round trip, e.g. {bad[:3]}")
+
+    runs = {}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    launches = 0
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for label, start in (("original", copy.deepcopy(state)),
+                                 ("original again", copy.deepcopy(state)),
+                                 ("restored", restored)):
+                fmc.fused_modconv3x3.launches = 0
+                runs[label], _ = steps["none"](start, real, None, z, None,
+                                               key.fold_in(50))
+                torch.cuda.synchronize()
+                launches += fmc.fused_modconv3x3.launches
+                del start
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = cudnn_det
+    for group in ("g_params", "d_params"):
+        flat = {k: ckpt.tree_to_flat_tensors(getattr(r, group))
+                for k, r in runs.items()}
+        keys = list(flat["original"])
+        floor = rel_l2(flat["original again"], flat["original"], keys)
+        err = rel_l2(flat["restored"], flat["original"], keys)
+        print(f"state: one 'none' step, {group}: restored vs original "
+              f"rel_l2 {err:.4g}, original vs original {floor:.4g}, bound "
+              f"{4 * floor:.4g} (deterministic algorithms)")
+        if not err <= 4 * floor:
+            raise AssertionError(f"state: the restored step's {group} "
+                                 f"differ from the original step's")
+    return launches
+
+
+def tail_config(tail_blocks, fused=True, architecture="skip",
+                pallas_level=True, packed=True) -> sg2.GeneratorConfig:
+    cfg = entry_config(pallas_level)
+    return dataclasses.replace(cfg, synthesis=dataclasses.replace(
+        cfg.synthesis, packed_last_block=packed,
+        packed_tail_blocks=tail_blocks, packed_fused_torgb=fused,
+        architecture=architecture))
+
+
+def tail_phase(card, train_none_s):
+    """The FFHQ-1024 forward (entry_config's G, random weights with noise
+    and biases seeded) with packed_tail_blocks 1, 2 and 3, with the fused
+    torgb and without, and an architecture="orig" G (unpacked: the packed
+    tail needs "skip"): each held against the unpacked composed forward
+    (pallas_level=False, packed_last_block=False; for "orig" the "orig" G's)
+    at batch 8 with TF32 off within the main phase's bounds (2^-5 relative
+    RMS, 2^-3 of max|img|), its fused launches against expected_launches,
+    and its ms per forward at batch 32 (TF32 convolutions on).  Then one
+    "none" train step at batch 32 with packed_tail_blocks=2 (checked, then
+    timed) beside the train phase's with 1."""
+    phase("tail")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res, z_dim = entry_config().img_resolution, entry_config().z_dim
+    params = seeded_weights(sg2.init_generator(
+        entry_config(), torch.Generator().manual_seed(0), DEVICE))
+    last = f"b{res}"
+    orig_params = {"mapping": params["mapping"], "synthesis": {
+        k: {n: v for n, v in blk.items() if n != "torgb" or k == last}
+        for k, blk in params["synthesis"].items()}}
+    z = torch.randn((BATCH, z_dim), generator=torch.Generator().manual_seed(1)
+                    ).to(DEVICE)
+    zt = torch.randn((TIMED_BATCH, z_dim),
+                     generator=torch.Generator().manual_seed(2)).to(DEVICE)
+
+    def forward(cfg, p, z):
+        with torch.no_grad():
+            return sg2.generator_apply(cfg, p, z, noise_mode="const")
+
+    refs = {arch: forward(tail_config(1, architecture=arch, pallas_level=False,
+                                      packed=False), p, z)
+            for arch, p in (("skip", params), ("orig", orig_params))}
+    variants = [(f"{n} block{'s' if n > 1 else ''}, "
+                 f"{'fused' if fused else 'unfused'} torgb",
+                 tail_config(n, fused), params, "skip")
+                for n in TAIL_BLOCKS for fused in (True, False)]
+    variants.append(("orig", tail_config(1, architecture="orig"),
+                     orig_params, "orig"))
+    total, ms = 0, {}
+    for label, cfg, p, arch in variants:
+        fmc.fused_modconv3x3.launches = 0
+        img = forward(cfg, p, z)
+        torch.cuda.synchronize()
+        launches = fmc.fused_modconv3x3.launches
+        total += launches
+        want = expected_launches(cfg, BATCH)
+        ref = refs[arch]
+        peak = float(ref.abs().max())
+        diff = (img - ref).float()
+        rel_rms = float(diff.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+        max_err = float(diff.abs().max())
+        torch.backends.cudnn.allow_tf32 = True
+        ms[label] = time_ms(lambda: forward(cfg, p, zt), iters=3, warmup=1)
+        torch.backends.cudnn.allow_tf32 = False
+        print(f"tail {label}: fused launches {launches} (expected {want}), "
+              f"vs the unpacked composed forward max_abs_err {max_err:.4g} "
+              f"(max|img| {peak:.4g}) rel_rms {rel_rms:.4g}; "
+              f"{ms[label]:.3f} ms per batch-{TIMED_BATCH} forward on {card}",
+              flush=True)
+        if launches != want or tuple(img.shape) != (BATCH, 3, res, res):
+            raise AssertionError(f"tail {label}: {launches} launches, "
+                                 f"{tuple(img.shape)}")
+        if not (rel_rms <= 2 ** -5 and max_err <= 2 ** -3 * peak):
+            raise AssertionError(f"tail {label}: disagrees with the "
+                                 f"unpacked composed forward")
+    del refs, img, ref, diff
+
+    torch.backends.cudnn.allow_tf32 = True
+    steps, state, (real, _, z, _, key) = train_entry(
+        DEVICE, batch=TRAIN_BATCH, ada_p=0.2, packed_tail_blocks=TAIL_TRAIN)
+    run = train_run(TRAIN_BATCH, packed_tail_blocks=TAIL_TRAIN)
+    g_cfg, cfg = run.g_cfg, run.train_cfg
+    want = (expected_launches(g_cfg, TRAIN_BATCH // cfg.accum_rounds)
+            * cfg.accum_rounds)
+    fmc.fused_modconv3x3.launches = 0
+    state, metrics = steps["none"](state, real, None, z, None, key)
+    torch.cuda.synchronize()
+    launches = fmc.fused_modconv3x3.launches
+    total += launches
+    if (launches != want or not g_cfg.synthesis.packed_tail_blocks == TAIL_TRAIN
+            or not all(bool(torch.isfinite(v).all())
+                       for v in metrics.values())):
+        raise AssertionError(f"tail train step: {launches} launches "
+                             f"(expected {want}) or non-finite metrics")
+    t0 = time.perf_counter()
+    steps["none"](state, real, None, z, None, key.fold_in(1))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    print(f"tail train 'none' step, batch {TRAIN_BATCH}, packed_tail_blocks "
+          f"{TAIL_TRAIN}: {seconds:.4f} s (the train phase's with 1: "
+          f"{train_none_s:.4f} s), fused launches {launches} (expected "
+          f"{want}) on {card}", flush=True)
+    return total
+
+
+# The number of G forwards each example makes (quick_start: 16 seeds in one
+# batch; editing: 3 alphas and a StyleSpace edit; adaptation_inference:
+# source and adapted; morphing: 5 blends and the joint one; pruned_forward:
+# 4 sparsities) and the PNGs each writes at 1024^2, with their shapes.
+EXAMPLE_FORWARDS = {"quick_start": 1, "editing": 4, "adaptation_inference": 2,
+                    "morphing": 6, "pruned_forward": 4}
+EXAMPLE_PNGS = {
+    "quick_start": {"quick_start_grid.png": (512, 2048, 3)},
+    "editing": {"interfacegan_sweep.png": (256, 768, 3),
+                "stylespace_edit.png": (256, 256, 3)},
+    "adaptation_inference": {f"pair_{i:02d}.png": (256, 512, 3)
+                             for i in range(4)},
+    "morphing": {**{f"blend_{i:02d}.png": (256, 1024, 3) for i in range(5)},
+                 "combined.png": (256, 1024, 3)},
+    "pruned_forward": {"pruned_sweep.png": (1024, 1024, 3)},
+}
+
+
+def examples_phase(tmp, card):
+    """The five examples' main (gagan_tpu_torch/examples) at FFHQ-1024 on
+    entry.examples_entry's seeded snapshot and two adaptation checkpoints,
+    as their command lines give them, TF32 off: each PNG reads back at its
+    shape with some spread of values; the fused launches of each (2 a G
+    forward) and its wall time; then the same calls on a snapshot with
+    pallas_level=False (the same weights), whose PNGs each example's must
+    match within the main phase's bounds, read as [-1, 1]: 2^-5 relative
+    RMS, and 2^-3 of max|img| of the float images (quick_start's 16
+    images from the composed G; clipping to [-1, 1] and the averaging
+    resizes shrink a difference, never grow it) plus one uint8 level for
+    the rounding."""
+    import importlib
+
+    phase("examples")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = examples_config(EXAMPLES_RES)
+    written, total = {}, 0
+    for label, pallas in (("fused", True), ("composed", False)):
+        argvs = examples_entry(DEVICE, EXAMPLES_RES,
+                               os.path.join(tmp, f"examples_{label}"),
+                               pallas_level=pallas)
+        for name, argv in argvs.items():
+            module = importlib.import_module(f"gagan_tpu_torch.examples.{name}")
+            torch.cuda.synchronize()
+            fmc.fused_modconv3x3.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                paths = module.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = fmc.fused_modconv3x3.launches
+            want = (expected_launches(cfg, 1) * EXAMPLE_FORWARDS[name]
+                    if pallas else 0)
+            names = {os.path.basename(p): p for p in paths}
+            print(f"examples {name} ({label}): {len(paths)} PNGs, fused "
+                  f"launches {launches} (expected {want}), {seconds:.3f} s "
+                  f"on {card}", flush=True)
+            if launches != want or set(names) != set(EXAMPLE_PNGS[name]):
+                raise AssertionError(f"examples {name}: {launches} launches, "
+                                     f"PNGs {sorted(names)}")
+            for fname, path in names.items():
+                img = png.read_png(path)
+                if img.shape != EXAMPLE_PNGS[name][fname] or img.std() < 1:
+                    raise AssertionError(f"examples {name}/{fname}: "
+                                         f"{img.shape}, std {img.std()}")
+                written[label, name, fname] = img
+            total += launches
+    g_cfg, g_params = generate.load_generator(
+        os.path.join(tmp, "examples_composed", "G.npz"), DEVICE)
+    with torch.no_grad():
+        peak = float(sg2.generator_apply(
+            g_cfg, g_params, numpy_latents(range(16), g_cfg.z_dim, DEVICE),
+            truncation_psi=0.7).abs().max())
+    del g_params
+    for (label, name, fname), img in written.items():
+        if label != "fused":
+            continue
+        a = img.astype(np.float64) / 127.5 - 1
+        b = written["composed", name, fname].astype(np.float64) / 127.5 - 1
+        rel_rms = float(np.sqrt(((a - b) ** 2).mean() / (b ** 2).mean()))
+        max_err = float(np.abs(a - b).max())
+        if not (rel_rms <= 2 ** -5 and max_err <= 2 ** -3 * peak + 1 / 127.5):
+            raise AssertionError(f"examples {name}/{fname}: fused vs composed "
+                                 f"rel_rms {rel_rms:.4g} max {max_err:.4g}")
+    worst = max(
+        float(np.abs(img.astype(np.int32)
+                     - written["composed", n, f].astype(np.int32)).max())
+        for (label, n, f), img in written.items() if label == "fused")
+    print(f"examples: every PNG within the bounds of its pallas_level=False "
+          f"run (the largest difference {worst:.0f} uint8 levels, bound "
+          f"{(2 ** -3 * peak + 1 / 127.5) * 127.5:.1f}: max|img| {peak:.4g})")
+    return total
+
+
+def zoo_phase(tmp, card):
+    """make_generator of each zoo model (entry.zoo_entry): stylegan2 from
+    an FFHQ-1024 snapshot (entry_config's G, seeded), proggan at 1024^2,
+    sn_anime (sn_resnet128), sn_mnist (sn_resnet32) and biggan at
+    BigGAN-PyTorch's 128^2 widths.  forward and gen_shifted at batch 8
+    (finite, shaped, the shift moving the images), images/s of forward
+    (TF32 convolutions on); then the card against the same handle on the
+    CPU at batch 1 in fp32 with TF32 off (biggan with its class given),
+    within 2^-12 of max|img| (convolutions summed in another order, ~1e-6
+    a layer).  The bf16 blocks of the FFHQ-1024 G round elsewhere on the
+    card (the fused levels) than on the CPU, so stylegan2 is held on an fp32 copy of its snapshot (num_fp16_res 0:
+    the card's fused levels take the fp32 route)."""
+    phase("zoo")
+    g = seeded_weights(sg2.init_generator(
+        entry_config(), torch.Generator().manual_seed(0), "cpu"))
+    snaps = {}
+    for label, cfg in (("bf16", entry_config()), ("fp32", dataclasses.replace(
+            entry_config(), synthesis=dataclasses.replace(
+                entry_config().synthesis, num_fp16_res=0)))):
+        snaps[label] = os.path.join(tmp, f"zoo_stylegan2_{label}.npz")
+        ckpt.save_snapshot(snaps[label], g_ema=g,
+                           config={"g_cfg": config_lib.to_dict(cfg)})
+    del g
+    launches_total = 0
+    for name in ZOO_MODELS:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        handle, z = zoo_entry(DEVICE, name, ZOO_BATCH,
+                              snapshot_path=snaps["bf16"])
+        shift = 0.5 * torch.randn((ZOO_BATCH, handle.dim_shift),
+                                  generator=torch.Generator().manual_seed(3)
+                                  ).to(DEVICE)
+        fmc.fused_modconv3x3.launches = 0
+        with torch.no_grad():
+            img = handle.forward(z)
+            moved = handle.gen_shifted(z, shift)
+        torch.cuda.synchronize()
+        launches = fmc.fused_modconv3x3.launches
+        launches_total += launches
+        want = 2 * expected_launches(entry_config(), ZOO_BATCH) \
+            if name == "stylegan2" else 0
+        if (launches != want or img.shape != moved.shape
+                or img.shape[0] != ZOO_BATCH or img.shape[1] != 3
+                or not bool(torch.isfinite(img).all())
+                or not bool(torch.isfinite(moved).all())
+                or not float((moved - img).abs().max()) > 0):
+            raise AssertionError(f"zoo {name}: {launches} launches (expected "
+                                 f"{want}), {tuple(img.shape)}")
+
+        def run():
+            with torch.no_grad():
+                return handle.forward(z)
+        ms = time_ms(run, iters=3, warmup=1)
+        # The card against the CPU, batch 1, TF32 off, fp32 throughout.
+        torch.backends.cudnn.allow_tf32 = False
+        kw = {"class_ids": [239]} if name == "biggan" else {}
+        with torch.no_grad():
+            card_h, _ = zoo_entry(DEVICE, name, 1, snapshot_path=snaps["fp32"])
+            got = card_h.forward(z[:1], **kw).cpu()
+            cpu_h, _ = zoo_entry("cpu", name, 1, snapshot_path=snaps["fp32"])
+            want_img = cpu_h.forward(z[:1].cpu(), **kw)
+        peak = float(want_img.abs().max())
+        max_err = float((got - want_img).abs().max())
+        ok = max_err <= 2 ** -12 * peak
+        print(f"zoo {name}: {tuple(img.shape[1:])}, "
+              f"{ZOO_BATCH / ms * 1e3:.2f} images/s at batch {ZOO_BATCH} "
+              f"({ms:.3f} ms), fused launches {launches} (forward + "
+              f"gen_shifted); card vs CPU at batch 1 in fp32 max_abs_err "
+              f"{max_err:.4g} (max|img| {peak:.4g}, bound 2^-12 of it) on "
+              f"{card}", flush=True)
+        if not ok:
+            raise AssertionError(f"zoo {name}: the card and the CPU disagree")
+        del handle, card_h, cpu_h, img, moved
+        torch.cuda.empty_cache()
+    return launches_total
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -3631,7 +4029,13 @@ def main():
     cli_launches = cli_phase(params)
     del params
     torch.cuda.empty_cache()
-    train_launches, seconds, peak_mem, sec_per_batch = train_phase(card)
+    keep = {}
+    train_launches, seconds, peak_mem, sec_per_batch = train_phase(card, keep)
+    torch.cuda.empty_cache()
+    state_launches = state_phase(keep, card)
+    del keep
+    torch.cuda.empty_cache()
+    tail_launches = tail_phase(card, seconds["none"])
     torch.cuda.empty_cache()
     warp_times = warp_phase(card)
     torch.cuda.empty_cache()
@@ -3657,12 +4061,19 @@ def main():
         inversion_launches, ii2s_needs = inversion_phase(tmp, card)
         torch.cuda.empty_cache()
     face_launches = face_phase(card)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        examples_launches = examples_phase(tmp, card)
+        torch.cuda.empty_cache()
+        zoo_launches = zoo_phase(tmp, card)
     by_path = {"forward": launches, "cli": cli_launches,
                "train": train_launches, "loop": loop_launches,
                "remat": remat_launches, "adapt": adapt_launches,
                "fewshot": fewshot_launches, "im2im": im2im_launches,
                "ga": sum(ga_launches.values()), "metrics": metrics_launches,
-               "inversion": inversion_launches, "face": face_launches}
+               "inversion": inversion_launches, "face": face_launches,
+               "state": state_launches, "tail": tail_launches,
+               "examples": examples_launches, "zoo": zoo_launches}
     f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",

@@ -20,8 +20,7 @@ offsets tree of grammar P (few-shot domain adaptation, e.g.
 ``adaptation-NNNNNN.npz`` beside every network snapshot.
 
 Not ported yet, each raising ``NotImplementedError``: ``--gpus`` other than 1
-and ``--spatial-shard-min-res`` (ROADMAP item 10), and
-``--packed-tail-blocks`` above 1 (the port's packed tail is one block).
+and ``--spatial-shard-min-res`` (ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -111,9 +110,6 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
         raise NotImplementedError(
             "the port trains on one card: --gpus other than 1 and "
             "--spatial-shard-min-res are not ported yet (ROADMAP item 10)")
-    if packed_tail_blocks > 1:
-        raise NotImplementedError(
-            "the port's packed tail is one block: --packed-tail-blocks 0 or 1")
     spec = dict(CFG_SPECS[cfg])
     n_dev = 1
     if cfg == "auto":

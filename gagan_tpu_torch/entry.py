@@ -24,12 +24,18 @@
 * :func:`restyle_entry`: a ReStyle net (any of the six encoder types) on
   the FFHQ-1024 generator and a batch of 256^2 inputs, for
   ``inversion.restyle.run_on_batch`` and ``inference.project_restyle``.
+* :func:`examples_entry`: a seeded snapshot and two adaptation checkpoints
+  at FFHQ-1024 (or a narrow G at another size), and the command line of
+  each of the five examples (``gagan_tpu_torch/examples``) on them.
+* :func:`zoo_entry`: a generator of the model zoo (``models/zoo.py``) and
+  a batch of its latents.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional
+import os
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -47,6 +53,7 @@ from .train import adapt_losses as al
 from .train import adaptation as ad
 from .train import augment, train_step as ts
 from .utils import checkpoint as ckpt_lib
+from .utils import config as config_lib
 from .utils.rng import Rng
 from .utils.text_templates import imagenet_templates
 
@@ -117,7 +124,8 @@ def train_configs(batch: int = 32, img_resolution: int = 1024,
 
 
 def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
-                channel_base: Optional[int] = None, ada_p: float = 0.0):
+                channel_base: Optional[int] = None, ada_p: float = 0.0,
+                **options):
     """Returns ``steps, state, inputs``:
 
     * ``steps``: the three step variants a run schedules, {"none": Gmain +
@@ -132,10 +140,12 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
     * ``inputs``: (real images in [-1, 1], None, z, None, key), from seeds
       2 and 3, on ``device``.
 
-    Raises without CUDA unless ``device`` is 'cpu'."""
+    ``options`` are the training command's further options
+    (``packed_tail_blocks=2``, ...).  Raises without CUDA unless ``device``
+    is 'cpu'."""
     device = resolve_device(device)
-    return _run_steps(train_run(batch, img_resolution, channel_base), device,
-                      batch, ada_p)
+    return _run_steps(train_run(batch, img_resolution, channel_base,
+                                **options), device, batch, ada_p)
 
 
 def fewshot_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
@@ -350,13 +360,14 @@ TINY_RESTYLE_G = sg2.GeneratorConfig(
 RESTYLE_HEAD_SCALE = 0.02
 
 
-def rescale_random_convs(params) -> None:
-    """Multiply, in place, each 4-D convolution weight of a random encoder
-    (drawn at std 0.05, ``enc._init_conv``) so that its std is
-    1/sqrt(fan-in): unit gain a layer instead of ~0.05 * sqrt(fan-in)."""
+def rescale_random_convs(params, init_std: float = 0.05) -> None:
+    """Multiply, in place, each 4-D convolution weight of a random network
+    (drawn at std ``init_std``: 0.05 for the encoders, ``enc._init_conv``)
+    so that its std is 1/sqrt(fan-in): unit gain a layer instead of
+    ~init_std * sqrt(fan-in)."""
     for w in ckpt_lib.tree_to_flat_tensors(params).values():
         if w.ndim == 4:
-            w.mul_(1.0 / (0.05 * np.sqrt(w[0].numel())))
+            w.mul_(1.0 / (init_std * np.sqrt(w[0].numel())))
 
 
 def restyle_entry(device="cuda", encoder_type: str = "ProgressiveBackboneEncoder",
@@ -399,3 +410,129 @@ def restyle_entry(device="cuda", encoder_type: str = "ProgressiveBackboneEncoder
                          generator=torch.Generator().manual_seed(3)) * 2
               - 1).to(device)
     return net, inputs
+
+
+# ----------------------------------------------------------------------------
+# The examples and the model zoo
+
+EXAMPLES = ("quick_start", "editing", "adaptation_inference", "morphing",
+            "pruned_forward")
+
+
+def examples_config(res: int = 1024,
+                    pallas_level: bool = True) -> sg2.GeneratorConfig:
+    """:func:`entry_config` (FFHQ-1024) at 1024^2; at another ``res``^2 a
+    narrow G (w 32, channels at most 32, 2 mapping layers) for the CPU."""
+    if res == 1024:
+        return entry_config(pallas_level)
+    return sg2.GeneratorConfig(
+        z_dim=32, w_dim=32, img_resolution=res,
+        mapping=sg2.MappingConfig(num_layers=2),
+        synthesis=sg2.SynthesisConfig(channel_base=16 * res, channel_max=32,
+                                      pallas_level=pallas_level))
+
+
+def examples_entry(device="cuda", res: int = 1024, workdir: str = ".",
+                   pallas_level: bool = True) -> Dict[str, List[str]]:
+    """Writes under ``workdir`` the inputs of the five examples and returns
+    the command line (``argv``) of each example's ``main`` on them, keyed
+    by the example's name (:data:`EXAMPLES`), each writing into
+    ``workdir/<name>``:
+
+    * ``G.npz``: a snapshot of :func:`examples_config` (``pallas_level`` as
+      given), G from ``torch.Generator`` seed 0 with noise strengths and
+      synthesis biases drawn from seed 1 (zero at init) and ``w_avg`` the
+      mapping's mean w over 1024 latents (seed 2), so that the noise, bias
+      and truncation paths do real work;
+    * ``domain_a.npz``, ``domain_b.npz``: adaptation checkpoints of
+      "additive" StyleSpace offsets (``Rng(10)``, ``Rng(11)``, std 0.3).
+
+    quick_start takes seeds 0-15, morphing both domains.  The files are
+    equal for equal arguments but ``pallas_level``.  Raises without CUDA
+    unless ``device`` is 'cpu'."""
+    device = resolve_device(device)
+    cfg = examples_config(res, pallas_level)
+    params = sg2.init_generator(cfg, torch.Generator().manual_seed(0), "cpu")
+    gen = torch.Generator().manual_seed(1)
+    for name, leaf in ckpt_lib.tree_to_flat_tensors(params["synthesis"]).items():
+        if name.endswith("noise_strength"):
+            leaf.copy_(torch.rand((), generator=gen) * 0.25 + 0.05)
+        elif name.endswith(".bias") and ".affine." not in name:
+            leaf.copy_(torch.randn(leaf.shape, generator=gen) * 0.1)
+    z = torch.randn((1024, cfg.z_dim), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        params["mapping"]["w_avg"].copy_(sg2.mapping_apply(
+            cfg.mapping, params["mapping"], z, broadcast=False).mean(dim=0))
+    os.makedirs(workdir, exist_ok=True)
+    snap = os.path.join(workdir, "G.npz")
+    ckpt_lib.save_snapshot(snap, g_ema=params,
+                           config={"g_cfg": config_lib.to_dict(cfg)})
+    spec = offs_lib.OffsetsSpec.from_string("additive")
+    domains = []
+    for i, name in enumerate(("domain_a", "domain_b")):
+        offsets = offs_lib.init_offsets(Rng(10 + i), cfg.synthesis, spec, "cpu")
+        for j, leaf in enumerate(
+                ckpt_lib.tree_to_flat_tensors(offsets).values()):
+            leaf.add_(0.3 * Rng(10 + i).fold_in(j).normal(leaf.shape))
+        path = os.path.join(workdir, f"{name}.npz")
+        ckpt_lib.save_adaptation(path, model_type="parametrization",
+                                 parametrization="additive", offsets=offsets,
+                                 sg2_config=config_lib.to_dict(cfg))
+        domains.append(path)
+
+    def argv(name, *extra):
+        return ["--network", snap, "--outdir", os.path.join(workdir, name),
+                "--device", str(device), *extra]
+
+    return {
+        "quick_start": argv("quick_start", "--seeds", "0-15", "--res",
+                            str(res)),
+        "editing": argv("editing", "--res", str(res)),
+        "adaptation_inference": argv("adaptation_inference", "--ckpt",
+                                     domains[0]),
+        "morphing": argv("morphing", "--ckpt", domains[0], "--ckpt",
+                         domains[1]),
+        "pruned_forward": argv("pruned_forward", "--ckpt", domains[1]),
+    }
+
+
+# The zoo's makers with the widths of their released models: ProgGAN at
+# 1024^2 and 512 channels, SN-GAN anime (sn_resnet128) and MNIST
+# (sn_resnet32), BigGAN-PyTorch's 128^2 release (ch 96, dim_z 120, shared
+# 128, hierarchical z, attention at 64).
+ZOO_MODELS = ("stylegan2", "proggan", "sn_anime", "sn_mnist", "biggan")
+BIGGAN_128 = dict(ch=96, dim_z=120, shared_dim=128, resolution=128, hier=True,
+                  attention=64)
+
+
+def zoo_entry(device="cuda", name: str = "stylegan2", batch: int = 8,
+              snapshot_path: Optional[str] = None, **kwargs):
+    """Returns ``handle, z``: ``zoo.make_generator(name, ...)`` on
+    ``device`` (stylegan2: the snapshot at ``snapshot_path``; biggan:
+    :data:`BIGGAN_128`) and [batch, dim_z] latents from ``torch.Generator``
+    seed 1.  The other models' random weights are the makers' (seed 0),
+    with SN-GAN's and BigGAN's convolutions rescaled to unit gain
+    (:func:`rescale_random_convs`: at their init std of 0.05 / 0.02 the
+    activations grow a few times a conv and tanh saturates); ProgGAN's
+    pixel norm keeps its scale.  ``kwargs`` go to the maker.  Raises
+    without CUDA unless ``device`` is 'cpu'."""
+    from .models import biggan, sngan, zoo
+
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(0)
+    if name == "stylegan2":
+        kwargs = dict(snapshot_path=snapshot_path, **kwargs)
+    elif name == "biggan":
+        kwargs = {**BIGGAN_128, **kwargs}
+        params = biggan.init_biggan(gen, biggan.BigGANConfig(**kwargs))
+        rescale_random_convs(params, 0.02)
+        kwargs["params"] = params
+    elif name in ("sn_anime", "sn_mnist"):
+        arch = "sn_resnet128" if name == "sn_anime" else "sn_resnet32"
+        params = sngan.init_sngan(gen, sngan.SNGANConfig(arch=arch))
+        rescale_random_convs(params, 0.05)
+        kwargs["params"] = params
+    handle = zoo.make_generator(name, device=device, **kwargs)
+    z = torch.randn((batch, handle.dim_z),
+                    generator=torch.Generator().manual_seed(1)).to(device)
+    return handle, z

@@ -97,7 +97,8 @@ class SynthesisConfig:
     use_noise: bool = True
     # Exact space-to-depth reformulation of the last block (ops/packed.py).
     packed_last_block: bool = False
-    # The port runs the packed tail with these two at their defaults only.
+    # The last block's torgb and depth-to-space as one input-dilated conv
+    # (else a packed 1x1 and an unpack); how many trailing blocks run packed.
     packed_fused_torgb: bool = True
     packed_tail_blocks: int = 1
     # Block rematerialization (torch.utils.checkpoint): trades recompute for
@@ -266,6 +267,21 @@ def _init_synthesis_layer(gen, in_channels: int, out_channels: int, w_dim: int,
     return p
 
 
+def _has_torgb(cfg: SynthesisConfig, res: int) -> bool:
+    """Whether block ``res`` has a torgb layer: every block of a "skip" G,
+    the last block only of an "orig" one."""
+    return cfg.architecture == "skip" or res == cfg.img_resolution
+
+
+def _check_architecture(cfg: SynthesisConfig):
+    """"skip" and "orig" run; "resnet" is refused, because the JAX package's
+    resnet G never reads its skip convolutions (ROADMAP section 3)."""
+    if cfg.architecture not in ("skip", "orig"):
+        raise NotImplementedError(
+            f"architecture={cfg.architecture!r}: the port's G runs 'skip' "
+            f"and 'orig'")
+
+
 def init_synthesis(gen: torch.Generator, cfg: SynthesisConfig) -> Params:
     params: Params = {}
     for res in cfg.block_resolutions:
@@ -279,9 +295,10 @@ def init_synthesis(gen: torch.Generator, cfg: SynthesisConfig) -> Params:
                 cfg.use_noise)
         block["conv1"] = _init_synthesis_layer(gen, out_ch, out_ch, cfg.w_dim,
                                                res, cfg.use_noise)
-        torgb = _init_conv(gen, out_ch, cfg.img_channels, 1)
-        torgb["affine"] = _init_fc(gen, cfg.w_dim, out_ch, bias_init=1.0)
-        block["torgb"] = torgb
+        if _has_torgb(cfg, res):
+            torgb = _init_conv(gen, out_ch, cfg.img_channels, 1)
+            torgb["affine"] = _init_fc(gen, cfg.w_dim, out_ch, bias_init=1.0)
+            block["torgb"] = torgb
         params[f"b{res}"] = block
     return params
 
@@ -506,22 +523,28 @@ def torgb_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
     return bias_act(x, lp["bias"].to(x.dtype), clamp=cfg.conv_clamp)
 
 
-def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
-                 block_ws: List[torch.Tensor], x: torch.Tensor,
+def _packed_tail(cfg: SynthesisConfig, params: Params,
+                 tail: List[Tuple[int, List[torch.Tensor]]], x: torch.Tensor,
                  img: Optional[torch.Tensor], noise_mode: str,
-                 rng: Optional[Rng], dtype: torch.dtype,
+                 rng: Optional[Rng], force_fp32: bool,
                  hooks: Optional[LayerHooks] = None) -> torch.Tensor:
-    """The last synthesis block on the 2x2-packed grid (exact; ops/packed.py),
-    ending in the fused torgb + depth-to-space: returns the image.  Takes
-    every hook kind but "post" (which keeps the block unpacked)."""
+    """The trailing synthesis blocks ``tail`` ([(res, block_ws)]) on the
+    2x2-packed grid (exact; ops/packed.py): returns the image.  The feature
+    map enters unpacked and each block's conv0 packs it by the composed
+    up-conv; before a later block's conv0 it is unpacked again, as the JAX
+    package does (the stay-packed crossing kernel carries 4x structural
+    zeros).  An unfused torgb is a block-diagonal 1x1 over the four cells,
+    with the skip image upsampled straight into the packed layout; with
+    ``packed_fused_torgb`` the last block's torgb and the depth-to-space
+    are one input-dilated conv to the image.  Takes every hook kind but
+    "post" (which keeps the blocks unpacked)."""
     taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
                            device=x.device)
     taps = taps / taps.sum()
     spec = activation_funcs[cfg.activation]
     batch = x.shape[0]
-    x = x.to(dtype)
 
-    def add_noise_act(lp, name, h, out_ch):
+    def add_noise_act(lp, name, res, h, out_ch):
         nz = _noise(cfg, lp, noise_mode, (batch, 1, res, res), rng,
                     f"b{res}.{name}")
         if nz is not None:
@@ -531,42 +554,58 @@ def _packed_tail(cfg: SynthesisConfig, block: Params, res: int,
         return bias_act(h, bias.to(h.dtype), act=cfg.activation,
                         gain=spec.def_gain, clamp=cfg.conv_clamp)
 
-    def styles_weight(name, w, gain=1.0):
+    def styles_weight(block, res, name, w, gain=1.0):
         lp = block[name]
         return (_layer_styles(lp, w, gain, f"b{res}.{name}", hooks),
                 _layer_weight(lp, f"b{res}.{name}", hooks))
 
-    # conv0 (up=2): unpacked input -> packed output, composed up-conv kernel.
-    lp = block["conv0"]
-    styles, weight = styles_weight("conv0", block_ws[0])
-    d = demod_coefs(weight, styles)
-    wp = pk.build_packed_upconv(weight, taps)
-    h = x * styles.to(x.dtype)[:, :, None, None]
-    h = pk.conv_packed(h, wp.to(dtype))
-    h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-    h = add_noise_act(lp, "conv0", h, weight.shape[0])
+    packed = False
+    for bi, (res, block_ws) in enumerate(tail):
+        block = params[f"b{res}"]
+        dtype = (torch.bfloat16 if res >= cfg.bf16_resolution and not force_fp32
+                 else torch.float32)
+        x = x.to(dtype)
+        if packed:
+            x = pk.unpack(x)
 
-    # conv1: packed -> packed.
-    lp = block["conv1"]
-    styles, weight = styles_weight("conv1", block_ws[1])
-    d = demod_coefs(weight, styles)
-    wp = pk.build_packed_conv3x3(weight)
-    h = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
-    h = pk.conv_packed(h, wp.to(dtype))
-    h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-    h = add_noise_act(lp, "conv1", h, weight.shape[0])
+        # conv0 (up=2): unpacked input -> packed output, composed up-conv.
+        styles, weight = styles_weight(block, res, "conv0", block_ws[0])
+        d = demod_coefs(weight, styles)
+        wp = pk.build_packed_upconv(weight, taps)
+        h = x * styles.to(x.dtype)[:, :, None, None]
+        h = pk.conv_packed(h, wp.to(dtype))
+        h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
+        h = add_noise_act(block["conv0"], "conv0", res, h, weight.shape[0])
+        packed = True
 
-    # torgb 1x1 + depth-to-space as one input-dilated conv to the image.
-    lp = block["torgb"]
-    styles, weight = styles_weight(
-        "torgb", block_ws[2], 1.0 / np.sqrt(lp["weight"].shape[1]))
-    krgb = pk.build_torgb_transposed(weight[:, :, 0, 0])
-    y = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
-    y = pk.conv_transposed_unpack(y, krgb.to(dtype))
-    y = bias_act(y, lp["bias"].to(y.dtype), clamp=cfg.conv_clamp).float()
-    if img is None:
-        return y
-    return upsample2d(img, taps) + y
+        # conv1: packed -> packed.
+        styles, weight = styles_weight(block, res, "conv1", block_ws[1])
+        d = demod_coefs(weight, styles)
+        wp = pk.build_packed_conv3x3(weight)
+        h = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
+        h = pk.conv_packed(h, wp.to(dtype))
+        h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
+        h = add_noise_act(block["conv1"], "conv1", res, h, weight.shape[0])
+
+        lp = block["torgb"]
+        styles, weight = styles_weight(
+            block, res, "torgb", block_ws[2],
+            1.0 / np.sqrt(lp["weight"].shape[1]))
+        y = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
+        if img is not None and bi > 0:
+            img = pk.unpack(img)
+        if cfg.packed_fused_torgb and bi == len(tail) - 1:
+            # torgb 1x1 + depth-to-space as one input-dilated conv.
+            krgb = pk.build_torgb_transposed(weight[:, :, 0, 0])
+            y = pk.conv_transposed_unpack(y, krgb.to(dtype))
+            y = bias_act(y, lp["bias"].to(y.dtype), clamp=cfg.conv_clamp).float()
+            return y if img is None else upsample2d(img, taps) + y
+        y = pk.conv_packed(y, pk.build_packed_conv1x1(weight).to(dtype))
+        y = bias_act(y, pk.pack_channel_tile(lp["bias"]).to(y.dtype),
+                     clamp=cfg.conv_clamp).float()
+        img = y if img is None else pk.fir_upsample_packed(img, taps) + y
+        x = h
+    return pk.unpack(img)
 
 
 def _want_remat(cfg, res: int) -> bool:
@@ -593,10 +632,13 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                     hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """SynthesisNetwork forward: ws [N, num_ws, w_dim] -> img [N, C, R, R].
     ``noise_mode="random"`` draws from ``generator``: an :class:`Rng` key,
-    or a ``torch.Generator`` that one key is drawn from.  ``hooks`` are
-    the layers' transforms; a "post" hook on a layer of the packed tail
-    keeps that block unpacked, and with hooks the packed tail is not
-    rematerialized (other blocks still are), as in the JAX package."""
+    or a ``torch.Generator`` that one key is drawn from.  With
+    ``packed_last_block`` the ``packed_tail_blocks`` trailing blocks of a
+    "skip" G run packed; an "orig" G has a torgb in its last block only
+    and runs unpacked.  ``hooks`` are the layers' transforms; a "post" hook
+    on a layer of the packed tail keeps all its blocks unpacked, and with
+    hooks the packed tail is not rematerialized (other blocks still are),
+    as in the JAX package."""
     if noise_mode not in ("random", "const", "none"):
         raise ValueError(f"noise_mode must be random, const or none, "
                          f"got {noise_mode!r}")
@@ -607,20 +649,17 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                              "or an Rng")
         if isinstance(generator, torch.Generator):
             rng = Rng.from_generator(generator)
-    if cfg.architecture != "skip":
-        raise NotImplementedError(
-            f"architecture={cfg.architecture!r}: the port has 'skip' only")
+    _check_architecture(cfg)
     resolutions = cfg.block_resolutions
-    tail_res = None
-    if cfg.packed_last_block and len(resolutions) > 1:
-        if cfg.packed_tail_blocks != 1 or not cfg.packed_fused_torgb:
-            raise NotImplementedError(
-                "the port's packed tail runs packed_tail_blocks=1 with "
-                "packed_fused_torgb=True only")
-        tail_res = resolutions[-1]
-        if hooks and any(_hook(hooks, f"b{tail_res}.{name}", "post")
+    n_tail = 0
+    if cfg.packed_last_block and cfg.architecture == "skip":
+        # Up to packed_tail_blocks trailing blocks, never the 4x4 one.
+        n_tail = max(0, min(cfg.packed_tail_blocks, len(resolutions) - 1))
+        if hooks and any(_hook(hooks, f"b{r}.{name}", "post")
+                         for r in resolutions[len(resolutions) - n_tail:]
                          for name in ("conv0", "conv1", "torgb")):
-            tail_res = None
+            n_tail = 0
+    tail_start = resolutions[-n_tail] if n_tail else None
 
     resample_filter = setup_filter(cfg.resample_filter, device=ws.device)
     batch = ws.shape[0]
@@ -635,13 +674,18 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
         block_ws = [ws[:, w_idx + i] for i in range(num_conv + 1)]
         w_idx += num_conv
 
-        if res == tail_res:
-            def tail_fn(block, x, img, block_ws, res=res, dtype=dtype):
-                return _packed_tail(cfg, block, res, block_ws, x, img,
-                                    noise_mode, rng, dtype, hooks)
+        if res == tail_start:
+            tail_res = resolutions[resolutions.index(res):]
+            tail_ws = [block_ws] + [
+                [ws[:, w_idx + 2 * i + j] for j in range(3)]
+                for i in range(len(tail_res) - 1)]
+
+            def tail_fn(params, x, img, tail_ws):
+                return _packed_tail(cfg, params, list(zip(tail_res, tail_ws)),
+                                    x, img, noise_mode, rng, force_fp32, hooks)
             if _want_remat(cfg, res) and hooks is None:
-                return _remat(tail_fn, block, x, img, block_ws)
-            return tail_fn(block, x, img, block_ws)
+                return _remat(tail_fn, params, x, img, tail_ws)
+            return tail_fn(params, x, img, tail_ws)
 
         def block_fn(block, x, img, block_ws, res=res, dtype=dtype,
                      num_conv=num_conv):
@@ -658,9 +702,12 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                                       noise_mode, rng, hooks)
             if img is not None:
                 img = upsample2d(img, resample_filter)
-            y = torgb_layer_apply(cfg, block["torgb"], x, block_ws[num_conv],
-                                  f"b{res}.torgb", hooks).float()
-            return x, (y if img is None else img + y)
+            if "torgb" in block:
+                y = torgb_layer_apply(cfg, block["torgb"], x,
+                                      block_ws[num_conv], f"b{res}.torgb",
+                                      hooks).float()
+                img = y if img is None else img + y
+            return x, img
 
         if _want_remat(cfg, res):
             x, img = _remat(block_fn, block, x, img, block_ws)
@@ -699,10 +746,12 @@ def generator_styles(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
         for i, name in enumerate(convs):
             styles.append(_layer_styles(block[name], ws[:, w_idx + i], 1.0,
                                         f"b{res}.{name}", hooks))
-        lp = block["torgb"]
-        gain = 1.0 / np.sqrt(lp["weight"].shape[1] * lp["weight"].shape[-1] ** 2)
-        styles.append(_layer_styles(lp, ws[:, w_idx + num_conv], gain,
-                                    f"b{res}.torgb", hooks))
+        if _has_torgb(cfg, res):
+            lp = block["torgb"]
+            gain = 1.0 / np.sqrt(lp["weight"].shape[1]
+                                 * lp["weight"].shape[-1] ** 2)
+            styles.append(_layer_styles(lp, ws[:, w_idx + num_conv], gain,
+                                        f"b{res}.torgb", hooks))
         w_idx += num_conv
     return styles
 
@@ -721,9 +770,7 @@ def synthesis_from_styles(cfg: SynthesisConfig, params: Params,
     if noise_mode not in ("random", "const", "none"):
         raise ValueError(f"noise_mode must be random, const or none, "
                          f"got {noise_mode!r}")
-    if cfg.architecture != "skip":
-        raise NotImplementedError(
-            f"architecture={cfg.architecture!r}: the port has 'skip' only")
+    _check_architecture(cfg)
     rng = generator
     if noise_mode == "random" and isinstance(generator, torch.Generator):
         rng = Rng.from_generator(generator)
@@ -761,10 +808,11 @@ def synthesis_from_styles(cfg: SynthesisConfig, params: Params,
         idx += 1
         if img is not None:
             img = upsample2d(img, resample_filter)
-        y = layer_fwd(block["torgb"], x, styles[idx], res, 1,
-                      f"b{res}.torgb", demodulate=False).float()
-        idx += 1
-        img = y if img is None else img + y
+        if _has_torgb(cfg, res):
+            y = layer_fwd(block["torgb"], x, styles[idx], res, 1,
+                          f"b{res}.torgb", demodulate=False).float()
+            idx += 1
+            img = y if img is None else img + y
     return img
 
 

@@ -1,8 +1,6 @@
 """Space-to-depth ("packed") convolutions for the highest-resolution synthesis
-block and the discriminator's first blocks (port of the parts of
-gagan_tpu/ops/packed.py that the packed tail runs with
-``packed_fused_torgb=True`` and ``packed_tail_blocks=1``, and that the
-packed discriminator head runs).
+blocks and the discriminator's first blocks (port of
+gagan_tpu/ops/packed.py).
 
 The tail is reformulated exactly on a 2x2-packed grid, [N, C, H, W] ->
 [N, 4C, H/2, W/2] with channel index (cell_row*2 + cell_col)*C + c:
@@ -12,6 +10,10 @@ The tail is reformulated exactly on a 2x2-packed grid, [N, C, H, W] ->
     input straight to the packed high-res output;
   * torgb 1x1 + depth-to-space -> one input-dilated 2x2 conv to the image;
   * FIR 2x upsample            -> grouped 3x3 conv to packed cells;
+  * up=2 3x3 conv + FIR from a packed input -> one 3x3 conv to 16 cell /
+    parity groups, folded into the packed layout by :func:`repack_up`;
+  * stride-1 3x3 conv, minimal-FLOP form -> a 2x2 conv whose four output
+    cells are re-aligned by slicing (:func:`conv_packed_3x3_cells`);
   * FIR + stride-2 3x3 / 1x1 conv (discriminator) -> one 3x3 conv from the
     packed input to the unpacked output; fromrgb 1x1 -> cell-diagonal 1x1.
 
@@ -229,3 +231,84 @@ def build_packed_conv1x1(w: torch.Tensor) -> torch.Tensor:
         wp[cell * out_ch:(cell + 1) * out_ch,
            cell * in_ch:(cell + 1) * in_ch] = w
     return wp
+
+
+def build_packed_conv2x2(w: torch.Tensor) -> torch.Tensor:
+    """Minimal-FLOP packed stride-1 3x3 correlation kernel for
+    :func:`conv_packed_3x3_cells`: w [O, I, 3, 3] -> Wp [4O, 4I, 2, 2].
+    Each output cell keeps its true 2x2 coarse support (the dense
+    :func:`build_packed_conv3x3` form is 75% structural zeros); output cell
+    i reads its results at slice offset i, window tap t maps to coarse
+    offset t - 1 + i."""
+    out_ch, in_ch = w.shape[0], w.shape[1]
+    # taps[i][(input cell p, window tap t)] = the 3x3 tap a, per axis.
+    ax = {0: {(0, 1): 1, (1, 0): 0, (1, 1): 2},
+          1: {(0, 0): 0, (0, 1): 2, (1, 0): 1}}
+    wp = w.new_zeros((4 * out_ch, 4 * in_ch, 2, 2))
+    for i in range(2):
+        for j in range(2):
+            for (py, ty), ay in ax[i].items():
+                for (px, tx), axx in ax[j].items():
+                    wp[(i * 2 + j) * out_ch:(i * 2 + j + 1) * out_ch,
+                       _cell_slices(in_ch, py, px), ty, tx] = w[:, :, ay, axx]
+    return wp
+
+
+def conv_packed_3x3_cells(xp: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+    """Apply a :func:`build_packed_conv2x2` kernel: a pad-1 2x2 conv, then
+    each output cell (i, j) sliced at offset (i, j) and the cells
+    re-concatenated.  Equals pack(conv2d(x, w, padding=1)) for xp =
+    pack(x), up to the order of the nine products' sum."""
+    out_ch = wp.shape[0] // 4
+    y = conv2d_gradfix.conv2d(xp, wp.to(xp.dtype), padding=1)
+    h, w_ = y.shape[2] - 1, y.shape[3] - 1
+    cells = [y[:, (i * 2 + j) * out_ch:(i * 2 + j + 1) * out_ch,
+               i:h + i, j:w_ + j]
+             for i in range(2) for j in range(2)]
+    return torch.cat(cells, dim=1)
+
+
+def build_packed_upconv_packed(w: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    """Composed up-conv kernel (up=2 conv3x3 + separable 4-tap FIR) whose
+    input is already packed: Wp [16O, 4I, 3, 3] with
+    repack_up(conv(pack(x), Wp, pad 1)) ==
+    pack(conv2d_resample(x, w, f, up=2, padding=1, flip_weight=False)).
+    Output channels are [fine cell (i, j)][coarse parity (r, s)][O]."""
+    if f.ndim != 1 or f.shape[0] != 4:
+        raise ValueError("4-tap separable FIR expected")
+    out_ch, in_ch = w.shape[0], w.shape[1]
+    f_flip = f.flip(0) * 2.0
+    w_flip = w.flip([2, 3])
+    g = _kernel_conv2d(w_flip, torch.outer(f_flip, f_flip))   # [O, I, 6, 6]
+
+    wp = w.new_zeros((16 * out_ch, 4 * in_ch, 3, 3))
+    for i in range(2):
+        for j in range(2):
+            for r in range(2):
+                for s in range(2):
+                    oc = ((i * 2 + j) * 4 + (r * 2 + s)) * out_ch
+                    for dy in (-1, 0, 1):
+                        cy = 2 * dy + 3 - i
+                        if not 0 <= cy < 6:
+                            continue
+                        py = (r + dy) % 2
+                        oy = (r + dy - py) // 2
+                        for dx in (-1, 0, 1):
+                            cx = 2 * dx + 3 - j
+                            if not 0 <= cx < 6:
+                                continue
+                            px = (s + dx) % 2
+                            ox = (s + dx - px) // 2
+                            wp[oc:oc + out_ch, _cell_slices(in_ch, py, px),
+                               oy + 1, ox + 1] = g[:, :, cy, cx]
+    return wp
+
+
+def repack_up(y: torch.Tensor) -> torch.Tensor:
+    """[N, 16C, G, G] (cell-major, then parity-major: see
+    :func:`build_packed_upconv_packed`) -> the packed layout [N, 4C, 2G, 2G]."""
+    n, c16, gh, gw = y.shape
+    c = c16 // 16
+    y = y.reshape(n, 4, 2, 2, c, gh, gw)        # [N, cell, r, s, C, G, G]
+    y = y.permute(0, 1, 4, 5, 2, 6, 3)          # [N, cell, C, G, r, G, s]
+    return y.reshape(n, 4 * c, 2 * gh, 2 * gw)

@@ -7,14 +7,17 @@ JSON bytes under ``__config__``.  An adaptation checkpoint is one ``.npz``
 of an offsets tree under ``state_dict/``, optional ``extra_state/``, and
 ``__meta__`` JSON bytes (model_type, parametrization, sg2_params).  Both
 formats are byte-for-byte the JAX package's, so a file written by either
-package loads in the other.
+package loads in the other.  Train-state checkpoints keep the JAX layout
+(``ckpt_dir/step_NNNNNNNN``) in a format of the port's own.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
+import shutil
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -143,3 +146,102 @@ def load_adaptation(path: str, device="cpu"):
                  if k.startswith("extra_state/")}
     offsets = _merge_layer_keys(flat_to_tree(state, device))
     return meta, offsets, (flat_to_tree(extra, device) if extra else None)
+
+
+# ----------------------------------------------------------------------------
+# Resumable train-state checkpoints
+#
+# The JAX package writes its state with orbax, which torch cannot read.  The
+# port keeps its layout, ``ckpt_dir/step_{step:08d}``, as a directory holding
+# ``state.pt``: ``torch.save`` of the state's leaves by path (dataclass
+# fields, dict keys and list indices joined by "/"), written under a
+# temporary name and renamed into place, so a crash never leaves a partial
+# step behind.
+
+_STATE_FILE = "state.pt"
+
+
+def _state_leaves(obj: Any, prefix: str, out: Dict[str, Any]):
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        for f in dataclasses.fields(obj):
+            _state_leaves(getattr(obj, f.name), f"{prefix}{f.name}/", out)
+    elif isinstance(obj, dict):
+        for k, v in obj.items():
+            _state_leaves(v, f"{prefix}{k}/", out)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            _state_leaves(v, f"{prefix}{i}/", out)
+    else:
+        out[prefix[:-1]] = obj
+
+
+def train_state_leaves(state: Any) -> Dict[str, Any]:
+    """{path: leaf} of a train state, the paths its checkpoint keys them
+    by (dataclass fields, dict keys and list indices joined by "/")."""
+    out: Dict[str, Any] = {}
+    _state_leaves(state, "", out)
+    return out
+
+
+def _restore(like: Any, prefix: str, saved: Dict[str, Any]) -> Any:
+    if dataclasses.is_dataclass(like) and not isinstance(like, type):
+        return dataclasses.replace(like, **{
+            f.name: _restore(getattr(like, f.name), f"{prefix}{f.name}/",
+                             saved) for f in dataclasses.fields(like)})
+    if isinstance(like, dict):
+        return {k: _restore(v, f"{prefix}{k}/", saved)
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_restore(v, f"{prefix}{i}/", saved)
+                          for i, v in enumerate(like))
+    key = prefix[:-1]
+    value = saved[key]
+    if isinstance(like, torch.Tensor):
+        if not isinstance(value, torch.Tensor) or value.shape != like.shape:
+            raise ValueError(f"{key}: saved {getattr(value, 'shape', value)}"
+                             f", expected shape {tuple(like.shape)}")
+        return value.to(device=like.device, dtype=like.dtype)
+    return value
+
+
+def _step_dir(ckpt_dir: str, step: int) -> str:
+    return os.path.join(ckpt_dir, f"step_{step:08d}")
+
+
+def save_train_state(ckpt_dir: str, step: int, state: Any) -> None:
+    """Write ``state`` (dataclasses, dicts, lists, tensors and host
+    scalars, such as a ``TrainState``) as step ``step`` of ``ckpt_dir``."""
+    final = _step_dir(ckpt_dir, step)
+    tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}-{os.getpid()}")
+    os.makedirs(tmp, exist_ok=True)
+    leaves = {k: v.detach().to("cpu", copy=True)
+              if isinstance(v, torch.Tensor) else v
+              for k, v in train_state_leaves(state).items()}
+    torch.save(leaves, os.path.join(tmp, _STATE_FILE))
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.rename(tmp, final)
+
+
+def load_train_state(ckpt_dir: str, step: int, like_state: Any) -> Any:
+    """Step ``step`` of ``ckpt_dir`` rebuilt in the structure of
+    ``like_state``, every tensor on the device and in the dtype of
+    ``like_state``'s tensor at its place (as orbax restores onto an
+    abstract state).  Raises on a missing or an extra leaf and on a tensor
+    of another shape."""
+    saved = torch.load(os.path.join(_step_dir(ckpt_dir, step), _STATE_FILE),
+                       map_location="cpu", weights_only=True)
+    want = train_state_leaves(like_state)
+    missing, extra = set(want) - set(saved), set(saved) - set(want)
+    if missing or extra:
+        raise KeyError(f"train state step {step}: missing {sorted(missing)}, "
+                       f"unexpected {sorted(extra)}")
+    return _restore(like_state, "", saved)
+
+
+def latest_step(ckpt_dir: str) -> Optional[int]:
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = [int(d.split("_")[1]) for d in os.listdir(ckpt_dir)
+             if d.startswith("step_")]
+    return max(steps) if steps else None

@@ -571,3 +571,129 @@ def test_face_and_warp_phases_drive_the_full_size_path():
     assert (cs.FACE_RES, cs.FACE_TRANSFORM) == (1024, 4096)
     assert cs.FACE_THRESHOLDS == (0.15, 0.25, 0.35)
     assert (cs.WARP_RES, cs.TRAIN_BATCH) == (1024, 32)
+
+
+# ----------------------------------------------------------------------------
+# The state, tail, examples and zoo phases' control flow
+
+
+def _cpu_card(monkeypatch):
+    """torch.cuda's timing and memory calls as no-ops, and the phases' CUDA
+    event timer as a wall clock, for runs on the CPU."""
+    for fn in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, fn, lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(cs, "time_ms", lambda fn, iters=1, warmup=0:
+                        cs.wall_ms(fn, 1))
+    monkeypatch.setattr(cs, "DEVICE", "cpu")
+
+
+def _small_g(pallas_level=True):
+    from gagan_tpu_torch.models import stylegan2 as sg2
+
+    return sg2.GeneratorConfig(
+        z_dim=32, w_dim=32, img_resolution=64,
+        mapping=sg2.MappingConfig(num_layers=2),
+        synthesis=sg2.SynthesisConfig(
+            channel_base=1024, channel_max=32, num_fp16_res=2,
+            conv_clamp=256, packed_last_block=True,
+            pallas_level=pallas_level))
+
+
+def test_state_phase_runs_on_cpu(monkeypatch):
+    """The round trip of a small train state and the three steps; on the
+    CPU the steps are bit-equal, so the bound is 0 and it holds."""
+    from gagan_tpu_torch import entry
+
+    _cpu_card(monkeypatch)
+    steps, state, inputs = entry.train_entry("cpu", batch=4, img_resolution=32,
+                                             channel_base=256, ada_p=0.2)
+    launches = cs.state_phase(dict(steps=steps, state=state, inputs=inputs),
+                              "cpu")
+    assert launches == 0
+
+
+def test_tail_phase_runs_on_cpu(monkeypatch):
+    """The tail phase at 64^2 (packed_tail_blocks 1-3 cover blocks 64, 32
+    and 16), the "orig" G, and the train step with two packed blocks at
+    32^2."""
+    import dataclasses
+
+    from gagan_tpu_torch import entry
+
+    _cpu_card(monkeypatch)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "entry_config", _small_g)
+    for name, value in (("BATCH", 2), ("TIMED_BATCH", 2), ("TRAIN_BATCH", 4)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "train_entry", lambda device, batch, ada_p, **kw:
+                        entry.train_entry(device, batch=batch,
+                                          img_resolution=32, channel_base=256,
+                                          ada_p=ada_p, **kw))
+    monkeypatch.setattr(cs, "train_run", lambda batch, **kw: entry.train_run(
+        batch, 32, 256, **kw))
+    assert cs.tail_phase("cpu", 1.0) == 0
+    cfg = cs.tail_config(3, fused=False)
+    assert (cfg.synthesis.packed_tail_blocks, cfg.synthesis.packed_fused_torgb,
+            cfg.synthesis.architecture) == (3, False, "skip")
+    assert cs.tail_config(1, architecture="orig").synthesis.architecture == \
+        "orig"
+    assert dataclasses.replace(cfg.synthesis, packed_tail_blocks=1,
+                               packed_fused_torgb=True) == \
+        _small_g().synthesis
+
+
+def test_examples_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """The five examples at 32^2 on the CPU, fused and composed snapshots
+    (no CUDA kernel: 0 launches), each PNG at the shape it has at 1024^2
+    (the examples resize to fixed sizes)."""
+    _cpu_card(monkeypatch)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "EXAMPLES_RES", 32)
+    assert cs.examples_phase(str(tmp_path), "cpu") == 0
+    assert set(cs.EXAMPLE_FORWARDS) == set(cs.EXAMPLE_PNGS) == set(
+        cs.examples_entry("cpu", 32, str(tmp_path / "x")))
+
+
+def test_zoo_phase_runs_on_cpu(monkeypatch, tmp_path):
+    """The zoo phase on the CPU at batch 2 with a 64^2 StyleGAN2, a 32^2
+    BigGAN of ch 8 and both SN-GANs (ProgGAN's fixed 1024^2 stays on the
+    card and in tests/test_torch_zoo.py)."""
+    from gagan_tpu_torch import entry
+
+    _cpu_card(monkeypatch)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "entry_config", _small_g)
+    monkeypatch.setattr(cs, "ZOO_BATCH", 2)
+    monkeypatch.setattr(cs, "ZOO_MODELS",
+                        ("stylegan2", "sn_anime", "sn_mnist", "biggan"))
+
+    def small_zoo(device, name, batch, **kw):
+        if name == "biggan":
+            kw = dict(kw, ch=8, resolution=32, attention=16)
+            kw.pop("snapshot_path")
+        return entry.zoo_entry(device, name, batch, **kw)
+
+    monkeypatch.setattr(cs, "zoo_entry", small_zoo)
+    assert cs.zoo_phase(str(tmp_path), "cpu") == 0
+
+
+def test_new_phases_drive_the_full_size_path():
+    """On the card: the examples and the zoo's stylegan2 at FFHQ-1024 with
+    the fused level (2 launches a G forward), the zoo's five models at
+    batch 8 with BigGAN-PyTorch's 128^2 widths, the packed tail over 1-3
+    blocks (3 blocks leave b128.conv1 alone fused), the train state of the
+    train phase."""
+    from gagan_tpu_torch import entry
+
+    assert cs.EXAMPLES_RES == 1024 and cs.ZOO_BATCH == 8
+    assert cs.examples_config(cs.EXAMPLES_RES) == entry.entry_config()
+    assert cs.ZOO_MODELS == ("stylegan2", "proggan", "sn_anime", "sn_mnist",
+                             "biggan")
+    assert entry.BIGGAN_128 == dict(ch=96, dim_z=120, shared_dim=128,
+                                    resolution=128, hier=True, attention=64)
+    assert [cs.expected_launches(cs.tail_config(n), 8)
+            for n in cs.TAIL_BLOCKS] == [2, 2, 1]
+    assert cs.expected_launches(cs.tail_config(1, architecture="orig"), 8) == 2
+    assert cs.TAIL_TRAIN == 2
+    assert sum(cs.EXAMPLE_FORWARDS.values()) == 17

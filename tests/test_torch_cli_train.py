@@ -183,11 +183,20 @@ def test_build_run_configs_match_jax(res, kw, monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--gpus", "2"], "item 10"), (["--spatial-shard-min-res", "8"], "item 10"),
     (["--packed-tail-blocks", "2"], "tail")])
-def test_train_refuses_unported_options(flags, match, tmp_path):
+def test_train_refuses_unported_options(flags, match, tmp_path, capsys):
+    """--gpus and --spatial-shard-min-res stay refused; --packed-tail-blocks
+    2, refused while the port's packed tail was one block, now builds its
+    run with a two-block packed tail."""
     data = _folder(tmp_path / "d", 16)
-    with pytest.raises(NotImplementedError, match=match):
-        ttrain.main(["--outdir", str(tmp_path / "o"), "--data", data,
-                     "--dry-run"] + flags)
+    argv = ["--outdir", str(tmp_path / "o"), "--data", data, "--dry-run"]
+    if match == "tail":
+        assert ttrain.main(argv + flags) is None
+        assert "Dry run" in capsys.readouterr().out
+        syn = ttrain.build_run(1024, packed_tail_blocks=2).g_cfg.synthesis
+        assert syn.packed_last_block and syn.packed_tail_blocks == 2
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            ttrain.main(argv + flags)
     with pytest.raises(SystemExit):                     # 4 % 3 != 0
         ttrain.main(["--outdir", str(tmp_path / "o"), "--data", data,
                      "--batch", "4", "--batch-gpu", "3", "--dry-run"])

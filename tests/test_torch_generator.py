@@ -151,10 +151,19 @@ def test_random_noise_follows_the_torch_generator():
 
 
 def test_unported_packed_tail_settings_raise():
+    """The packed tail's other settings, once refused, now run: two blocks
+    packed, and the unfused torgb, each an exact reformulation of the
+    unpacked forward (tests/test_torch_packed_tail.py holds them against
+    JAX)."""
     _, tcfg = _cfgs(0)
     params = tck.flat_to_tree(_weights(tcfg, seed=8))
-    ws = torch.zeros((1, tcfg.num_ws, 64))
-    for change in ({"packed_tail_blocks": 2}, {"packed_fused_torgb": False}):
-        cfg = dataclasses.replace(tcfg.synthesis, **change)
-        with pytest.raises(NotImplementedError, match="packed"):
-            tsg.synthesis_apply(cfg, params["synthesis"], ws)
+    ws = torch.from_numpy(
+        np.random.RandomState(9).randn(1, tcfg.num_ws, 64).astype(np.float32))
+    plain = dataclasses.replace(tcfg.synthesis, packed_last_block=False)
+    with torch.no_grad():
+        want = tsg.synthesis_apply(plain, params["synthesis"], ws)
+        for change in ({"packed_tail_blocks": 2}, {"packed_fused_torgb": False}):
+            cfg = dataclasses.replace(tcfg.synthesis, **change)
+            got = tsg.synthesis_apply(cfg, params["synthesis"], ws)
+            assert float((got - want).abs().max()) <= 2e-4 * float(
+                want.abs().max())

@@ -471,3 +471,60 @@ def test_chip_smoke_fails_without_cuda_or_repo(tmp_path):
     out = subprocess.run([sys.executable, str(alone)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+def test_examples_zoo_and_train_state_run_without_jax_or_pil(tmp_path):
+    """With JAX, the JAX package, Pillow, click, PyYAML, regex, ftfy and cv2
+    blocked: the modules this slice adds import (the examples, the zoo and
+    its models, the utilities, ``parallel``), the five examples run on the
+    CPU as ``python -m`` commands and write their PNGs, each zoo maker
+    renders, a train state round-trips, and the new entry points refuse
+    CUDA without a card."""
+    work = str(tmp_path / "work")
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu', 'PIL', 'click', 'yaml', 'regex', "
+            "'ftfy', 'cv2'):\n"
+            "    sys.modules[m] = None\n"
+            "import os, runpy, torch\n"
+            "import gagan_tpu_torch.examples, gagan_tpu_torch.parallel, "
+            "gagan_tpu_torch.parallel.spatial, gagan_tpu_torch.models, "
+            "gagan_tpu_torch.models.zoo, gagan_tpu_torch.models.proggan, "
+            "gagan_tpu_torch.models.sngan, gagan_tpu_torch.models.biggan, "
+            "gagan_tpu_torch.utils.image_utils, "
+            "gagan_tpu_torch.utils.math_utils, "
+            "gagan_tpu_torch.utils.download\n"
+            "from gagan_tpu_torch import entry\n"
+            "from gagan_tpu_torch.utils import checkpoint as ck, png\n"
+            f"argvs = entry.examples_entry('cpu', 32, {work!r})\n"
+            "for name, argv in argvs.items():\n"
+            "    sys.argv = [name] + argv\n"
+            "    runpy.run_module('gagan_tpu_torch.examples.' + name, "
+            "run_name='__main__')\n"
+            "    out = argv[argv.index('--outdir') + 1]\n"
+            "    pngs = [f for f in os.listdir(out) if f.endswith('.png')]\n"
+            "    assert pngs and png.read_png(os.path.join(out, pngs[0]))"
+            ".ndim == 3, name\n"
+            "for name in ('sn_mnist', 'biggan', 'stylegan2'):\n"
+            "    kw = dict(ch=8, resolution=32, attention=16) "
+            "if name == 'biggan' else {}\n"
+            f"    h, z = entry.zoo_entry('cpu', name, 2, "
+            f"snapshot_path={work!r} + '/G.npz', **kw)\n"
+            "    assert torch.isfinite(h.gen_shifted(z, torch.zeros(2, "
+            "h.dim_shift))).all()\n"
+            f"ck.save_train_state({work!r}, 3, {{'a': torch.ones(2)}})\n"
+            f"assert ck.latest_step({work!r}) == 3\n"
+            "for fn in (lambda: entry.examples_entry(), "
+            "lambda: entry.zoo_entry(name='proggan')):\n"
+            "    try:\n"
+            "        fn()\n"
+            "        raise AssertionError('ran without CUDA')\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'CUDA' in str(e)\n"
+            "for m in ('jax', 'gagan_tpu', 'PIL', 'cv2'):\n"
+            "    assert sys.modules[m] is None\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
