@@ -104,6 +104,26 @@ no ok line):
                a batched generation; a trace of one (G's and Swin-T's
                shares, idle share); calculate_metrics (Swin-T FID / KID,
                alex-LPIPS) of the best direction against the loop's PNGs;
+     dist    - (after ga) data parallelism over torch.distributed ranks
+               (parallel/mesh.py), deterministic algorithms, TF32 off: an
+               NCCL world of one takes the three variants at FFHQ-1024,
+               batch 32, bit-equal to the step without a process group (and
+               its s/step beside it); then two ranks share the card over
+               gloo (NCCL refuses that): "none" at global batch 32 in the
+               two-device plan (rounds of 8 a rank) for fused launches,
+               s/step, the gradient all_reduce alone and peak memory per
+               rank; the three variants in fp32 at global batch 8 against
+               the one-process step of that plan (gradients, losses,
+               pl_mean, w_avg, ada_p, each within its bound; the ranks
+               bit-equal), and two planted faults that the bounds must
+               fail (mbstd over a rank's rows, every rank drawing the
+               first rows); the
+               training loop on the dataset zip for 4 batches (files from
+               rank 0 only, one snapshot, stats.jsonl against the
+               one-process loop, each rank's loader and wait); the GA with
+               ``mesh=`` against the ga phase's batched run (scores,
+               history, best) and its candidates/s; parallel/dryrun.py's
+               resume cycle at batch 8, bit-equal;
  14. metrics - cli/calc_metrics.py --metrics fid1k,kid1k on the loop's
                snapshot and PNGs, twice (metric-*.jsonl, the random-detector
                warning, the second run's dataset statistics read from the
@@ -163,6 +183,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
 import dataclasses
 import io
 import json
@@ -198,8 +219,8 @@ from gagan_tpu_torch.cli import convert_weights  # noqa: E402
 from gagan_tpu_torch.data.dataset import read_rgb  # noqa: E402
 from gagan_tpu_torch.editing import styleflow  # noqa: E402
 from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
-                                   ZOO_MODELS, adapt_entry, entry,
-                                   entry_config, examples_config,
+                                   ZOO_MODELS, adapt_entry, dp_train_entry,
+                                   entry, entry_config, examples_config,
                                    examples_entry, fewshot_entry, ga_entry,
                                    im2im_entry, rescale_random_convs,
                                    restyle_entry, train_configs, train_entry,
@@ -217,6 +238,8 @@ from gagan_tpu_torch.metrics import ppl as ppl_lib  # noqa: E402
 from gagan_tpu_torch.metrics import precision_recall as pr_lib  # noqa: E402
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
+from gagan_tpu_torch.parallel import dryrun  # noqa: E402
+from gagan_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from gagan_tpu_torch.params import offsets as offs_lib  # noqa: E402
 from gagan_tpu_torch.train import augment, gan_loss  # noqa: E402
 from gagan_tpu_torch.train import auto_layers  # noqa: E402
@@ -1270,7 +1293,7 @@ def loop_phase(tmp, card, train_sec_per_kimg):
     where it builds), --kimg 1 at --batch 32: the loop's plan gives
     main rounds of 8 (fused level in G's forward, 2 levels a round), Greg
     rounds of 16 (pallas_level off) and R1 with a remat'd D.  Returns the
-    run dir, the fused launches and the loop's own sec/kimg."""
+    run dir, the fused launches, the loop's own sec/kimg and the zip."""
     data, native = dataset_phase(tmp, card)
     phase("loop")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1367,7 +1390,7 @@ def loop_phase(tmp, card, train_sec_per_kimg):
           f"the tick includes the first steps' warm-up; on {card}",
           flush=True)
     png_decode_rate(tmp, card)
-    return snap, launches, sec_per_kimg
+    return snap, launches, sec_per_kimg, data
 
 
 def remat_phase(card):
@@ -2495,7 +2518,9 @@ def ga_phase(tmp, card):
     generation; a trace of one; calculate_metrics of the best direction's
     images against the loop's PNGs.  TF32 off throughout (the Swin linear
     layers are fp32 matmuls either way).  Returns the fused launches by
-    mode."""
+    mode and the batched run (best, history, candidates/s, the first
+    population, a z and its scores), which the dist phase repeats over two
+    ranks."""
     phase("ga")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2553,7 +2578,7 @@ def ga_phase(tmp, card):
           flush=True)
     if not (hist_err <= GA_SCORE_TOL and best_err <= 1e-4):
         raise AssertionError("ga: scan and batched evolutions disagree")
-    population, z = ga_pallas_check(e, params, card)
+    population, z, scores = ga_pallas_check(e, params, card)
     torch.cuda.empty_cache()
 
     def generation():
@@ -2567,7 +2592,8 @@ def ga_phase(tmp, card):
                  1e3 * gen_s, ranges=("ga_render", "ga_fitness"))
     torch.cuda.empty_cache()
     ga_metrics_check(tmp, e, params, best_b, card)
-    return launches
+    return launches, dict(best=best_b, history=hist_b, population=population,
+                          z=z, scores=scores, rate=rate_b)
 
 
 def ga_pallas_check(e, params, card):
@@ -2577,7 +2603,8 @@ def ga_pallas_check(e, params, card):
     cosines of pooled features; an image error of relative RMS r moves a
     feature vector by about r of its norm through a tower of gain near 1,
     and a cosine by at most twice that: 2 x 2^-5 = 2^-4 absolute.  A wrong
-    kernel errs by O(1) in both.  Returns (population, z)."""
+    kernel errs by O(1) in both.  Returns (population, z, the fused G's
+    scores)."""
     cfg = e.cfg
     dim = ga_search.direction_dim(e.g_cfg.synthesis)
     pop, b = cfg.population, cfg.batch_per_candidate
@@ -2611,7 +2638,7 @@ def ga_pallas_check(e, params, card):
     if not (rel_rms <= 2 ** -5 and err <= 2 ** -4
             and np.isfinite(sp).all()):
         raise AssertionError("ga: pallas and composed scores disagree")
-    return population, z
+    return population, z, sp
 
 
 def ga_metrics_check(tmp, e, params, best, card):
@@ -4021,6 +4048,527 @@ def zoo_phase(tmp, card):
     return launches_total
 
 
+# ----------------------------------------------------------------------------
+# dist: data parallelism over torch.distributed ranks (parallel/mesh.py)
+
+# Each collective of a dist rank, and each spawn of the ranks, ends within
+# this many seconds; a rank that fails or hangs fails the phase.
+DIST_TIMEOUT = 600
+# The loop's batches over two ranks, and the resume cycle's global batch.
+DIST_LOOP_BATCHES, DIST_RESUME_BATCH = 4, 8
+# Two ranks against one process.  The comparison runs G and D and the ADA
+# pipe in fp32 (TF32 off, deterministic algorithms), at global batch
+# DIST_CHECK_BATCH in rounds of DIST_CHECK_BATCH_GPU a rank, so that what
+# differs between the two is fp32 summation order: the ranks run every
+# convolution at half the batch and add the halves' gradients in the
+# all_reduce.  (In bf16 the batch sums of the weight gradients round at
+# other places when the batch is split, which moved G's conv1 weights by
+# 3.4e-2 with no collective at all: no bound could then tell a fault.)  The
+# step runs at learning rate 0, so that every phase of a variant starts
+# from the same parameters in both runs (Adam's first step, lr * g / (|g|
+# + 1e-8), would move each element by +-lr wherever rounding decides the
+# sign of a g near 0), and Adam's first moment holds each net's last
+# phase's gradient (beta1 is 0): Gmain / Dmain in "none", Greg in "greg",
+# Greg / Dreg in "both".  Each quantity has its own bound, 16 times the
+# largest reading of the first fp32 run on the H100 (PERF.md §6),
+# rounded up to a power of two: G's gradient by its phase (Gmain in "none",
+# 6.2e-7; Greg, 6.0e-4: the path length is the VJP of the image against
+# random noise, a sum over 3M pixels that cancels, and the two runs' cuDNN
+# sums it in another order at another batch), D's (Dmain and Dreg, 1.1e-6),
+# the loss metrics by phase (main 8.7e-8; the regularizers' 1.8e-4),
+# pl_mean (9.2e-5) and w_avg (read 0: the bound stands at 2^-20).  A net's
+# gradient is held by its relative L2 over the whole net (a single leaf
+# whose gradient is a cancelling sum, a noise strength, can move by more
+# than its own size).  Two faults that leave the ranks bit-equal, so that
+# check_replica_consistency cannot see them, are planted in the same run
+# and must fail these bounds (DIST_FAULTS): the minibatch stddev over each
+# rank's rows alone (in "none"), and every rank taking the first rows of
+# each draw, a wrong share of the noise, the mixing, the ADA pipe's and
+# PL's draws (in "greg").
+DIST_CHECK_BATCH, DIST_CHECK_BATCH_GPU = 8, 2
+DIST_BOUNDS = {"G main": 2 ** -16, "G reg": 2 ** -6, "D": 2 ** -15,
+               "loss main": 2 ** -19, "loss reg": 2 ** -8,
+               "pl_mean": 2 ** -9, "w_avg": 2 ** -20}
+DIST_VARIANTS = tuple(v for v, _, _ in dryrun.VARIANTS)
+
+
+def _dist_settings():
+    """Deterministic algorithms (warn only: an op without one runs as
+    before) and TF32 off, in a dist rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+
+
+def _timed_step(step, state, inputs) -> float:
+    s = copy.deepcopy(state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(s, *inputs)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _grad_leaves(state):
+    """Each net's last gradient (Adam's first moment), ``pl_mean``,
+    ``ada_p`` and ``w_avg``, on the host."""
+    out = {f"G/{k}": v.detach().cpu().clone()
+           for k, v in state.g_opt_state.mu.items()}
+    out.update({f"D/{k}": v.detach().cpu().clone()
+                for k, v in state.d_opt_state.mu.items()})
+    for k, v in (("pl_mean", state.pl_mean), ("ada_p", state.ada_p),
+                 ("w_avg", state.g_params["mapping"]["w_avg"])):
+        out[k] = v.detach().cpu().clone()
+    return out
+
+
+def _rel_l2_by_net(got, want):
+    """{"G": ..., "D": ...}: each net's gradient relative L2 over all its
+    leaves, and (relative L2, leaf) of its worst leaf."""
+    out = {}
+    for net in ("G", "D"):
+        num = den = 0.0
+        worst = (0.0, "")
+        for k, w in want.items():
+            if not k.startswith(net + "/"):
+                continue
+            d2, w2 = float((got[k] - w).square().sum()), float(w.square().sum())
+            num, den = num + d2, den + w2
+            if w2 > 0 and np.sqrt(d2 / w2) > worst[0]:
+                worst = (float(np.sqrt(d2 / w2)), k)
+        if den > 0:
+            out[net] = (float(np.sqrt(num / den)), worst)
+    return out
+
+
+def _compare_grads(got, want, got_metrics, want_metrics):
+    """Each net's gradient relative L2 (and its worst leaf); the relative
+    error of ``pl_mean`` and ``w_avg``; ``ada_p``'s difference; the largest
+    relative difference of a loss metric, of the main phases and of the
+    regularizers apart (the signs and the GA share count samples)."""
+
+    def rel(k):
+        return float((got[k] - want[k]).norm() / max(float(want[k].norm()),
+                                                     1e-30))
+    loss = {"main": 0.0, "reg": 0.0}
+    for k, v in want_metrics.items():
+        if k.startswith("Loss/") and "/signs/" not in k and "/ga/" not in k:
+            part = "reg" if ("reg" in k or "penalty" in k) else "main"
+            loss[part] = max(loss[part], float(
+                abs(got_metrics[k] - v) / max(abs(float(v)), 1e-30)))
+    return {"nets": _rel_l2_by_net(got, want), "pl_mean": rel("pl_mean"),
+            "w_avg": rel("w_avg"), "loss": loss,
+            "ada_p": float((got["ada_p"] - want["ada_p"]).abs())}
+
+
+def dist_one_rank(mesh):
+    """The NCCL world of one: the three variants at FFHQ-1024, batch 32,
+    through the mesh, then in the same process without it; the states'
+    digests, launches and the warm s/step of "none" both ways."""
+    _dist_settings()
+    steps, state, inputs = dp_train_entry(mesh, batch=TRAIN_BATCH, ada_p=0.2)
+    dp = dryrun.run_variants(mesh, steps, state, inputs, DIST_VARIANTS,
+                             keep=dryrun.state_digest)
+    dp_s = _timed_step(steps["none"], state, inputs)
+    del steps, state, inputs
+    torch.cuda.empty_cache()
+    steps, state, inputs = train_entry(mesh.device, batch=TRAIN_BATCH,
+                                       ada_p=0.2)
+    ref = dryrun.run_variants(None, steps, state, inputs, DIST_VARIANTS,
+                              keep=dryrun.state_digest)
+    ref_s = _timed_step(steps["none"], state, inputs)
+    return {"dp": dp, "ref": ref, "dp_s": dp_s, "ref_s": ref_s}
+
+
+def _fault_mbstd_per_rank():
+    """The minibatch stddev over the rank's rows alone."""
+    orig = sg2.minibatch_std
+
+    def per_rank(x, group_size, num_channels=1, shard=None):
+        return orig(x, group_size, num_channels, None)
+    return sg2, "minibatch_std", per_rank
+
+
+def _fault_first_rows():
+    """Every rank takes the first rows of each draw, not its own."""
+    def first_rows(self, fn, shape, *args, device):
+        return fn(tuple(shape), *args, device=device)
+    return mesh_lib.ShardedRng, "_draw", first_rows
+
+
+# Faults planted in the dist step check (see DIST_BOUNDS), and the variant
+# each runs in.
+DIST_FAULTS = {"mbstd over a rank's rows": (_fault_mbstd_per_rank, "none"),
+               "first rows of every draw": (_fault_first_rows, "greg")}
+
+
+def _dist_timing(mesh):
+    """(2a) The train phase's plan for two devices in bf16 at global batch 32
+    (16 a rank in the loop's rounds of 8): "none" twice, the second timed;
+    its fused launches, the gradient all_reduce alone, the peak memory."""
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    steps, state, inputs = dp_train_entry(mesh, batch=TRAIN_BATCH, ada_p=0.2)
+    none = dryrun.run_variants(mesh, steps, state, inputs, ("none",),
+                               keep=lambda s: None)["none"]
+    none["s"] = _timed_step(steps["none"], state, inputs)
+    peak = torch.cuda.max_memory_allocated(mesh.device)
+    n = sum(v.numel() for v in state.g_opt_state.mu.values()) + sum(
+        v.numel() for v in state.d_opt_state.mu.values())
+    bucket = torch.ones(n, device=mesh.device)
+    mesh.all_reduce_(bucket)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        mesh.all_reduce_(bucket)
+    torch.cuda.synchronize()
+    out = {"launches": none["launches"], "none_s": none["s"], "peak": peak,
+           "allreduce_ms": (time.perf_counter() - t0) / 3 * 1e3,
+           "allreduce_mib": n * 4 / 2 ** 20}
+    del steps, state, inputs, bucket
+    return out
+
+
+def _dist_check(mesh):
+    """(2b) Two ranks against one process (DIST_BOUNDS): the three variants
+    in fp32 at global batch DIST_CHECK_BATCH and learning rate 0, each
+    rank's gradients kept, and each planted fault (DIST_FAULTS) in its
+    variant; rank 0 then runs the one-process step of the same plan on the
+    whole batch while rank 1 waits, and compares."""
+    out = {}
+    check = dict(batch=DIST_CHECK_BATCH, ada_p=0.2, lrate=0.0, fp32=True,
+                 batch_gpu=DIST_CHECK_BATCH_GPU)
+    steps, state, inputs = dp_train_entry(mesh, **check)
+    runs = dryrun.run_variants(mesh, steps, state, inputs, DIST_VARIANTS,
+                               keep=_grad_leaves)
+    faults = {}
+    for name, (plant, variant) in DIST_FAULTS.items():
+        owner, attr, fn = plant()
+        orig = getattr(owner, attr)
+        setattr(owner, attr, fn)
+        try:
+            faults[name] = dryrun.run_variants(
+                mesh, steps, state, inputs, (variant,),
+                keep=_grad_leaves)[variant]
+        finally:
+            setattr(owner, attr, orig)
+    out["check_launches"] = {v: r["launches"] for v, r in runs.items()}
+    out["check_s"] = {v: r["s"] for v, r in runs.items()}
+    del steps, state, inputs
+    torch.cuda.empty_cache()
+    mesh.barrier()
+    if mesh.rank == 0:
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        steps, state, inputs = train_entry(mesh.device, n_devices=2, **check)
+        ref = dryrun.run_variants(None, steps, state, inputs, DIST_VARIANTS,
+                                  keep=_grad_leaves)
+        out["ref_peak"] = torch.cuda.max_memory_allocated(mesh.device)
+        out["ref_s"] = {v: r["s"] for v, r in ref.items()}
+        out["compare"] = {v: _compare_grads(
+            runs[v]["state"], ref[v]["state"], runs[v]["metrics"],
+            ref[v]["metrics"]) for v in DIST_VARIANTS}
+        out["faults"] = {name: _compare_grads(
+            f["state"], ref[v]["state"], f["metrics"], ref[v]["metrics"])
+            for (name, f), (_, v) in zip(faults.items(),
+                                         DIST_FAULTS.values())}
+        del steps, state, inputs, ref
+        torch.cuda.empty_cache()
+    mesh.barrier()
+    return out
+
+
+def _dist_breaks(c, variant: str) -> list:
+    """The quantities of ``variant``'s comparison (:func:`_compare_grads`)
+    past their DIST_BOUNDS (G's by its last phase), and a changed ada_p."""
+    got = {"G main" if variant == "none" else "G reg": c["nets"]["G"][0],
+           "D": c["nets"]["D"][0], "loss main": c["loss"]["main"],
+           "loss reg": c["loss"]["reg"], "pl_mean": c["pl_mean"],
+           "w_avg": c["w_avg"]}
+    bad = [k for k, v in got.items() if not v <= DIST_BOUNDS[k]]
+    return bad + (["ada_p"] if c["ada_p"] != 0 else [])
+
+
+def _dist_reading(c) -> str:
+    nets = c["nets"]
+    return (f"gradient relative L2 G {nets['G'][0]:.4g}, D {nets['D'][0]:.4g}"
+            f" (worst leaves {nets['G'][1][0]:.4g} {nets['G'][1][1]}, "
+            f"{nets['D'][1][0]:.4g} {nets['D'][1][1]}); loss metrics main "
+            f"{c['loss']['main']:.4g}, regularizers {c['loss']['reg']:.4g}; "
+            f"pl_mean {c['pl_mean']:.4g}, w_avg {c['w_avg']:.4g}, ada_p "
+            f"{c['ada_p']:.4g}")
+
+
+def _dist_loop_config(run, run_dir, n_devices):
+    kimg = DIST_LOOP_BATCHES * LOOP_BATCH / 1000
+    return dataclasses.replace(
+        run.loop_cfg, run_dir=run_dir, total_kimg=kimg, kimg_per_tick=kimg,
+        image_snapshot_ticks=None, network_snapshot_ticks=1,
+        log_param_histograms=False, n_devices=n_devices)
+
+
+def _dist_loop(mesh, data, out_dir):
+    """(3) cli/train.py's run (the plan for two devices) on the zip for
+    DIST_LOOP_BATCHES batches, each rank in a run directory of its own:
+    the files each wrote, its loader and its wait on it, its launches."""
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    run = train_cli.build_run(LOOP_RES, batch=LOOP_BATCH, n_devices=2,
+                              snap=1, seed=0)
+    run_dir = os.path.join(out_dir, "dist_run", f"rank{mesh.rank}")
+    dataset, _ = train_cli.open_dataset(data, random_seed=0)
+    taken, loaders = [], []
+    orig = (loop_lib.data_loader, loop_lib.nl.native_data_loader)
+
+    def timed(name, fn):
+        def make(*a, **k):
+            taken.append(name)
+            loaders.append(TimedLoader(fn(*a, **k)))
+            return loaders[-1]
+        return make
+
+    loop_lib.data_loader = timed("data_loader", orig[0])
+    loop_lib.nl.native_data_loader = timed("native_data_loader", orig[1])
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    try:
+        state = loop_lib.training_loop(
+            _dist_loop_config(run, run_dir, 2), run.train_cfg, run.g_cfg,
+            run.d_cfg, dataset, augment_cfg=run.augment_cfg,
+            reg_remat=run.reg_remat, mesh=mesh)
+        torch.cuda.synchronize()
+    finally:
+        loop_lib.data_loader, loop_lib.nl.native_data_loader = orig
+    files = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+    stats = []
+    if "stats.jsonl" in files:
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            stats = [json.loads(ln) for ln in f if ln.strip()]
+    torch.backends.cudnn.allow_tf32 = False
+    return {"taken": taken, "wait": loaders[0].wait_s,
+            "batches": loaders[0].batches, "files": files, "stats": stats,
+            "launches": fmc.fused_modconv3x3.launches,
+            "wall": time.perf_counter() - t0, "cur_nimg": state.cur_nimg,
+            "peak": torch.cuda.max_memory_allocated(mesh.device),
+            "rounds": run.train_cfg.accum_rounds}
+
+
+def _dist_ga(mesh, population, z):
+    """(4) The ga phase's batched search over the ranks: the first
+    population's scores gathered from both blocks, then the search from
+    Rng(GA_SEED) with ``mesh=``, timed after a warm-up."""
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    dev = mesh.device
+    params = seeded_weights(sg2.init_generator(
+        adapt_g_config(), torch.Generator().manual_seed(0), dev))
+    e = ga_entry(dev, eval_mode="batched", generations=GA_GENERATIONS,
+                 g_params=params)
+    cfg = e.cfg
+    rows = mesh_lib.share_rows(cfg.population, mesh.world_size, mesh.rank)
+    with torch.no_grad():
+        scores = mesh.gather(ga_search.eval_batched(
+            cfg, e.g_cfg, params, e.fitness_fn, population.to(dev)[rows],
+            z.to(dev)), rows, cfg.population)
+    ga_search.evolve_directions(Rng(GA_SEED), e.g_cfg, params, e.fitness_fn,
+                                dataclasses.replace(cfg, generations=0),
+                                mesh=mesh)
+    fmc.fused_modconv3x3.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best, hist = ga_search.evolve_directions(
+        Rng(GA_SEED), e.g_cfg, params, e.fitness_fn, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"best": best, "history": hist, "scores": scores.cpu().numpy(),
+            "rate": cfg.population * (cfg.generations + 1) / wall,
+            "launches": fmc.fused_modconv3x3.launches,
+            "peak": torch.cuda.max_memory_allocated(dev)}
+
+
+def _resume_build(mesh):
+    return dp_train_entry(mesh, batch=DIST_RESUME_BATCH, ada_p=0.2)
+
+
+def dist_two_rank(mesh, data, out_dir, population, z):
+    """One of two ranks sharing the card over gloo: (4) the GA first, while
+    neither rank's allocator holds anything (its batched generation is the
+    largest peak), then (2b) the fp32 step against the one-process step,
+    (3) the loop, (2a) the bf16 step's time, (5) the resume cycle (parallel/dryrun.py's full / pre / resume at
+    FFHQ-1024, global batch DIST_RESUME_BATCH, the "none" variant)."""
+    _dist_settings()
+    out = {"ga": _dist_ga(mesh, population, z)}
+    torch.cuda.empty_cache()
+    out["step"] = _dist_check(mesh)
+    torch.cuda.empty_cache()
+    out["loop"] = _dist_loop(mesh, data, out_dir)
+    torch.cuda.empty_cache()
+    out["step"].update(_dist_timing(mesh))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["resume"] = dryrun.resume_cycle_rank(mesh, out_dir, _resume_build,
+                                             "none")
+    out["resume_s"] = time.perf_counter() - t0
+    return out
+
+
+def dist_phase(tmp, data, card, train_seconds, ga_run):
+    """Data parallelism on the card: (1) an NCCL world of one, bit-equal to
+    the in-process step; (2)-(5) two ranks on the one card over gloo (asked
+    for: NCCL refuses two ranks on one card), the step against the
+    one-process step, the loop writing from rank 0 only, the GA with
+    ``mesh=`` and the bit-equal resume cycle.  Returns rank 0's fused
+    launches."""
+    phase("dist")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    g_cfg = train_configs(TRAIN_BATCH)[0]
+    t0 = time.perf_counter()
+    (one,) = mesh_lib.spawn(dist_one_rank, 1, backend="nccl",
+                            timeout=DIST_TIMEOUT, limit=DIST_TIMEOUT)
+    wall1 = time.perf_counter() - t0
+    want1 = expected_launches(g_cfg, 8) * (TRAIN_BATCH // 8)
+    for v in DIST_VARIANTS:
+        dp, ref = one["dp"][v], one["ref"][v]
+        print(f"dist NCCL world of one, {v}: state digest "
+              f"{dp['state'][:16]} through the group, {ref['state'][:16]} "
+              f"in process; fused launches {dp['launches']} / "
+              f"{ref['launches']} (expected {want1})", flush=True)
+        if dp["state"] != ref["state"] or dp["launches"] != want1:
+            raise AssertionError(f"dist world of one {v}: not the in-process "
+                                 f"step")
+    print(f"dist NCCL world of one: none {one['dp_s']:.4f} s/step through "
+          f"the process group against {one['ref_s']:.4f} in process "
+          f"(deterministic algorithms, TF32 off; the train phase, default "
+          f"algorithms: {train_seconds['none']:.4f}); spawn and run "
+          f"{wall1:.1f} s, on {card}", flush=True)
+
+    torch.cuda.empty_cache()
+    # The two ranks' allocators share the card: segments that grow in place
+    # leave less of it reserved and unused.
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh_lib.spawn(
+            dist_two_rank, 2, backend="gloo", devices="cuda:0",
+            timeout=DIST_TIMEOUT, limit=DIST_TIMEOUT,
+            args=(data, tmp, ga_run["population"].cpu(), ga_run["z"].cpu()))
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    wall2 = time.perf_counter() - t0
+    want2 = expected_launches(g_cfg, 8) * (TRAIN_BATCH // 2 // 8)
+    want_c = expected_launches(g_cfg, DIST_CHECK_BATCH_GPU) * (
+        DIST_CHECK_BATCH // 2 // DIST_CHECK_BATCH_GPU)
+    for r, out in enumerate(ranks):
+        st = out["step"]
+        print(f"dist gloo rank {r}/2 on cuda:0, bf16 at global batch "
+              f"{TRAIN_BATCH}: none fused launches {st['launches']} "
+              f"(expected {want2}), {st['none_s']:.4f} s/step warm, "
+              f"gradient all_reduce "
+              f"{st['allreduce_ms']:.2f} ms for {st['allreduce_mib']:.1f} MiB,"
+              f" peak {st['peak'] / 2 ** 30:.3f} GiB; fp32 check at global "
+              f"batch {DIST_CHECK_BATCH}: launches {st['check_launches']} "
+              f"(expected {want_c} each), s "
+              f"{ {v: round(x, 4) for v, x in st['check_s'].items()} }; on "
+              f"{card}", flush=True)
+        if st["launches"] != want2 or any(
+                n != want_c for n in st["check_launches"].values()):
+            raise AssertionError(f"dist rank {r}: launches")
+    st = ranks[0]["step"]
+    bounds = ", ".join(f"{k} {v:.4g}" for k, v in DIST_BOUNDS.items())
+    for v in DIST_VARIANTS:
+        c = st["compare"][v]
+        print(f"dist 2 ranks vs one process, fp32, {v}: {_dist_reading(c)} "
+              f"(bounds {bounds}; ada_p equal); one process "
+              f"{st['ref_s'][v]:.4f} s, peak {st['ref_peak'] / 2 ** 30:.3f} "
+              f"GiB", flush=True)
+        if _dist_breaks(c, v):
+            raise AssertionError(f"dist {v}: two ranks are not the "
+                                 f"one-process step: {_dist_breaks(c, v)}")
+    for name, c in st["faults"].items():
+        v = DIST_FAULTS[name][1]
+        broken = _dist_breaks(c, v)
+        print(f"dist planted fault, {name} ({v}): {_dist_reading(c)}; past "
+              f"its bounds: {broken}", flush=True)
+        if not broken:
+            raise AssertionError(f"dist: the bounds do not fail the planted "
+                                 f"fault {name}")
+
+    loops = [out["loop"] for out in ranks]
+    snaps = [f for f in loops[0]["files"] if f.startswith("network-snapshot")]
+    want_l = expected_launches(g_cfg, 8) * loops[0]["rounds"] * (
+        DIST_LOOP_BATCHES)
+    for r, lp in enumerate(loops):
+        print(f"dist loop rank {r}: {lp['batches']} batches by {lp['taken']},"
+              f" waited {lp['wait']:.4f} s of {lp['wall']:.2f} s; fused "
+              f"launches {lp['launches']} (expected {want_l}); files "
+              f"{lp['files']}; peak {lp['peak'] / 2 ** 30:.3f} GiB",
+              flush=True)
+    if (loops[1]["files"] or len(snaps) != 1 or len(loops[0]["stats"]) != 1
+            or any(lp["launches"] != want_l or lp["cur_nimg"] != LOOP_BATCH
+                   * DIST_LOOP_BATCHES for lp in loops)):
+        raise AssertionError("dist loop: files, snapshot or launches")
+    torch.cuda.empty_cache()
+    run = train_cli.build_run(LOOP_RES, batch=LOOP_BATCH, n_devices=2,
+                              snap=1, seed=0)
+    ref_dir = os.path.join(tmp, "dist_ref")
+    torch.backends.cudnn.allow_tf32 = True
+    loop_lib.training_loop(
+        _dist_loop_config(run, ref_dir, None), run.train_cfg, run.g_cfg,
+        run.d_cfg, train_cli.open_dataset(data, random_seed=0)[0],
+        augment_cfg=run.augment_cfg, reg_remat=run.reg_remat, device=DEVICE)
+    with open(os.path.join(ref_dir, "stats.jsonl")) as f:
+        want_stats = json.loads(f.readline())
+    got = loops[0]["stats"][0]
+    diffs = {k: abs(got[k] - want_stats[k]) for k in want_stats
+             if k.startswith("Loss/")}
+    print(f"dist loop stats.jsonl, two ranks vs one process: "
+          f"Loss/signs/real {got['Loss/signs/real']:.5f} / "
+          f"{want_stats['Loss/signs/real']:.5f}; |diff| by metric "
+          f"{ {k: round(v, 6) for k, v in diffs.items()} }", flush=True)
+    # signs/real: a mean of +-1 over 32 images a batch; one image whose
+    # logit sits at 0 flips it by 1/16 in a batch, 1/64 over four.
+    if diffs["Loss/signs/real"] > 1 / 64 + 1e-6:
+        raise AssertionError("dist loop: Loss/signs/real differs")
+
+    gas = [out["ga"] for out in ranks]
+    if not all(np.array_equal(g["history"], gas[0]["history"])
+               and np.array_equal(g["best"], gas[0]["best"]) for g in gas):
+        raise AssertionError("dist ga: the ranks disagree")
+    score_err = float(np.abs(gas[0]["scores"] - ga_run["scores"]).max())
+    hist_err = float(np.abs(gas[0]["history"] - ga_run["history"]).max())
+    best_err = float(np.abs(gas[0]["best"] - ga_run["best"]).max())
+    gaps = np.diff(np.sort(ga_run["scores"]))
+    print(f"dist ga, 2 ranks vs the ga phase's batched run: first "
+          f"population's scores max|diff| {score_err:.4g}, history "
+          f"{hist_err:.4g} (bound {GA_SCORE_TOL:.4g}), best direction "
+          f"{best_err:.4g} (bound 1e-4); nearest two scores "
+          f"{float(gaps.min()):.4g} apart; {gas[0]['rate']:.3f} candidates/s "
+          f"with two ranks on one card (one process: {ga_run['rate']:.3f}); "
+          f"fused launches {[g['launches'] for g in gas]}; peak "
+          f"{[round(g['peak'] / 2 ** 30, 3) for g in gas]} GiB", flush=True)
+    if score_err > GA_SCORE_TOL:
+        raise AssertionError("dist ga: scores disagree")
+    if not (hist_err <= GA_SCORE_TOL and best_err <= 1e-4):
+        if float(gaps.min()) > score_err:
+            raise AssertionError("dist ga: the search differs though no "
+                                 "two scores are within the scores' error")
+        print("dist ga: two candidates' scores lie closer than the scores' "
+              "error, so the searches may part: the scores are held "
+              "instead", flush=True)
+
+    digest = dryrun.check_resume_cycle([out["resume"] for out in ranks])
+    print(f"dist resume cycle (global batch {DIST_RESUME_BATCH}, 4 steps "
+          f"against 2 + save on rank 0 + restore on both + 2): bit-equal on "
+          f"both ranks, digest {digest[:16]}, "
+          f"{ranks[0]['resume_s']:.1f} s; the two-rank run {wall2:.1f} s, "
+          f"on {card}", flush=True)
+    return (st["launches"] + sum(st["check_launches"].values())
+            + loops[0]["launches"] + gas[0]["launches"])
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -4040,7 +4588,7 @@ def main():
     warp_times = warp_phase(card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        snap, loop_launches, loop_sec_per_kimg = loop_phase(
+        snap, loop_launches, loop_sec_per_kimg, data = loop_phase(
             tmp, card, sec_per_batch / TRAIN_BATCH * 1000)
         torch.cuda.empty_cache()
         remat_launches = remat_phase(card)
@@ -4054,7 +4602,10 @@ def main():
         torch.cuda.empty_cache()
         im2im_launches, im2im_needs, im2im_rate = im2im_phase(card)
         torch.cuda.empty_cache()
-        ga_launches = ga_phase(tmp, card)
+        ga_launches, ga_run = ga_phase(tmp, card)
+        torch.cuda.empty_cache()
+        dist_launches = dist_phase(tmp, data, card, seconds, ga_run)
+        del ga_run
         torch.cuda.empty_cache()
         metrics_launches, ppl_launches = metrics_phase(tmp, snap, card)
         torch.cuda.empty_cache()
@@ -4073,7 +4624,8 @@ def main():
                "ga": sum(ga_launches.values()), "metrics": metrics_launches,
                "inversion": inversion_launches, "face": face_launches,
                "state": state_launches, "tail": tail_launches,
-               "examples": examples_launches, "zoo": zoo_launches}
+               "examples": examples_launches, "zoo": zoo_launches,
+               "dist": dist_launches}
     f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of gagan_tpu, for one NVIDIA Hopper card (sm_90a).
+"""PyTorch/CUDA port of gagan_tpu, for NVIDIA Hopper cards (sm_90a).
 
 The package mirrors ``gagan_tpu`` module for module (same parameter keys,
 config field names and NCHW / OIHW / ``ws [N, num_ws, w_dim]`` layouts), so a

@@ -19,8 +19,17 @@ offsets tree of grammar P (few-shot domain adaptation, e.g.
 ``--generator-requires-grad-parts`` names, and writes the offsets' EMA as
 ``adaptation-NNNNNN.npz`` beside every network snapshot.
 
-Not ported yet, each raising ``NotImplementedError``: ``--gpus`` other than 1
-and ``--spatial-shard-min-res`` (ROADMAP item 10).
+``--gpus N`` (default: every visible card) trains data-parallel: the
+command spawns N ranks, one card each, over NCCL (``--device cpu``: N CPU
+ranks over gloo), as the reference's ``train.py`` does; each reads its share
+of every batch and only rank 0 writes files.  Started by ``torchrun``
+(``RANK`` / ``WORLD_SIZE`` set), the process joins that group instead.
+``--gpus 1`` trains in this process.  The plan is the JAX command's for N
+devices: ``--cfg auto``'s batch and mbstd group, and rounds of the
+per-device batch.
+
+Not ported yet, raising ``NotImplementedError``: ``--spatial-shard-min-res``
+(spatial sharding, the next slice of ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -28,11 +37,15 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 from typing import Any, Dict, List, Optional, Tuple
+
+import torch
 
 from ..data import ImageFolderDataset
 from ..data import native_loader as nl
 from ..models import stylegan2 as sg2
+from ..parallel import mesh as mesh_lib
 from ..train import augment as aug_lib
 from ..train import gan_loss
 from ..train import loop as loop_lib
@@ -105,13 +118,14 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
               ga_mutation_rate: float = 0.1,
               spatial_shard_min_res: Optional[int] = None) -> Run:
     """The configs and memory plan of a run on ``res``^2 images with
-    ``num_channels`` channels, from the command's options."""
-    if n_devices not in (None, 1) or spatial_shard_min_res is not None:
+    ``num_channels`` channels over ``n_devices`` (default 1) data-parallel
+    ranks, from the command's options."""
+    if spatial_shard_min_res is not None:
         raise NotImplementedError(
-            "the port trains on one card: --gpus other than 1 and "
-            "--spatial-shard-min-res are not ported yet (ROADMAP item 10)")
+            "--spatial-shard-min-res is not ported yet (spatial sharding, "
+            "the next slice of ROADMAP item 10)")
     spec = dict(CFG_SPECS[cfg])
-    n_dev = 1
+    n_dev = n_devices or 1
     if cfg == "auto":
         spec["mb"] = max(min(n_dev * min(4096 // res, 32), 64), n_dev)
         spec["mbstd"] = min(spec["mb"] // n_dev, 4)
@@ -213,12 +227,13 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Train a StyleGAN2 model on one CUDA card (PyTorch port).")
+        description="Train a StyleGAN2 model on CUDA cards (PyTorch port).")
     add = ap.add_argument
     add("--outdir", required=True, metavar="DIR")
     add("--data", required=True, help="Training dataset (dir or zip)")
     add("--gpus", dest="n_devices", type=int, default=None,
-        help="Number of devices (the port runs on 1)")
+        help="Number of data-parallel ranks, one card each (default: every "
+             "visible card; with --device cpu, CPU ranks over gloo)")
     add("--cfg", choices=list(CFG_SPECS), default="auto")
     add("--kimg", type=int, default=None)
     add("--batch", type=int, default=None)
@@ -282,9 +297,27 @@ def open_dataset(data: str, **kw):
             f"Loader: ImageFolderDataset for {data}{why}")
 
 
+def world_size(n_devices: Optional[int], device) -> int:
+    """The ranks a run takes: ``torchrun``'s world, ``--gpus``, or every
+    visible card (one on the CPU).  Refuses more ranks than visible
+    cards."""
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    if torch.device(device).type != "cuda":
+        return n_devices or 1
+    visible = torch.cuda.device_count()
+    if n_devices is None:
+        return max(visible, 1)
+    if n_devices > max(visible, 1):
+        raise ValueError(f"--gpus {n_devices} asks for {n_devices} cards, "
+                         f"but {visible} CUDA device(s) are visible")
+    return n_devices
+
+
 def main(argv: Optional[List[str]] = None):
     """Parse, configure, print the plan, then train (unless --dry-run).
-    Returns the final train state, or None for a dry run."""
+    Returns the final train state of a run in this process; None for a dry
+    run or a run over spawned ranks."""
     ap = build_parser()
     args = vars(ap.parse_args(argv))
     data, mirror, subset = args.pop("data"), args.pop("mirror"), args.pop(
@@ -294,6 +327,7 @@ def main(argv: Optional[List[str]] = None):
         data, use_labels=args["cond"], xflip=mirror, max_size=subset,
         random_seed=args["seed"])
     try:
+        args["n_devices"] = world_size(args["n_devices"], device)
         run = build_run(dataset.resolution, dataset.num_channels,
                         dataset.label_dim if args["cond"] else 0, **args)
     except ValueError as e:
@@ -308,11 +342,40 @@ def main(argv: Optional[List[str]] = None):
         print("Dry run; exiting.")
         return None
     print(loader_line)
+    n = args["n_devices"]
+    on_cpu = torch.device(device).type == "cpu"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        mesh = mesh_lib.create_mesh(n, device="cpu" if on_cpu else None)
+        return _train(run, dataset, mesh)
+    if n == 1:
+        return _train(run, dataset, mesh_lib.create_mesh(1, device=device))
+    if not on_cpu:
+        from .. import _build
+
+        _build.build_all()       # once, before the ranks load it
+    dataset.close()
+    mesh_lib.spawn(_train_rank, n, devices="cpu" if on_cpu else None,
+                   args=(data, dict(use_labels=args["cond"], xflip=mirror,
+                                    max_size=subset,
+                                    random_seed=args["seed"]), args))
+    return None
+
+
+def _train(run: Run, dataset, mesh):
     return loop_lib.training_loop(
         run.loop_cfg, run.train_cfg, run.g_cfg, run.d_cfg, dataset,
         augment_cfg=run.augment_cfg, parametrization=run.parametrization,
-        weight_parts=run.parts,
-        reg_remat=run.reg_remat, device=device)
+        weight_parts=run.parts, reg_remat=run.reg_remat, mesh=mesh)
+
+
+def _train_rank(mesh, data: str, data_kw: Dict[str, Any],
+                args: Dict[str, Any]) -> None:
+    """One spawned rank of ``main``: the dataset opened again, the same
+    run, the loop on this rank's mesh."""
+    dataset, _ = open_dataset(data, **data_kw)
+    run = build_run(dataset.resolution, dataset.num_channels,
+                    dataset.label_dim if args["cond"] else 0, **args)
+    _train(run, dataset, mesh)
 
 
 if __name__ == "__main__":

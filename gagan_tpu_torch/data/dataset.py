@@ -282,29 +282,34 @@ class InfiniteSampler:
 def data_loader(
     dataset: ImageFolderDataset,
     batch_size: int,
-    rank: int = 0,
-    num_replicas: int = 1,
     seed: int = 0,
     num_workers: int = 4,
     prefetch: int = 2,
     to_device=None,
+    rows=None,
 ):
     """Infinite batch iterator: threaded decode + bounded prefetch queue.
 
     Yields (images_uint8 [N,C,H,W], labels [N,label_dim]) numpy arrays, or
     whatever ``to_device`` makes of that pair (e.g. pinned tensors copied to
     the card).  ``close()`` stops the producer thread and the decode pool.
-    """
+
+    ``rows``: a data-parallel rank's positions in each global batch of
+    ``batch_size`` (``parallel.mesh.share_rows``); only they are decoded.
+    Every rank samples the one-process index stream (the sampler's
+    ``num_replicas`` would interleave ranks and reshuffle its window for
+    the indices it yields only, drifting from that stream)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    sampler = iter(InfiniteSampler(len(dataset), rank=rank,
-                                   num_replicas=num_replicas, seed=seed))
+    sampler = iter(InfiniteSampler(len(dataset), seed=seed))
     pool = ThreadPoolExecutor(max_workers=num_workers)
     out_q: queue_lib.Queue = queue_lib.Queue(maxsize=prefetch)
     stop = threading.Event()
 
     def make_batch():
         idxs = [next(sampler) for _ in range(batch_size)]
+        if rows is not None:
+            idxs = [idxs[i] for i in rows]
         items = list(pool.map(dataset.__getitem__, idxs))
         images = np.stack([im for im, _ in items])
         labels = np.stack([lb for _, lb in items])

@@ -206,14 +206,13 @@ class NativeZipDataset:
 
 
 def native_data_loader(dataset: NativeZipDataset, batch_size: int,
-                       rank: int = 0, num_replicas: int = 1, seed: int = 0,
-                       prefetch: int = 2, to_device=None):
+                       seed: int = 0, prefetch: int = 2, to_device=None,
+                       rows=None):
     """Infinite batch iterator over the native dataset (the sampler of
     ``data.dataset.InfiniteSampler``) with a background prefetch thread;
-    ``to_device`` as in ``data.dataset.data_loader``.  ``close()`` stops the
-    thread."""
-    sampler = iter(InfiniteSampler(len(dataset), rank=rank,
-                                   num_replicas=num_replicas, seed=seed))
+    ``to_device`` and a rank's ``rows`` as in ``data.dataset.data_loader``.
+    ``close()`` stops the thread."""
+    sampler = iter(InfiniteSampler(len(dataset), seed=seed))
     out_q: queue_lib.Queue = queue_lib.Queue(maxsize=prefetch)
     stop = threading.Event()
 
@@ -229,6 +228,8 @@ def native_data_loader(dataset: NativeZipDataset, batch_size: int,
         try:
             while not stop.is_set():
                 idxs = [next(sampler) for _ in range(batch_size)]
+                if rows is not None:
+                    idxs = [idxs[i] for i in rows]
                 batch = dataset.read_batch(idxs)
                 put(to_device(batch) if to_device is not None else batch)
         except Exception as e:               # hand the failure to the reader

@@ -7,7 +7,10 @@
 * :func:`train_entry`: the adversarial train step at FFHQ-1024 on one card,
   the one-device counterpart of ``__graft_entry__.dryrun_multichip`` at
   full width, configured by the port's training CLI's plan for a 1024^2 run
-  (``cli/train.py::build_run``, ``--cfg auto``).
+  (``cli/train.py::build_run``, ``--cfg auto``); :func:`dp_train_entry`,
+  the same as one rank of a data-parallel world.
+* :func:`dryrun_multichip`: ``__graft_entry__.dryrun_multichip``'s one
+  full fused step at a tiny size over n ranks.
 * :func:`fewshot_entry`: the few-shot Affine+ adaptation step at
   FFHQ-1024 (``cli/train.py --use-domain-modulation``, the shape
   ``bench.py::bench_adapt10`` times): the train step with the b64 weight
@@ -48,6 +51,8 @@ from .inversion import encoders as enc_lib
 from .inversion import restyle as restyle_lib
 from .models import stylegan2 as sg2
 from .models import swin
+from .parallel import dryrun as dryrun_lib
+from .parallel import mesh as mesh_lib
 from .params import offsets as offs_lib
 from .train import adapt_losses as al
 from .train import adaptation as ad
@@ -97,19 +102,27 @@ FEWSHOT_OPTIONS = dict(
 
 
 def train_run(batch: int = 32, img_resolution: int = 1024,
-              channel_base: Optional[int] = None, **options):
+              channel_base: Optional[int] = None, fp32: bool = False,
+              **options):
     """The training CLI's run (``cli/train.py::build_run``, ``--cfg auto``,
     the defaults, then ``options``) for ``batch`` RGB images at
-    ``img_resolution``^2 on one card; ``channel_base`` overrides both
-    networks' (for small CPU runs)."""
+    ``img_resolution``^2 (on one card unless ``options`` give
+    ``n_devices``); ``channel_base`` overrides both networks' (for small
+    CPU runs); ``fp32`` runs every block of G and D and the ADA pipe in
+    fp32 (the fused level takes its fp32 route)."""
     run = train_cli.build_run(img_resolution, 3, 0, batch=batch, **options)
+    g_syn, d_cfg, aug_cfg = run.g_cfg.synthesis, run.d_cfg, run.augment_cfg
     if channel_base:
-        run = dataclasses.replace(
-            run, g_cfg=dataclasses.replace(
-                run.g_cfg, synthesis=dataclasses.replace(
-                    run.g_cfg.synthesis, channel_base=channel_base)),
-            d_cfg=dataclasses.replace(run.d_cfg, channel_base=channel_base))
-    return run
+        g_syn = dataclasses.replace(g_syn, channel_base=channel_base)
+        d_cfg = dataclasses.replace(d_cfg, channel_base=channel_base)
+    if fp32:
+        g_syn = dataclasses.replace(g_syn, num_fp16_res=0)
+        d_cfg = dataclasses.replace(d_cfg, num_fp16_res=0)
+        if aug_cfg is not None:
+            aug_cfg = dataclasses.replace(aug_cfg, compute_dtype=None)
+    return dataclasses.replace(
+        run, g_cfg=dataclasses.replace(run.g_cfg, synthesis=g_syn),
+        d_cfg=d_cfg, augment_cfg=aug_cfg)
 
 
 def train_configs(batch: int = 32, img_resolution: int = 1024,
@@ -148,6 +161,38 @@ def train_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
                                 **options), device, batch, ada_p)
 
 
+def dp_train_entry(mesh: mesh_lib.Mesh, batch: int = 32,
+                   img_resolution: int = 1024,
+                   channel_base: Optional[int] = None, ada_p: float = 0.0,
+                   **options):
+    """:func:`train_entry` as rank ``mesh.rank`` of a data-parallel world:
+    the CLI's plan for ``mesh.world_size`` devices (its rounds are those
+    of ``batch / world_size`` samples a device), the same seeded state on
+    every rank, the steps bound to the mesh (``shard_train_step``), and
+    inputs (this rank's share of the real images, None, the global z,
+    None, key)."""
+    return _run_steps(train_run(batch, img_resolution, channel_base,
+                                n_devices=mesh.world_size, **options),
+                      mesh.device, batch, ada_p, mesh)
+
+
+def dryrun_multichip(n_devices: int, device="cuda",
+                     backend: Optional[str] = None,
+                     timeout: float = 300.0) -> Dict[str, float]:
+    """``__graft_entry__.dryrun_multichip(n_devices)``: one full fused step
+    (Gmain+Dmain, Greg, Dreg, EMA, ``pl_mean``, ``w_avg``) of a 32^2 G and
+    D at global batch ``2 * n_devices`` over ``n_devices`` ranks, on
+    cuda:0..n-1 over NCCL by default, or all on ``device`` ('cpu', or one
+    card with ``backend='gloo'``).  Raises unless every metric is finite
+    and the ranks end bit-equal; returns rank 0's metrics."""
+    devices = None if str(device) == "cuda" else device
+    ranks = mesh_lib.spawn(dryrun_lib.multichip_rank, n_devices, backend,
+                           devices, timeout, limit=timeout)
+    if len({r["digest"] for r in ranks}) != 1:
+        raise AssertionError("the ranks' states differ after the step")
+    return ranks[0]["metrics"]
+
+
 def fewshot_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
                   channel_base: Optional[int] = None, ada_p: float = 0.0):
     """:func:`train_entry` for the run of ``cli/train.py --cfg auto --batch
@@ -163,7 +208,7 @@ def fewshot_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
                                 **FEWSHOT_OPTIONS), device, batch, ada_p)
 
 
-def _run_steps(run, device, batch: int, ada_p: float):
+def _run_steps(run, device, batch: int, ada_p: float, mesh=None):
     g_cfg, d_cfg, cfg, aug_cfg = (run.g_cfg, run.d_cfg, run.train_cfg,
                                   run.augment_cfg)
     r1_d_cfg = dataclasses.replace(d_cfg, remat=True) if run.reg_remat else None
@@ -185,18 +230,21 @@ def _run_steps(run, device, batch: int, ada_p: float):
         g_cfg.synthesis, pallas_level=False))
     augment_fn = augment.make_augment_fn(aug_cfg)
     steps: Dict[str, object] = {}
-    for name, do_g, do_d in (("none", False, False), ("greg", True, False),
-                             ("both", True, True)):
+    for name, do_g, do_d in dryrun_lib.VARIANTS:
         steps[name] = ts.make_fused_step(
             cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
             do_g_reg=do_g, do_d_reg=do_d, reg_g_cfg=pl_g_cfg if do_g else None,
             reg_d_cfg=r1_d_cfg if do_d else None, offsets_spec=spec,
             offsets_tx=offsets_tx)
+        if mesh is not None:
+            steps[name] = mesh_lib.shard_train_step(steps[name], mesh)
     gen = torch.Generator().manual_seed(2)
     res = g_cfg.img_resolution
-    real = (torch.rand((batch, g_cfg.img_channels, res, res), generator=gen)
-            * 2 - 1).to(device)
+    real = torch.rand((batch, g_cfg.img_channels, res, res),
+                      generator=gen) * 2 - 1
     z = torch.randn((batch, g_cfg.z_dim), generator=gen).to(device)
+    real = (real.to(device) if mesh is None else
+            mesh_lib.shard_batch(mesh, real, ts.data_rounds(cfg)))
     return steps, state, (real, None, z, None, Rng(3))
 
 

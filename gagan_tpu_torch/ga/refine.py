@@ -60,13 +60,18 @@ def apply_genetic_refinement(
     encoder_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     hooks: Optional[sg2.LayerHooks] = None,
     return_mask: bool = False,
+    shard=None,
 ):
     """Fakes with near-boundary samples replaced by GA offspring (and, with
     ``return_mask``, the [N] replacement mask).  Runs under no_grad: the
-    refinement is a data transformation outside autograd."""
+    refinement is a data transformation outside autograd.  ``shard``: the
+    images are a rank's share of the batch (``parallel.mesh.BatchShard``),
+    which D's minibatch stddev reads whole."""
     with torch.no_grad():
-        d_real = sg2.discriminator_apply(d_cfg, d_params, real_img)[:, 0]
-        d_fake = sg2.discriminator_apply(d_cfg, d_params, fake_img)[:, 0]
+        d_real = sg2.discriminator_apply(d_cfg, d_params, real_img,
+                                         shard=shard)[:, 0]
+        d_fake = sg2.discriminator_apply(d_cfg, d_params, fake_img,
+                                         shard=shard)[:, 0]
         mask = (d_real - d_fake).abs() < threshold             # [N]
 
         k_enc, k_cx, k_mut, k_noise = key.split(4)

@@ -11,6 +11,11 @@ mutated.  ``eval_mode="scan"`` renders one candidate per generator call;
 style offsets and applies ``fitness_fn`` per candidate with
 ``torch.func.vmap``.  The key tree (``utils/rng.py``'s interface) is split
 in the JAX module's order, so injected JAX draws give the JAX run.
+
+With a ``mesh`` (``parallel/mesh.py``) the population is split into
+contiguous blocks over the ranks: each rank scores its block, the scores
+are gathered to every rank, and selection runs on them from the same key
+everywhere, so every rank returns the one-process result.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 import torch
 
 from ..models import stylegan2 as sg2
+from ..parallel.mesh import share_rows
 from .crossover_mutation import dynamic_mutation, gaussian_crossover
 
 Params = Dict
@@ -138,17 +144,24 @@ def evolve_directions(
     progress: Optional[Callable] = None,
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Evolve StyleSpace directions maximising ``fitness_fn(images)``, on
-    the device of ``g_params``, from the key ``key`` (an ``Rng``).
-    Returns (best direction [D], history of each generation's best score
-    [generations])."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "evolve_directions(mesh=...): the population is not sharded "
-            "over devices in the port yet (ROADMAP item 10)")
+    the device of ``g_params``, from the key ``key`` (an ``Rng``), the
+    population's scoring split over the ranks of ``mesh``; only rank 0
+    calls ``progress``.  Returns (best direction [D], history of each
+    generation's best score [generations])."""
     if cfg.eval_mode not in EVALUATE:
         raise ValueError(f"eval_mode must be 'scan' or 'batched', got "
                          f"{cfg.eval_mode!r}")
-    evaluate = EVALUATE[cfg.eval_mode]
+    score = EVALUATE[cfg.eval_mode]
+    rows = None
+    if mesh is not None and mesh.sharded:
+        rows = share_rows(cfg.population, mesh.world_size, mesh.rank)
+
+    def evaluate(population, z):
+        if rows is None:
+            return score(cfg, g_cfg, g_params, fitness_fn, population, z)
+        return mesh.gather(score(cfg, g_cfg, g_params, fitness_fn,
+                                 population[rows], z), rows, cfg.population)
+
     device = g_params["synthesis"]["b4"]["const"].device
     dim = direction_dim(g_cfg.synthesis)
     b = cfg.batch_per_candidate
@@ -160,14 +173,14 @@ def evolve_directions(
         for gen in range(cfg.generations):
             key, k_z, k_n, k_next = key.split(4)
             z = k_z.normal((b, g_cfg.z_dim), device)
-            scores = evaluate(cfg, g_cfg, g_params, fitness_fn, population, z)
+            scores = evaluate(population, z)
             history.append(float(scores.max()))
-            if progress is not None:
+            if progress is not None and (rows is None or mesh.rank == 0):
                 progress(gen, history[-1])
             population = next_generation(cfg, population, scores, k_next)
 
         key, k_z, k_n = key.split(3)
         z = k_z.normal((b, g_cfg.z_dim), device)
-        scores = evaluate(cfg, g_cfg, g_params, fitness_fn, population, z)
+        scores = evaluate(population, z)
         best = population[torch.argmax(scores)]
     return best.cpu().numpy(), np.asarray(history)

@@ -821,18 +821,25 @@ def synthesis_from_styles(cfg: SynthesisConfig, params: Params,
 
 
 def minibatch_std(x: torch.Tensor, group_size: Optional[int],
-                  num_channels: int = 1) -> torch.Tensor:
-    """MinibatchStdLayer: append the per-group feature stddev channels."""
-    n, c, h, w = x.shape
+                  num_channels: int = 1, shard=None) -> torch.Tensor:
+    """MinibatchStdLayer: append the per-group feature stddev channels.
+
+    A group takes sample i with i +- N/g of the global batch, so with the
+    batch split over ranks (``shard``, a ``parallel.mesh.BatchShard``) the
+    statistic is taken over every rank's rows and each rank keeps its own."""
+    xg = x if shard is None else shard.gather(x)
+    n, c, h, w = xg.shape
     g = min(group_size, n) if group_size is not None else n
     f = num_channels
-    y = x.reshape(g, -1, f, c // f, h, w).float()
+    y = xg.reshape(g, -1, f, c // f, h, w).float()
     y = y - y.mean(dim=0)
     y = y.square().mean(dim=0)
     y = torch.sqrt(y + 1e-8)
     y = y.mean(dim=(2, 3, 4))
     y = y.reshape(-1, f, 1, 1).to(x.dtype)
     y = y.repeat(g, 1, h, w)
+    if shard is not None:
+        y = shard.take(y)
     return torch.cat([x, y], dim=1)
 
 
@@ -899,15 +906,17 @@ def _d_block(cfg: DiscriminatorConfig, block: Params, x, img,
 def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
                         img: torch.Tensor, c: Optional[torch.Tensor] = None,
                         force_fp32: bool = False,
-                        spatial_constraint=None) -> torch.Tensor:
+                        spatial_constraint=None, shard=None) -> torch.Tensor:
     """Discriminator forward: img [N, C, R, R] -> logits [N, 1] in float32.
 
+    ``shard`` (a ``parallel.mesh.BatchShard``): ``img`` is this rank's
+    share of a global batch, and the minibatch stddev reads every rank's.
     ``spatial_constraint`` belongs to the JAX package's spatial sharding
     over a device mesh; the port takes it only as None."""
     if spatial_constraint is not None:
         raise NotImplementedError(
             "spatial_constraint (spatial sharding over several devices) is "
-            "not ported")
+            "not ported yet (the next slice of ROADMAP item 10)")
     resample_filter = setup_filter(cfg.resample_filter, device=img.device)
     spec = activation_funcs[cfg.activation]
 
@@ -955,7 +964,8 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
     if cfg.architecture == "skip":
         x = x + conv2d_layer_apply(ep["fromrgb"], img.float(), cfg.activation)
     if cfg.mbstd_num_channels > 0:
-        x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels)
+        x = minibatch_std(x, cfg.mbstd_group_size, cfg.mbstd_num_channels,
+                          shard)
     x = conv2d_layer_apply(ep["conv"], x, cfg.activation,
                            conv_clamp=cfg.conv_clamp)
     x = fc_apply(ep["fc"], x.reshape(x.shape[0], -1), activation=cfg.activation)

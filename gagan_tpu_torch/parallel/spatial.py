@@ -2,8 +2,9 @@
 gagan_tpu/parallel/spatial.py).
 
 The JAX module's spatial (height) sharding of synthesis over a device mesh
-is not ported: its functions raise ``NotImplementedError`` naming ROADMAP
-item 10 (multi-GPU).
+is not ported: its functions raise ``NotImplementedError`` naming the next
+slice of ROADMAP item 10 (data parallelism, ``parallel/mesh.py``, is
+ported).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def _multi_device(name: str):
     def refuse(*args, **kwargs):
         raise NotImplementedError(
             f"{name}: spatial sharding over several devices is not ported "
-            f"(ROADMAP item 10)")
+            f"yet (the next slice of ROADMAP item 10)")
     refuse.__name__ = name
     return refuse
 

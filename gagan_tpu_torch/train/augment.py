@@ -386,6 +386,13 @@ def augment_pipe(cfg: AugmentConfig, images: torch.Tensor, p, key,
         margin = torch.clamp(margin, min=0)
         margin = torch.minimum(margin, torch.tensor(
             [width - 1, height - 1] * 2, dtype=torch.float32, device=dev))
+        shard = getattr(key, "shard", None)
+        if shard is not None:
+            # A rank's share of a data-parallel batch (the key is a
+            # parallel.mesh.ShardedRng): the margin is the global batch's.
+            mesh = shard.mesh
+            margin = mesh.gather(margin[None], [mesh.rank],
+                                 mesh.world_size).amax(dim=0)
         # The data-dependent margin becomes the pad width: one host read.
         mx0, my0, mx1, my1 = (int(v) for v in np.ceil(margin.cpu().numpy()))
         images = F.pad(images, (mx0, mx1, my0, my1), mode="reflect")

@@ -10,6 +10,11 @@ noise, the path-length noise and the augment draws each have the key that
 JAX gives them, so a test can inject JAX's draws.  The gradient-of-gradient
 terms (PL, R1) are ``torch.autograd.grad(..., create_graph=True)``, standing
 in for ``jax.vjp`` / ``jax.grad``.
+
+Under data parallelism each loss runs on a rank's share of the batch with a
+``shard`` (``parallel.mesh.BatchShard``): D's minibatch stddev and the
+path-length mean then read the global batch, and the train step averages
+the losses' gradients and metrics over the ranks.
 """
 
 from __future__ import annotations
@@ -82,22 +87,23 @@ def run_G(g_cfg: sg2.GeneratorConfig, g_params: Params, z: torch.Tensor,
 
 def run_D(d_cfg: sg2.DiscriminatorConfig, d_params: Params,
           img: torch.Tensor, c: Optional[torch.Tensor],
-          augment_fn: AugmentFn, ada_p, key) -> torch.Tensor:
+          augment_fn: AugmentFn, ada_p, key, shard=None) -> torch.Tensor:
     if augment_fn is not None:
         img = augment_fn(img, ada_p, key)
-    return sg2.discriminator_apply(d_cfg, d_params, img, c)
+    return sg2.discriminator_apply(d_cfg, d_params, img, c, shard=shard)
 
 
 def g_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                 d_cfg: sg2.DiscriminatorConfig, g_params: Params,
                 d_params: Params, z: torch.Tensor, c: Optional[torch.Tensor],
                 key, augment_fn: AugmentFn = None, ada_p=None,
-                hooks: Optional[sg2.LayerHooks] = None):
+                hooks: Optional[sg2.LayerHooks] = None, shard=None):
     """Gmain: maximize D's logits on fakes."""
     k_g, k_aug = key.split(2)
     gen_img, gen_ws = run_G(g_cfg, g_params, z, c, k_g, cfg.style_mixing_prob,
                             hooks)
-    gen_logits = run_D(d_cfg, d_params, gen_img, c, augment_fn, ada_p, k_aug)
+    gen_logits = run_D(d_cfg, d_params, gen_img, c, augment_fn, ada_p, k_aug,
+                       shard)
     loss = softplus(-gen_logits).mean()
     metrics = {
         "Loss/scores/fake": gen_logits.mean(),
@@ -112,13 +118,17 @@ def g_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
               g_params: Params, z: torch.Tensor, c: Optional[torch.Tensor],
               key, pl_mean: torch.Tensor,
-              hooks: Optional[sg2.LayerHooks] = None):
+              hooks: Optional[sg2.LayerHooks] = None, shard=None):
     """Greg: path-length regularization.  ``metrics['aux/pl_mean']`` is the
-    updated moving average (the trainer stores it)."""
+    updated moving average (the trainer stores it).  The PL batch is the
+    first ``1 / pl_batch_shrink`` of ``z``; with a ``shard`` over it, ``z``
+    and ``c`` are the round's global batch and this rank runs its rows."""
     batch = z.shape[0] // cfg.pl_batch_shrink
     z = z[:batch]
     if c is not None:
         c = c[:batch]
+    if shard is not None:
+        z, c = shard.take(z), shard.take(c)
     k_mix, k_noise, k_pl = key.split(3)
     ws = run_mapping_with_mixing(g_cfg, g_params, z, c, k_mix,
                                  cfg.style_mixing_prob)
@@ -136,7 +146,9 @@ def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     (pl_grads,) = torch.autograd.grad((img * pl_noise).sum(), ws,
                                       create_graph=True)
     pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
-    new_pl_mean = (pl_mean + cfg.pl_decay * (pl_lengths.mean() - pl_mean)
+    lengths_mean = (pl_lengths.mean() if shard is None
+                    else shard.mean(pl_lengths))
+    new_pl_mean = (pl_mean + cfg.pl_decay * (lengths_mean - pl_mean)
                    ).detach()
     pl_penalty = (pl_lengths - new_pl_mean).square()
     loss = pl_penalty.mean() * cfg.pl_weight
@@ -150,7 +162,7 @@ def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 
 def _ga_refine_fakes(g_cfg, d_cfg, g_params, d_params, real_img, gen_img,
                      gen_ws, key, ga_threshold: float,
-                     ga_mutation_rate: float, hooks=None):
+                     ga_mutation_rate: float, hooks=None, shard=None):
     """GA refinement of near-boundary fakes before D scores them: fakes
     whose |D(real) - D(fake)| < threshold are replaced by crossed and
     mutated offspring regenerated through G.  A data transformation outside
@@ -160,7 +172,7 @@ def _ga_refine_fakes(g_cfg, d_cfg, g_params, d_params, real_img, gen_img,
     refined, mask = apply_genetic_refinement(
         g_cfg, g_params, d_cfg, d_params, real_img, gen_img, gen_ws, key,
         threshold=ga_threshold, mutation_rate=ga_mutation_rate,
-        hooks=hooks, return_mask=True)
+        hooks=hooks, return_mask=True, shard=shard)
     return refined, mask.float().mean()
 
 
@@ -172,7 +184,7 @@ def d_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                 augment_fn: AugmentFn = None, ada_p=None,
                 hooks: Optional[sg2.LayerHooks] = None,
                 ga_threshold: Optional[float] = None,
-                ga_mutation_rate: float = 0.1):
+                ga_mutation_rate: float = 0.1, shard=None):
     """Dmain: minimize logits on fakes, maximize on reals; with
     ``ga_threshold`` set, near-boundary fakes are first replaced by GA
     offspring."""
@@ -184,13 +196,13 @@ def d_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     if ga_threshold is not None:
         gen_img, replaced = _ga_refine_fakes(
             g_cfg, d_cfg, g_params, d_params, real_img, gen_img, gen_ws,
-            k_ga, ga_threshold, ga_mutation_rate, hooks)
+            k_ga, ga_threshold, ga_mutation_rate, hooks, shard)
         metrics["Loss/ga/replaced"] = replaced
     gen_logits = run_D(d_cfg, d_params, gen_img, gen_c, augment_fn, ada_p,
-                       k_aug1)
+                       k_aug1, shard)
     loss_gen = softplus(gen_logits).mean()
     real_logits = run_D(d_cfg, d_params, real_img, real_c, augment_fn, ada_p,
-                        k_aug2)
+                        k_aug2, shard)
     loss_real = softplus(-real_logits).mean()
     metrics.update({
         "Loss/scores/fake": gen_logits.mean(),
@@ -210,7 +222,7 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                  augment_fn: AugmentFn = None, ada_p=None,
                  hooks: Optional[sg2.LayerHooks] = None,
                  ga_threshold: Optional[float] = None,
-                 ga_mutation_rate: float = 0.1):
+                 ga_mutation_rate: float = 0.1, shard=None):
     """Gmain + Dmain as one scalar over one G forward: loss_g sees detached
     D parameters and loss_d detached fakes, so one backward of the sum gives
     exactly the per-phase gradients.  The fake is augmented with one key on
@@ -225,7 +237,7 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     # G route: D with frozen parameters.
     d_frozen = sg2.tree_map(torch.Tensor.detach, d_params)
     gen_logits_g = run_D(d_cfg, d_frozen, gen_img, gen_c, augment_fn, ada_p,
-                         k_aug1)
+                         k_aug1, shard)
     loss_g = softplus(-gen_logits_g).mean()
 
     # D route: the same fake, detached (or its GA-refined replacement).
@@ -234,12 +246,12 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     if ga_threshold is not None:
         gen_img_d, replaced = _ga_refine_fakes(
             g_cfg, d_cfg, g_params, d_params, real_img, gen_img_d, gen_ws,
-            k_ga, ga_threshold, ga_mutation_rate, hooks)
+            k_ga, ga_threshold, ga_mutation_rate, hooks, shard)
         metrics["Loss/ga/replaced"] = replaced
     gen_logits_d = run_D(d_cfg, d_params, gen_img_d, gen_c, augment_fn, ada_p,
-                         k_aug1)
+                         k_aug1, shard)
     real_logits = run_D(d_cfg, d_params, real_img, real_c, augment_fn, ada_p,
-                        k_aug2)
+                        k_aug2, shard)
     loss_d = softplus(gen_logits_d).mean() + softplus(-real_logits).mean()
     metrics.update({
         "Loss/scores/fake": gen_logits_d.mean(),
@@ -256,10 +268,11 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 def d_r1_loss(cfg: GANLossConfig, d_cfg: sg2.DiscriminatorConfig,
               d_params: Params, real_img: torch.Tensor,
               real_c: Optional[torch.Tensor], key,
-              augment_fn: AugmentFn = None, ada_p=None):
+              augment_fn: AugmentFn = None, ada_p=None, shard=None):
     """Dreg: R1 gradient penalty on reals, through the augment pipe."""
     img = real_img.detach().requires_grad_(True)
-    logits = run_D(d_cfg, d_params, img, real_c, augment_fn, ada_p, key)
+    logits = run_D(d_cfg, d_params, img, real_c, augment_fn, ada_p, key,
+                   shard)
     (grads,) = torch.autograd.grad(logits.sum(), img, create_graph=True)
     r1_penalty = grads.square().sum(dim=(1, 2, 3))
     loss = r1_penalty.mean() * (cfg.r1_gamma / 2.0)

@@ -18,8 +18,16 @@ A :class:`~gagan_tpu_torch.data.native_loader.NativeZipDataset` is read
 by its C++ batch decoder (``native_data_loader``), any other dataset by the
 threaded ``data_loader``, as in the JAX loop.
 
-Not ported yet, each raising ``NotImplementedError``: more than one device
-and spatial sharding (ROADMAP item 10).
+Data parallelism: run in each rank of a process group (``mesh``, or
+``parallel.mesh.create_mesh(loop_cfg.n_devices)``), the loop builds the
+same state from the same seeds and replicates rank 0's, reads only the
+rank's share of each global batch, and steps with the sharded step; only
+rank 0 writes files and runs ``metrics_fn`` and ``progress_fn`` (the others
+wait), rank 0's ``abort_fn`` decides for all, and the parameters are
+checked equal across ranks before each network snapshot.
+
+Not ported yet, raising ``NotImplementedError``: spatial sharding (the next
+slice of ROADMAP item 10).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from .. import resolve_device
 from ..data import native_loader as nl
 from ..data.dataset import data_loader
 from ..models import stylegan2 as sg2
+from ..parallel import mesh as mesh_lib
 from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils import config as config_lib
@@ -97,11 +106,11 @@ def _merge(dst, src):
                 dst[k] = v.to(device=dst[k].device, dtype=dst[k].dtype)
 
 
-def _refuse(loop_cfg, dataset, spatial_shard_min_res):
-    if loop_cfg.n_devices not in (None, 1) or spatial_shard_min_res is not None:
+def _refuse(spatial_shard_min_res):
+    if spatial_shard_min_res is not None:
         raise NotImplementedError(
-            "the port trains on one card: n_devices other than 1 and "
-            "spatial_shard_min_res are not ported yet (ROADMAP item 10)")
+            "spatial_shard_min_res is not ported yet (spatial sharding, the "
+            "next slice of ROADMAP item 10)")
 
 
 def training_loop(
@@ -117,16 +126,27 @@ def training_loop(
     spatial_shard_min_res: Optional[int] = None,
     device="cuda",
     rng=None,
+    mesh: Optional[mesh_lib.Mesh] = None,
 ) -> ts.TrainState:
     """Train until ``loop_cfg.total_kimg``; returns the final state.
 
     ``device`` is the card (default) or 'cpu'; ``rng`` is the root draw
     source (default ``Rng(loop_cfg.random_seed)``; anything with the
-    ``Rng`` methods, e.g. JAX's key tree in the tests)."""
-    _refuse(loop_cfg, dataset, spatial_shard_min_res)
-    device = resolve_device(device)
+    ``Rng`` methods, e.g. JAX's key tree in the tests).  ``mesh``: this
+    rank's mesh (default: ``create_mesh(loop_cfg.n_devices)``, a world of
+    one outside a process group); its device replaces ``device``."""
+    _refuse(spatial_shard_min_res)
+    if mesh is None:
+        mesh = mesh_lib.create_mesh(loop_cfg.n_devices,
+                                    device=resolve_device(device))
+    elif loop_cfg.n_devices not in (None, mesh.world_size):
+        raise ValueError(f"n_devices={loop_cfg.n_devices} on a mesh of "
+                         f"{mesh.world_size}")
+    device = mesh.device
+    lead = mesh.rank == 0
     run_dir = loop_cfg.run_dir
-    os.makedirs(run_dir, exist_ok=True)
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
     key = rng if rng is not None else Rng(loop_cfg.random_seed)
 
     # Networks.
@@ -161,6 +181,7 @@ def training_loop(
     if loop_cfg.initial_ada_p:
         state.ada_p = torch.tensor(loop_cfg.initial_ada_p, dtype=torch.float32,
                                    device=device)
+    mesh_lib.place_state(mesh, state)
 
     augment_fn = aug.make_augment_fn(augment_cfg) if augment_cfg else None
 
@@ -177,26 +198,32 @@ def training_loop(
     steps = {}
     for do_g in (False, True):
         for do_d in (False, True):
-            steps[(do_g, do_d)] = ts.make_fused_step(
+            steps[(do_g, do_d)] = mesh_lib.shard_train_step(ts.make_fused_step(
                 train_cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
                 do_g_reg=do_g, do_d_reg=do_d,
                 reg_g_cfg=pl_g_cfg if do_g else None,
                 reg_d_cfg=r1_d_cfg if do_d else None,
-                offsets_spec=offsets_spec, offsets_tx=offsets_tx)
+                offsets_spec=offsets_spec, offsets_tx=offsets_tx), mesh)
 
     # Data: decoded by the loader's threads into pinned host memory when
-    # the card is the target, then copied without blocking the host.
+    # the card is the target, then copied without blocking the host.  A
+    # rank reads only its rows of each global batch.
     pin = None
     if device.type == "cuda":
         def pin(batch):
             return tuple(torch.from_numpy(a).pin_memory() for a in batch)
+    rows = None
+    if mesh.sharded:
+        rows = mesh_lib.share_rows(train_cfg.batch_size, mesh.world_size,
+                                   mesh.rank, ts.data_rounds(train_cfg))
     if isinstance(dataset, nl.NativeZipDataset):
         loader = nl.native_data_loader(dataset, train_cfg.batch_size,
                                        seed=loop_cfg.random_seed,
-                                       to_device=pin)
+                                       to_device=pin, rows=rows)
     else:
         loader = data_loader(dataset, train_cfg.batch_size,
-                             seed=loop_cfg.random_seed, to_device=pin)
+                             seed=loop_cfg.random_seed, to_device=pin,
+                             rows=rows)
 
     # Snapshot grid latents.
     grid_n = loop_cfg.grid_size[0] * loop_cfg.grid_size[1]
@@ -208,13 +235,18 @@ def training_loop(
             return sg2.generator_apply(g_cfg, g_ema, z, c=None,
                                        noise_mode="const")
 
+    # The step's metrics are already means over the ranks.
     collector = Collector()
-    logger = StatsLogger(run_dir)
-    with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
-        json.dump({
-            "loop": {k: str(v) for k, v in dataclasses.asdict(loop_cfg).items()},
-            "train": {k: str(v) for k, v in dataclasses.asdict(train_cfg).items()},
-        }, f, indent=2)
+    logger = None
+    if lead:
+        logger = StatsLogger(run_dir)
+        with open(os.path.join(run_dir, "training_options.json"), "wt") as f:
+            json.dump({
+                "loop": {k: str(v) for k, v in
+                         dataclasses.asdict(loop_cfg).items()},
+                "train": {k: str(v) for k, v in
+                          dataclasses.asdict(train_cfg).items()},
+            }, f, indent=2)
 
     start_time = time.time()
     cur_tick = 0
@@ -229,6 +261,9 @@ def training_loop(
                           for a in (images, labels))
         real = images.to(torch.float32) / 127.5 - 1.0
         real_c = labels if labels.shape[1] > 0 else None
+        gen_c = real_c
+        if real_c is not None and rows is not None:
+            gen_c = mesh.gather(real_c, rows, train_cfg.batch_size)
         key, k_z, k_step = key.split(3)
         z = k_z.normal((train_cfg.batch_size, g_cfg.z_dim), device=device)
 
@@ -237,7 +272,7 @@ def training_loop(
         do_d_reg = (train_cfg.d_reg_interval is not None
                     and batch_idx % train_cfg.d_reg_interval == 0)
         state, metrics = steps[(do_g_reg, do_d_reg)](
-            state, real, real_c, z, real_c, k_step)
+            state, real, real_c, z, gen_c, k_step)
         collector.report_dict(metrics)
         batch_idx += 1
         cur_nimg = int(state.cur_nimg)
@@ -268,25 +303,28 @@ def training_loop(
             f"G_loss {collector.mean('Loss/G/loss'):.3f}",
             f"D_loss {collector.mean('Loss/D/loss'):.3f}",
         ]
-        print(" ".join(fields), flush=True)
-        logger.write(collector, step=cur_nimg, extra={
-            "Progress/tick": cur_tick,
-            "Progress/kimg": cur_nimg / 1e3,
-            "Progress/augment": float(state.ada_p),
-            "Timing/sec_per_kimg": sec_per_kimg,
-            "Timing/total_sec": tick_end_time - start_time,
-        })
-        if loop_cfg.log_param_histograms:
-            logger.log_histograms({"G": state.g_params, "D": state.d_params},
-                                  step=cur_nimg)
+        if lead:
+            print(" ".join(fields), flush=True)
+            logger.write(collector, step=cur_nimg, extra={
+                "Progress/tick": cur_tick,
+                "Progress/kimg": cur_nimg / 1e3,
+                "Progress/augment": float(state.ada_p),
+                "Timing/sec_per_kimg": sec_per_kimg,
+                "Timing/total_sec": tick_end_time - start_time,
+            })
+            if loop_cfg.log_param_histograms:
+                logger.log_histograms({"G": state.g_params,
+                                       "D": state.d_params}, step=cur_nimg)
         collector.reset()
 
-        if loop_cfg.abort_fn is not None and loop_cfg.abort_fn():
-            done = True
-        if loop_cfg.progress_fn is not None:
+        if loop_cfg.abort_fn is not None:
+            abort = torch.tensor(
+                [float(lead and bool(loop_cfg.abort_fn()))], device=device)
+            done = done or bool(mesh.broadcast_(abort).item())
+        if lead and loop_cfg.progress_fn is not None:
             loop_cfg.progress_fn(cur_nimg // 1000, loop_cfg.total_kimg)
 
-        if (loop_cfg.image_snapshot_ticks is not None
+        if (lead and loop_cfg.image_snapshot_ticks is not None
                 and (done or cur_tick % loop_cfg.image_snapshot_ticks == 0)):
             imgs = ema_synthesize(state.g_ema, grid_z).cpu().numpy()
             save_image_grid(
@@ -294,6 +332,9 @@ def training_loop(
                 drange=[-1, 1], grid_size=loop_cfg.grid_size)
 
         if (loop_cfg.network_snapshot_ticks is not None
+                and (done or cur_tick % loop_cfg.network_snapshot_ticks == 0)):
+            mesh_lib.check_replica_consistency(state, "train state", mesh)
+        if (lead and loop_cfg.network_snapshot_ticks is not None
                 and (done or cur_tick % loop_cfg.network_snapshot_ticks == 0)):
             snap_path = os.path.join(
                 run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.npz")
@@ -314,11 +355,13 @@ def training_loop(
                     sg2_config=config_lib.to_dict(g_cfg))
             if loop_cfg.metrics_fn is not None:
                 loop_cfg.metrics_fn(state.g_ema, g_cfg, snapshot=snap_path)
+        mesh.barrier()
 
         cur_tick += 1
         tick_start_nimg = cur_nimg
         tick_start_time = time.time()
 
     loader.close()
-    logger.close()
+    if logger is not None:
+        logger.close()
     return state

@@ -22,17 +22,27 @@ Unlike the JAX module's pure functions, the steps update the state's
 tensors in place (parameters, EMA, optimizer moments) to save device memory,
 and return the same state object.  Gradients are taken by flagging the
 trainable leaves ``requires_grad`` for the length of a phase.
+
+Every step takes a ``mesh`` (``parallel/mesh.py``; ``shard_train_step``
+binds it) and then runs as one rank of a data-parallel world: the real
+images are the rank's share, laid out in :func:`data_rounds` rounds; ``z``,
+``gen_c`` and the key are the global ones.  Each round runs the rank's
+rows with the global batch's draws, and each phase averages its gradients
+and metrics over the ranks in one ``all_reduce`` before Adam, so the step
+is the one-process step on the global batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..models import stylegan2 as sg2
+from ..parallel import mesh as mesh_lib
 from ..params import offsets as offs_lib
 from ..utils.checkpoint import tree_to_flat_tensors
 from . import gan_loss, masks as masks_lib
@@ -177,12 +187,45 @@ def _chunk(x: Optional[torch.Tensor], rounds: int, r: int):
     return x[r * n:(r + 1) * n]
 
 
+def _rounds(cfg: TrainConfig) -> Tuple[int, int, int]:
+    """The (main, Greg, Dreg) accumulation rounds."""
+    reg_default = cfg.reg_accum_rounds or cfg.accum_rounds
+    return (max(cfg.accum_rounds, 1),
+            max(cfg.g_reg_accum_rounds or reg_default, 1),
+            max(cfg.d_reg_accum_rounds or reg_default, 1))
+
+
+def data_rounds(cfg: TrainConfig) -> int:
+    """The rounds in which a rank's share of the real images is laid out
+    (``parallel.mesh.share_rows``): a multiple of the rounds of both phases
+    that read them, Dmain and Dreg, so that each of their rounds is a whole
+    number of the rank's blocks."""
+    main, _, d_reg = _rounds(cfg)
+    return math.lcm(main, d_reg)
+
+
+def _mesh_mean(mesh, *trees: Dict[str, torch.Tensor]):
+    """Each tensor of the dicts ``trees`` averaged over the mesh's ranks,
+    in one all_reduce of a flat fp32 bucket."""
+    bucket = torch.cat([v.detach().reshape(-1).float()
+                        for t in trees for v in t.values()])
+    mesh.all_reduce_(bucket).div_(mesh.world_size)
+    out, offset = [], 0
+    for t in trees:
+        out.append({})
+        for k, v in t.items():
+            out[-1][k] = bucket[offset:offset + v.numel()].view(
+                v.shape).to(v.dtype)
+            offset += v.numel()
+    return out
+
+
 def _accum(run_round: Callable, rounds: int, key,
-           leaves: Dict[str, torch.Tensor]):
+           leaves: Dict[str, torch.Tensor], mesh=None):
     """Average the metrics and the gradients (with respect to ``leaves``)
     of ``run_round(r, key_r) -> (loss, metrics)`` over ``rounds``
-    sequential chunks; with one round the caller's key passes through.
-    Returns (metrics, grads)."""
+    sequential chunks, then over the ranks of a sharded ``mesh``; with one
+    round the caller's key passes through.  Returns (metrics, grads)."""
     for t in leaves.values():
         t.requires_grad_(True)
         t.grad = None
@@ -201,7 +244,10 @@ def _accum(run_round: Callable, rounds: int, key,
         for t in leaves.values():
             t.grad = None
             t.requires_grad_(False)
-    return {k: v / n for k, v in acc.items()}, grads
+    metrics = {k: v / n for k, v in acc.items()}
+    if mesh is not None and mesh.sharded:
+        metrics, grads = _mesh_mean(mesh, metrics, grads)
+    return metrics, grads
 
 
 def build_optimizers(cfg: TrainConfig, g_params: Params, d_params: Params):
@@ -308,8 +354,25 @@ def _refuse(**unported):
     for name, value in unported.items():
         if value is not None:
             raise NotImplementedError(
-                f"{name} is not ported yet (spatial sharding, ROADMAP "
-                f"item 10)")
+                f"{name} is not ported yet (spatial sharding, the next "
+                f"slice of ROADMAP item 10)")
+
+
+def _round_shard(mesh, n: int, rounds: int, layout: int):
+    """The shard of one round's chunk of a global batch of ``n`` cut into
+    ``rounds``, whose rows lie in ``layout`` blocks (None without a
+    sharded mesh)."""
+    if mesh is None or not mesh.sharded:
+        return None
+    return mesh.batch_shard(n // rounds, layout // rounds)
+
+
+def _sharded(shard, key, *xs):
+    """The round's key and global tensors as the shard's rank sees them
+    (unchanged without a shard)."""
+    if shard is None:
+        return (key,) + xs
+    return (shard.key(key),) + tuple(shard.take(x) for x in xs)
 
 
 def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
@@ -331,10 +394,8 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
     lcfg = cfg.loss
     reg_g_cfg = reg_g_cfg or g_cfg
     reg_d_cfg = reg_d_cfg or d_cfg
-    main_rounds = max(cfg.accum_rounds, 1)
-    reg_default = cfg.reg_accum_rounds or cfg.accum_rounds
-    g_reg_rounds = max(cfg.g_reg_accum_rounds or reg_default, 1)
-    d_reg_rounds = max(cfg.d_reg_accum_rounds or reg_default, 1)
+    main_rounds, g_reg_rounds, d_reg_rounds = _rounds(cfg)
+    layout = data_rounds(cfg)
 
     def make_hooks(offsets):
         if offsets_spec is None:
@@ -357,51 +418,68 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
             offsets_tx.update_(_unprefixed("O/", grads),
                                state.offsets_opt_state, state.offsets)
 
-    def g_main_step(state: TrainState, z, c, key):
-        def run_round(r, k):
-            return gan_loss.g_main_loss(
-                lcfg, g_cfg, d_cfg, state.g_params, state.d_params,
-                _chunk(z, main_rounds, r), _chunk(c, main_rounds, r), k,
-                augment_fn=augment_fn, ada_p=state.ada_p,
-                hooks=make_hooks(state.offsets))
+    def g_main_step(state: TrainState, z, c, key, mesh=None):
+        shard = _round_shard(mesh, z.shape[0], main_rounds, layout)
 
-        metrics, grads = _accum(run_round, main_rounds, key, g_leaves(state))
+        def run_round(r, k):
+            k, zr, cr = _sharded(shard, k, _chunk(z, main_rounds, r),
+                                 _chunk(c, main_rounds, r))
+            return gan_loss.g_main_loss(
+                lcfg, g_cfg, d_cfg, state.g_params, state.d_params, zr, cr, k,
+                augment_fn=augment_fn, ada_p=state.ada_p,
+                hooks=make_hooks(state.offsets), shard=shard)
+
+        metrics, grads = _accum(run_round, main_rounds, key, g_leaves(state),
+                                mesh)
         g_update_(state, _scrub(grads))
         _update_w_avg(g_cfg, state.g_params, metrics)
         return state, metrics
 
-    def g_reg_step(state: TrainState, z, c, key):
+    def g_reg_step(state: TrainState, z, c, key, mesh=None):
         gain = float(cfg.g_reg_interval or 1)
+        # The PL batch is the first 1/pl_batch_shrink of each round's
+        # global chunk: one block a rank, or the whole of it on every rank
+        # where it does not split evenly (the averages over the ranks are
+        # then those of the one batch).
+        shard = None
+        if mesh is not None and mesh.sharded:
+            n = z.shape[0] // g_reg_rounds // lcfg.pl_batch_shrink
+            shard = (mesh.batch_shard(n) if n % mesh.world_size == 0
+                     else mesh_lib.BatchShard(mesh, range(n), n))
 
         def run_round(r, k):
             loss, metrics = gan_loss.g_pl_loss(
                 lcfg, reg_g_cfg, state.g_params, _chunk(z, g_reg_rounds, r),
-                _chunk(c, g_reg_rounds, r), k, state.pl_mean,
-                hooks=make_hooks(state.offsets))
+                _chunk(c, g_reg_rounds, r), _sharded(shard, k)[0],
+                state.pl_mean, hooks=make_hooks(state.offsets), shard=shard)
             return loss * gain, metrics
 
-        metrics, grads = _accum(run_round, g_reg_rounds, key, g_leaves(state))
+        metrics, grads = _accum(run_round, g_reg_rounds, key, g_leaves(state),
+                                mesh)
         g_update_(state, _scrub(grads))
         state.pl_mean = metrics.pop("aux/pl_mean")
         return state, metrics
 
-    def gd_main_step(state: TrainState, real_img, real_c, z, gen_c, key):
+    def gd_main_step(state: TrainState, real_img, real_c, z, gen_c, key,
+                     mesh=None):
         """Simultaneous Gmain+Dmain over one shared G forward."""
         leaves = g_leaves(state)
         leaves.update(_prefixed("D/", d_tx.trainable(state.d_params)))
+        shard = _round_shard(mesh, z.shape[0], main_rounds, layout)
 
         def run_round(r, k):
+            k, zr, cr = _sharded(shard, k, _chunk(z, main_rounds, r),
+                                 _chunk(gen_c, main_rounds, r))
             return gan_loss.gd_main_loss(
                 lcfg, g_cfg, d_cfg, state.g_params, state.d_params,
                 _chunk(real_img, main_rounds, r),
-                _chunk(real_c, main_rounds, r),
-                _chunk(z, main_rounds, r), _chunk(gen_c, main_rounds, r), k,
+                _chunk(real_c, main_rounds, r), zr, cr, k,
                 augment_fn=augment_fn, ada_p=state.ada_p,
                 hooks=make_hooks(state.offsets),
                 ga_threshold=cfg.ga_threshold,
-                ga_mutation_rate=cfg.ga_mutation_rate)
+                ga_mutation_rate=cfg.ga_mutation_rate, shard=shard)
 
-        metrics, grads = _accum(run_round, main_rounds, key, leaves)
+        metrics, grads = _accum(run_round, main_rounds, key, leaves, mesh)
         grads = _scrub(grads)
         g_update_(state, grads)
         d_tx.update_(_unprefixed("D/", grads), state.d_opt_state,
@@ -409,37 +487,42 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
         _update_w_avg(g_cfg, state.g_params, metrics)
         return state, metrics
 
-    def d_main_step(state: TrainState, real_img, real_c, z, gen_c, key):
+    def d_main_step(state: TrainState, real_img, real_c, z, gen_c, key,
+                    mesh=None):
         leaves = d_tx.trainable(state.d_params)
+        shard = _round_shard(mesh, z.shape[0], main_rounds, layout)
 
         def run_round(r, k):
+            k, zr, cr = _sharded(shard, k, _chunk(z, main_rounds, r),
+                                 _chunk(gen_c, main_rounds, r))
             return gan_loss.d_main_loss(
                 lcfg, g_cfg, d_cfg, state.g_params, state.d_params,
                 _chunk(real_img, main_rounds, r),
-                _chunk(real_c, main_rounds, r),
-                _chunk(z, main_rounds, r), _chunk(gen_c, main_rounds, r), k,
+                _chunk(real_c, main_rounds, r), zr, cr, k,
                 augment_fn=augment_fn, ada_p=state.ada_p,
                 hooks=make_hooks(state.offsets),
                 ga_threshold=cfg.ga_threshold,
-                ga_mutation_rate=cfg.ga_mutation_rate)
+                ga_mutation_rate=cfg.ga_mutation_rate, shard=shard)
 
-        metrics, grads = _accum(run_round, main_rounds, key, leaves)
+        metrics, grads = _accum(run_round, main_rounds, key, leaves, mesh)
         d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
         return state, metrics
 
-    def d_reg_step(state: TrainState, real_img, real_c, key):
+    def d_reg_step(state: TrainState, real_img, real_c, key, mesh=None):
         gain = float(cfg.d_reg_interval or 1)
         leaves = d_tx.trainable(state.d_params)
+        shard = (None if mesh is None else _round_shard(
+            mesh, real_img.shape[0] * mesh.world_size, d_reg_rounds, layout))
 
         def run_round(r, k):
             loss, metrics = gan_loss.d_r1_loss(
                 lcfg, reg_d_cfg, state.d_params,
                 _chunk(real_img, d_reg_rounds, r),
-                _chunk(real_c, d_reg_rounds, r), k,
-                augment_fn=augment_fn, ada_p=state.ada_p)
+                _chunk(real_c, d_reg_rounds, r), _sharded(shard, k)[0],
+                augment_fn=augment_fn, ada_p=state.ada_p, shard=shard)
             return loss * gain, metrics
 
-        metrics, grads = _accum(run_round, d_reg_rounds, key, leaves)
+        metrics, grads = _accum(run_round, d_reg_rounds, key, leaves, mesh)
         d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
         return state, metrics
 
@@ -453,32 +536,43 @@ def make_fused_step(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                     offsets_spec=None, offsets_tx=None, reg_g_cfg=None,
                     reg_d_cfg=None, extra_hooks=None, d_constraint=None):
     """One batch = Gmain [+Greg] + Dmain [+Dreg] + EMA + nimg bump, as
-    ``step(state, real_img, real_c, z, gen_c, key) -> (state, metrics)``;
-    ``cur_nimg`` advances by ``cfg.batch_size``."""
+    ``step(state, real_img, real_c, z, gen_c, key, mesh=None) -> (state,
+    metrics)``; ``cur_nimg`` advances by ``cfg.batch_size``.  With a
+    sharded ``mesh`` (``parallel.mesh.shard_train_step``) the step is one
+    rank's part of the data-parallel step (see the module docstring)."""
     g_main, g_reg, d_main, d_reg, gd_main = make_phase_steps(
         cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn, offsets_spec=offsets_spec,
         offsets_tx=offsets_tx, reg_g_cfg=reg_g_cfg, reg_d_cfg=reg_d_cfg,
         extra_hooks=extra_hooks, d_constraint=d_constraint)
 
-    def step(state: TrainState, real_img, real_c, z, gen_c, key):
+    def step(state: TrainState, real_img, real_c, z, gen_c, key, mesh=None):
+        if (mesh is not None and mesh.sharded
+                and real_img.shape[0] * mesh.world_size != z.shape[0]):
+            raise ValueError(
+                f"rank {mesh.rank}: {real_img.shape[0]} real images, but "
+                f"z holds the global batch of {z.shape[0]} over "
+                f"{mesh.world_size} ranks: pass the rank's share of the "
+                f"images (shard_batch) and the global z")
         keys = key.split(4)
         metrics: Dict[str, torch.Tensor] = {}
         if cfg.simultaneous_main:
-            state, m = gd_main(state, real_img, real_c, z, gen_c, keys[0])
+            state, m = gd_main(state, real_img, real_c, z, gen_c, keys[0],
+                               mesh)
             metrics.update(m)
             if do_g_reg and cfg.g_reg_interval is not None:
-                state, m = g_reg(state, z, gen_c, keys[1])
+                state, m = g_reg(state, z, gen_c, keys[1], mesh)
                 metrics.update(m)
         else:
-            state, m = g_main(state, z, gen_c, keys[0])
+            state, m = g_main(state, z, gen_c, keys[0], mesh)
             metrics.update(m)
             if do_g_reg and cfg.g_reg_interval is not None:
-                state, m = g_reg(state, z, gen_c, keys[1])
+                state, m = g_reg(state, z, gen_c, keys[1], mesh)
                 metrics.update(m)
-            state, m = d_main(state, real_img, real_c, z, gen_c, keys[2])
+            state, m = d_main(state, real_img, real_c, z, gen_c, keys[2],
+                              mesh)
             metrics.update(m)
         if do_d_reg and cfg.d_reg_interval is not None:
-            state, m = d_reg(state, real_img, real_c, keys[3])
+            state, m = d_reg(state, real_img, real_c, keys[3], mesh)
             metrics.update(m)
         state.cur_nimg += cfg.batch_size
         ema_update(state.g_params, state.g_ema, state.cur_nimg, cfg)

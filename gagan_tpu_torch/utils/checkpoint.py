@@ -208,9 +208,21 @@ def _step_dir(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step:08d}")
 
 
-def save_train_state(ckpt_dir: str, step: int, state: Any) -> None:
+def save_train_state(ckpt_dir: str, step: int, state: Any,
+                     mesh=None) -> None:
     """Write ``state`` (dataclasses, dicts, lists, tensors and host
-    scalars, such as a ``TrainState``) as step ``step`` of ``ckpt_dir``."""
+    scalars, such as a ``TrainState``) as step ``step`` of ``ckpt_dir``.
+    With a ``mesh`` (``parallel/mesh.py``) rank 0 writes and every rank
+    waits for it, so that each may then load the step."""
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return
+    _write_train_state(ckpt_dir, step, state)
+    if mesh is not None:
+        mesh.barrier()
+
+
+def _write_train_state(ckpt_dir: str, step: int, state: Any) -> None:
     final = _step_dir(ckpt_dir, step)
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step:08d}-{os.getpid()}")
     os.makedirs(tmp, exist_ok=True)

@@ -86,17 +86,25 @@ def params_fingerprint(params) -> np.ndarray:
     return np.asarray(vals)
 
 
-def check_cross_host_consistency(params, label: str = "params") -> None:
-    """Every process must hold identical replicated parameters.  No-op
-    unless ``torch.distributed`` is initialised."""
+def check_cross_host_consistency(params, label: str = "params",
+                                 mesh=None) -> None:
+    """Every process must hold identical replicated parameters: their
+    fingerprints are gathered over ``mesh``'s ranks (default: the
+    initialised ``torch.distributed`` group; a no-op without one) by the
+    mesh's all_reduce gather, which NCCL and gloo both run."""
     import torch.distributed as dist
 
-    if not (dist.is_available() and dist.is_initialized()):
+    from ..parallel.mesh import create_mesh
+
+    if mesh is None:
+        if not (dist.is_available() and dist.is_initialized()):
+            return
+        mesh = create_mesh()
+    if not mesh.sharded:
         return
-    fp = torch.from_numpy(params_fingerprint(params))
-    gathered = [torch.zeros_like(fp) for _ in range(dist.get_world_size())]
-    dist.all_gather_object(gathered, fp)
-    if not all(torch.equal(g, fp) for g in gathered):
+    fp = torch.from_numpy(params_fingerprint(params)).to(mesh.device)
+    every = mesh.gather(fp[None], [mesh.rank], mesh.world_size)
+    if not bool((every == fp).all()):
         raise RuntimeError(f"{label}: cross-process parameter mismatch")
 
 

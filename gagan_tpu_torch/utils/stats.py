@@ -5,7 +5,11 @@ Each reported value accumulates [num, sum, sum-of-squares] per name; the
 metric names are the JAX package's (``Loss/G/loss``, ``Loss/signs/real``,
 ``Progress/kimg``, ``Timing/...``), so ``stats.jsonl`` lines of either
 package read the same.  The loop hands :meth:`Collector.report_dict` a dict
-of 0-d tensors once a step; they reach the host in one copy.
+of 0-d tensors once a step; they reach the host in one copy.  The
+data-parallel step's metrics are already means over every rank, so the
+loop's Collector takes no mesh; a Collector made with a rank's mesh is for
+values that differ by rank, and sums [num, sum, sumsq] over the ranks when
+a value is read, as the reference's ``training_stats`` does.
 """
 
 from __future__ import annotations
@@ -38,10 +42,15 @@ def to_host(values: List[Any]) -> List[np.ndarray]:
 
 
 class Collector:
-    """Accumulate [num, sum, sumsq] per metric name between ticks."""
+    """Accumulate [num, sum, sumsq] per metric name between ticks.
 
-    def __init__(self):
+    With a sharded ``mesh`` (``parallel/mesh.py``) the values read are over
+    every rank's reports: each read sums the moments over the ranks in one
+    all_reduce, a collective that every rank makes with the same names."""
+
+    def __init__(self, mesh=None):
         self._moments: Dict[str, list] = {}
+        self._mesh = mesh if mesh is not None and mesh.sharded else None
 
     def report(self, name: str, value) -> None:
         arr = to_host([value])[0].reshape(-1)
@@ -50,30 +59,41 @@ class Collector:
         m[1] += float(arr.sum())
         m[2] += float(np.square(arr).sum())
 
+    def _read(self) -> Dict[str, list]:
+        if self._mesh is None or not self._moments:
+            return self._moments
+        names = sorted(self._moments)
+        t = torch.tensor([self._moments[n] for n in names],
+                         dtype=torch.float64, device=self._mesh.device)
+        rows = self._mesh.all_reduce_(t).tolist()
+        return {n: [int(r[0]), r[1], r[2]] for n, r in zip(names, rows)}
+
+    @staticmethod
+    def _mean(m) -> float:
+        return m[1] / m[0] if m and m[0] else 0.0
+
+    @staticmethod
+    def _std(m) -> float:
+        if not m or m[0] == 0:
+            return 0.0
+        mean = m[1] / m[0]
+        return float(np.sqrt(max(m[2] / m[0] - mean * mean, 0.0)))
+
     def report_dict(self, metrics: Dict) -> None:
         names = [k for k in metrics if not k.startswith("aux/")]
         for k, v in zip(names, to_host([metrics[k] for k in names])):
             self.report(k, v)
 
     def mean(self, name: str, default: float = 0.0) -> float:
-        m = self._moments.get(name)
-        if not m or m[0] == 0:
-            return default
-        return m[1] / m[0]
+        m = self._read().get(name)
+        return self._mean(m) if m and m[0] else default
 
     def std(self, name: str) -> float:
-        m = self._moments.get(name)
-        if not m or m[0] == 0:
-            return 0.0
-        mean = m[1] / m[0]
-        var = max(m[2] / m[0] - mean * mean, 0.0)
-        return float(np.sqrt(var))
+        return self._std(self._read().get(name))
 
     def as_dict(self) -> Dict[str, Dict[str, float]]:
-        return {
-            name: {"num": m[0], "mean": self.mean(name), "std": self.std(name)}
-            for name, m in self._moments.items()
-        }
+        return {name: {"num": m[0], "mean": self._mean(m), "std": self._std(m)}
+                for name, m in self._read().items()}
 
     def reset(self) -> None:
         self._moments.clear()

@@ -185,7 +185,8 @@ def test_loop_remat_cli_phases_run_on_cpu(monkeypatch, tmp_path):
                         entry.train_entry(device, batch=batch,
                                           img_resolution=32, channel_base=256,
                                           ada_p=ada_p))
-    snap, launches, sec_per_kimg = cs.loop_phase(str(tmp_path), "cpu", 1.0)
+    snap, launches, sec_per_kimg, _ = cs.loop_phase(str(tmp_path), "cpu",
+                                                    1.0)
     assert launches == 0 and sec_per_kimg > 0
     assert os.path.basename(snap) == "network-snapshot-000000.npz"
     assert cs.remat_phase("cpu") == 0
@@ -271,7 +272,7 @@ def test_fewshot_phase_runs_on_cpu(monkeypatch, tmp_path):
                                             channel_base=256, ada_p=ada_p))
     monkeypatch.setattr(cs, "fewshot_run", lambda batch: entry.train_run(
         batch, 64, 256, **entry.FEWSHOT_OPTIONS))
-    snap, _, _ = cs.loop_phase(str(tmp_path), "cpu", 1.0)
+    snap, _, _, _ = cs.loop_phase(str(tmp_path), "cpu", 1.0)
     launches, seconds, peak_mem, sec_per_kimg = cs.fewshot_phase(
         str(tmp_path), snap, "cpu")
     assert launches == 0 and set(seconds) == set(cs.SCHEDULE)
@@ -417,8 +418,10 @@ def test_ga_and_metrics_phases_run_on_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(kid_lib, "compute_kid", lambda opts, max_real, num_gen:
                         real_kid(opts, max_real, 4, max_subset_size=4))
 
-    snap, _, _ = cs.loop_phase(str(tmp_path), "cpu", 1.0)
-    assert cs.ga_phase(str(tmp_path), "cpu") == {"scan": 0, "batched": 0}
+    snap, _, _, _ = cs.loop_phase(str(tmp_path), "cpu", 1.0)
+    launches, run = cs.ga_phase(str(tmp_path), "cpu")
+    assert launches == {"scan": 0, "batched": 0}
+    assert run["scores"].shape == (run["population"].shape[0],)
     assert cs.metrics_phase(str(tmp_path), snap, "cpu") == (0, 0)
     assert {"metric-fid1k.jsonl", "metric-kid1k.jsonl"} <= set(
         os.listdir(os.path.dirname(snap)))
@@ -697,3 +700,39 @@ def test_new_phases_drive_the_full_size_path():
     assert cs.expected_launches(cs.tail_config(1, architecture="orig"), 8) == 2
     assert cs.TAIL_TRAIN == 2
     assert sum(cs.EXAMPLE_FORWARDS.values()) == 17
+
+
+def test_dist_phase_drives_the_full_size_path():
+    """On the card, the dist phase's ranks run the training command's plan
+    for two devices at FFHQ-1024, batch 32: 16 images a rank in main rounds
+    of 8 (the train phase's live batch, so two ranks' peaks fit one card),
+    Greg in one round of 16, R1 in rounds of 8, the mbstd group of 4; the
+    fp32 check against one process runs the same plan, cut to batch 8."""
+    from gagan_tpu_torch import entry
+    from gagan_tpu_torch.train import train_step as ts
+
+    one = entry.train_run(cs.TRAIN_BATCH)
+    two = entry.train_run(cs.TRAIN_BATCH, n_devices=2)
+    assert one.accum_rounds == (4, 2, 4)
+    assert two.accum_rounds == (2, 1, 2)
+    assert two.d_cfg.mbstd_group_size == one.d_cfg.mbstd_group_size == 4
+    assert ts.data_rounds(two.train_cfg) == 2
+    assert cs.TRAIN_BATCH // 2 // two.train_cfg.accum_rounds == 8
+    assert two.reg_remat and two.g_cfg.synthesis.pallas_level
+    assert (cs.DIST_LOOP_BATCHES, cs.DIST_RESUME_BATCH) == (4, 8)
+    assert cs.DIST_VARIANTS == ("none", "greg", "both")
+    assert two.train_cfg.batch_size == cs.TRAIN_BATCH
+    # The check against one process: fp32 G, D and ADA pipe at global batch
+    # 8, two rounds of 2 a rank, so that mbstd groups of 4 span both ranks.
+    check = entry.train_run(cs.DIST_CHECK_BATCH, n_devices=2, fp32=True,
+                            batch_gpu=cs.DIST_CHECK_BATCH_GPU)
+    assert check.accum_rounds[0] == 2 and ts.data_rounds(check.train_cfg) == 2
+    assert check.d_cfg.mbstd_group_size == 4
+    assert check.g_cfg.synthesis.bf16_resolution > 1024
+    assert check.d_cfg.bf16_resolution > 1024
+    assert check.augment_cfg.compute_dtype is None
+    assert two.augment_cfg.compute_dtype == "bfloat16"
+    assert check.g_cfg.synthesis.pallas_level
+    assert {v for _, v in cs.DIST_FAULTS.values()} == {"none", "greg"}
+    assert all(cs.DIST_BOUNDS[k] <= 2 ** -7 for k in (
+        "D", "loss main", "loss reg", "pl_mean", "w_avg", "G main"))

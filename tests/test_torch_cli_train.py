@@ -184,12 +184,29 @@ def test_build_run_configs_match_jax(res, kw, monkeypatch):
     (["--gpus", "2"], "item 10"), (["--spatial-shard-min-res", "8"], "item 10"),
     (["--packed-tail-blocks", "2"], "tail")])
 def test_train_refuses_unported_options(flags, match, tmp_path, capsys):
-    """--gpus and --spatial-shard-min-res stay refused; --packed-tail-blocks
-    2, refused while the port's packed tail was one block, now builds its
-    run with a two-block packed tail."""
+    """--spatial-shard-min-res stays refused.  --packed-tail-blocks 2,
+    refused while the port's packed tail was one block, now builds its run
+    with a two-block packed tail.  --gpus 2, refused while the port trained
+    on one card, now spawns two ranks (CPU ranks over gloo with --device
+    cpu): one batch (--kimg 0), then one snapshot and one stats line, all
+    from rank 0; on the card, more ranks than visible cards are refused."""
     data = _folder(tmp_path / "d", 16)
     argv = ["--outdir", str(tmp_path / "o"), "--data", data, "--dry-run"]
-    if match == "tail":
+    if flags[0] == "--gpus":
+        out = tmp_path / "dp"
+        assert ttrain.main(["--outdir", str(out), "--data", data, "--batch",
+                            "4", "--kimg", "0", "--snap", "1", "--device",
+                            "cpu"] + flags) is None
+        assert '"accum_rounds"' in capsys.readouterr().out
+        files = sorted(os.listdir(out))
+        assert [f for f in files if f.startswith("network-snapshot")] == [
+            "network-snapshot-000000.npz"]
+        with open(out / "stats.jsonl") as f:
+            assert len(f.readlines()) == 1
+        if torch.cuda.device_count() < 2:
+            with pytest.raises(SystemExit):
+                ttrain.main(argv + flags)
+    elif match == "tail":
         assert ttrain.main(argv + flags) is None
         assert "Dry run" in capsys.readouterr().out
         syn = ttrain.build_run(1024, packed_tail_blocks=2).g_cfg.synthesis

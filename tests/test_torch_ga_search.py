@@ -166,12 +166,34 @@ def test_next_generation_keeps_the_elite_in_order():
 
 
 def test_mesh_and_unknown_mode_raise(tiny_g):
+    """``mesh=``, refused while the port ran on one card, now splits the
+    population over the ranks: over two gloo ranks, in either eval mode,
+    the history and best direction equal the one-process run's
+    (tests/test_ga.py:116-135's rtol 1e-5), and a world of one is the plain
+    run.  An unknown eval_mode still raises."""
+    from gagan_tpu_torch.parallel import dryrun
+    from gagan_tpu_torch.parallel import mesh as tmesh
     from gagan_tpu_torch.utils.rng import Rng
 
     _, _, tcfg, tp = tiny_g
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tsearch.evolve_directions(Rng(0), tcfg, tp, _brightness("torch"),
-                                  mesh=object())
+    cfgs = [tsearch.GASearchConfig(population=16, generations=3, elite=2,
+                                   batch_per_candidate=2, eval_mode=mode)
+            for mode in ("batched", "scan")]
+    ranks = tmesh.spawn(dryrun.ga_rank, 2, devices="cpu", timeout=120,
+                        limit=120, args=(tcfg, tck.tree_to_flat(tp), cfgs,
+                                         Rng(0)))
+    for i, cfg in enumerate(cfgs):
+        best, hist = tsearch.evolve_directions(Rng(0), tcfg, tp,
+                                               dryrun.contrast_fitness, cfg)
+        one = tsearch.evolve_directions(
+            Rng(0), tcfg, tp, dryrun.contrast_fitness, cfg,
+            mesh=tmesh.create_mesh(device="cpu"))
+        np.testing.assert_array_equal(one[0], best)
+        for r in ranks:
+            np.testing.assert_allclose(r[i]["history"], hist, rtol=1e-5,
+                                       atol=1e-6)
+            np.testing.assert_allclose(r[i]["best"], best, rtol=1e-5,
+                                       atol=1e-5)
     with pytest.raises(ValueError, match="eval_mode"):
         tsearch.evolve_directions(
             Rng(0), tcfg, tp, _brightness("torch"),

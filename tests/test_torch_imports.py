@@ -528,3 +528,44 @@ def test_examples_zoo_and_train_state_run_without_jax_or_pil(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_parallel_runs_without_jax():
+    """With JAX and the JAX package blocked, ``parallel.mesh`` and
+    ``parallel.dryrun`` import, the data-parallel entry points (and the dry
+    run's command and one-process step, whose default is the card) refuse
+    CUDA without a card, and ranks spawned from a process that has JAX loaded
+    import neither JAX, nor the JAX package, nor pytest."""
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import gagan_tpu_torch.parallel.mesh, "
+            "gagan_tpu_torch.parallel.dryrun\n"
+            "from gagan_tpu_torch import entry\n"
+            "try:\n"
+            "    entry.dryrun_multichip(2)\n"
+            "    raise AssertionError('ran without CUDA')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'CUDA' in str(e)\n"
+            "from gagan_tpu_torch.parallel import dryrun\n"
+            "for call in (lambda: dryrun.main([]),\n"
+            "             lambda: dryrun._protocol_case(1).build(None)):\n"
+            "    try:\n"
+            "        call()\n"
+            "        raise AssertionError('ran without CUDA')\n"
+            "    except RuntimeError as e:\n"
+            "        assert 'CUDA' in str(e)\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+    import jax  # noqa: F401  (loaded here, where the ranks are spawned)
+    from gagan_tpu_torch.parallel import dryrun, mesh
+
+    for mods in mesh.spawn(dryrun.modules_rank, 2, devices="cpu",
+                           timeout=120, limit=120):
+        assert "torch" in mods
+        assert not {"jax", "jaxlib", "gagan_tpu", "pytest"} & set(mods), mods

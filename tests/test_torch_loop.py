@@ -303,13 +303,81 @@ def test_loop_resumes_and_aborts(data_dir, jax_snapshot, tmp_path):
     ({"spatial_shard_min_res": 64}, "item 10"),
     ({"n_devices": 2}, "item 10")])
 def test_loop_refuses_unported_options(kw, match, data_dir, tmp_path):
+    """Spatial sharding stays refused.  ``n_devices=2``, refused while the
+    port trained on one card, now trains over two ranks
+    (:func:`_check_two_rank_loop`); outside a process group it asks for
+    the ranks to be started."""
     tg, td = _cfgs(tsg)
     dataset = ImageFolderDataset(data_dir)
-    loop_kw = {"n_devices": kw.pop("n_devices")} if "n_devices" in kw else {}
+    if "n_devices" in kw:
+        with pytest.raises(ValueError, match="spawn"):
+            tloop.training_loop(_loop_cfg(tloop, str(tmp_path), **kw),
+                                _train_cfg(tts, tgl), tg, td, dataset,
+                                device="cpu")
+        _check_two_rank_loop(data_dir, tmp_path)
+        return
     with pytest.raises(NotImplementedError, match=match):
-        tloop.training_loop(_loop_cfg(tloop, str(tmp_path), **loop_kw),
+        tloop.training_loop(_loop_cfg(tloop, str(tmp_path)),
                             _train_cfg(tts, tgl), tg, td, dataset,
                             device="cpu", **kw)
+
+
+def _check_two_rank_loop(data_dir, tmp_path):
+    """The loop over two gloo ranks (3 batches of 4 in rounds of 2, so one
+    image a rank a round and mbstd groups across ranks; ADA with the fast
+    warp) against the one-process loop on the same folder: only rank 0
+    wrote files, the same ones as the one-process loop;
+    stats.jsonl holds the same global values (the loss metrics and ADA's
+    p within the step tolerance of the module docstring, 1e-3 relative);
+    each rank's loader reads its rows of the one-process batches, in
+    order."""
+    from gagan_tpu_torch.data.dataset import data_loader
+    from gagan_tpu_torch.parallel import dryrun
+    from gagan_tpu_torch.parallel import mesh as tmesh
+
+    tg, td = _cfgs(tsg)
+    cfg = _train_cfg(tts, tgl)
+    aug = taug.make_config("bgc")
+    one_dir = str(tmp_path / "one")
+    tloop.training_loop(_loop_cfg(tloop, one_dir), cfg, tg, td,
+                        ImageFolderDataset(data_dir), augment_cfg=aug,
+                        device="cpu")
+    ranks = tmesh.spawn(dryrun.loop_rank, 2, devices="cpu", timeout=120,
+                        limit=120, args=(_loop_cfg(
+                            tloop, str(tmp_path / "dp"), n_devices=2), cfg,
+                            tg, td, data_dir, aug))
+    def named(files):        # TensorBoard names its file by time and pid
+        return [f for f in files if not f.startswith("events.out")]
+
+    assert ranks[1]["files"] == [] and named(ranks[0]["files"]) == named(
+        sorted(os.listdir(one_dir)))
+    assert "network-snapshot-000000.npz" in ranks[0]["files"]
+    assert ranks[0]["digest"] == ranks[1]["digest"]
+    want, got = _stats(one_dir), _stats(str(tmp_path / "dp" / "rank0"))
+    assert len(got) == len(want) == 2
+    for w, g in zip(want, got):
+        assert set(w) == set(g)
+        for k, v in w.items():
+            if k.startswith(("Loss/", "Progress/")):
+                np.testing.assert_allclose(g[k], v, rtol=1e-3, atol=1e-6,
+                                           err_msg=k)
+
+    rounds = tts.data_rounds(cfg)
+    loaders = [data_loader(ImageFolderDataset(data_dir), BATCH, seed=5,
+                           num_workers=1, rows=tmesh.share_rows(
+                               BATCH, 2, r, rounds)) for r in range(2)]
+    whole = data_loader(ImageFolderDataset(data_dir), BATCH, seed=5,
+                        num_workers=1)
+    try:
+        for _ in range(4):
+            want_imgs, _ = next(whole)
+            shares = [next(it)[0] for it in loaders]
+            for r, share in enumerate(shares):
+                np.testing.assert_array_equal(
+                    share, want_imgs[tmesh.share_rows(BATCH, 2, r, rounds)])
+    finally:
+        for it in loaders + [whole]:
+            it.close()
 
 
 def test_loop_reads_a_native_zip_as_the_folder_reader(data_dir, tmp_path):
