@@ -124,6 +124,24 @@ no ok line):
                ``mesh=`` against the ga phase's batched run (scores,
                history, best) and its candidates/s; parallel/dryrun.py's
                resume cycle at batch 8, bit-equal;
+     spatial - (after dist) spatial (height) sharding over two gloo ranks
+               sharing the card (parallel/spatial.py), deterministic
+               algorithms, TF32 off (SpatialPlan): (a) spatial_synthesis_fn
+               at FFHQ-1024, batch 4, fp32, min_res 256 and 64, gathered,
+               against the one-process forward (SPATIAL_BOUNDS; zero-filled
+               halos must fail it), the bf16 difference, fused launches a
+               rank; (b) the three variants in fp32 at global batch 4 with
+               the ADA pipe and the GA Dmain round against the one-process
+               step of the same plan (each quantity within its bound, the
+               ranks bit-equal) and two planted faults that must fail them
+               (zero-filled halos, gradients divided by the world size);
+               (c) a bf16 "none" step at global batch 8 in four arms (one
+               process, two-rank data parallelism, spatial at min_res 256
+               and 128): s/step, peak memory a rank (each spatial arm's
+               below the one process's), all_reduces and bytes a step;
+               (d) training_loop with spatial_shard_min_res 256 for 2
+               batches: files from rank 0 only, the stats line, the replica
+               check before the snapshot;
  14. metrics - cli/calc_metrics.py --metrics fid1k,kid1k on the loop's
                snapshot and PNGs, twice (metric-*.jsonl, the random-detector
                warning, the second run's dataset statistics read from the
@@ -223,8 +241,9 @@ from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
                                    entry, entry_config, examples_config,
                                    examples_entry, fewshot_entry, ga_entry,
                                    im2im_entry, rescale_random_convs,
-                                   restyle_entry, train_configs, train_entry,
-                                   train_run, zoo_entry)
+                                   restyle_entry, spatial_train_entry,
+                                   train_configs, train_entry, train_run,
+                                   zoo_entry)
 from gagan_tpu_torch.examples import numpy_latents  # noqa: E402
 from gagan_tpu_torch.ga import evaluation as ga_eval  # noqa: E402
 from gagan_tpu_torch.ga import search as ga_search  # noqa: E402
@@ -240,6 +259,7 @@ from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
 from gagan_tpu_torch.parallel import dryrun  # noqa: E402
 from gagan_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
+from gagan_tpu_torch.parallel import spatial as spatial_lib  # noqa: E402
 from gagan_tpu_torch.params import offsets as offs_lib  # noqa: E402
 from gagan_tpu_torch.train import augment, gan_loss  # noqa: E402
 from gagan_tpu_torch.train import auto_layers  # noqa: E402
@@ -4569,6 +4589,441 @@ def dist_phase(tmp, data, card, train_seconds, ga_run):
             + loops[0]["launches"] + gas[0]["launches"])
 
 
+# ----------------------------------------------------------------------------
+# spatial: spatial (height) sharding over torch.distributed ranks
+# (parallel/spatial.py)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpatialPlan:
+    """The spatial phase's sizes.  Its ranks are spawned and re-import this
+    script, so the sizes travel as this argument: the CLI's G and D at
+    ``res``^2 (``channel_base`` None: full width), the forward check's
+    batch and min_res values (a), the fp32 step check's global batch (b),
+    the bf16 arms' global batch and min_res values (c), the loop's batch
+    and batches (d), and the card (``cuda:0``) or 'cpu'."""
+    res: int = 1024
+    channel_base: Optional[int] = None
+    fwd_batch: int = 4
+    fwd_min_res: tuple = (256, 64)
+    check_batch: int = 4
+    arm_batch: int = 8
+    arm_min_res: tuple = (256, 128)
+    loop_batch: int = 8
+    loop_batches: int = 2
+    device: str = "cuda:0"
+
+
+SPATIAL = SpatialPlan()
+# The checks of the phase against one process, each by its own bound: 16
+# times the first fp32 reading on the H100 (PERF.md §6), rounded up
+# to a power of two, as DIST_BOUNDS.  "forward": the gathered fp32 image's
+# max |difference| from the one-process forward at batch 4 (2.67e-5, the
+# larger of min_res 256 and 64); the step's quantities as _compare_grads
+# reads them, the three variants in fp32 at global batch
+# SPATIAL.check_batch, learning rate 0, with the GA Dmain round: G's
+# gradient relative L2 by phase (Gmain 1.31e-4: cuDNN's fp32 algorithms
+# for a window's shape are not the whole map's, and G's cancelling sums,
+# the noise strengths, move most; Greg 3.90e-4), D's (2.96e-5), the loss
+# metrics (main 1.52e-7, regularizers 1.13e-4), pl_mean (5.55e-5) and w_avg
+# (read 0: the bound stands at 2^-20).  Planted faults that must fail them
+# (SPATIAL_FAULTS): halo rows zero-filled (forward and "none") and the
+# gradients divided by the world size ("none").
+SPATIAL_BOUNDS = {"forward": 2 ** -11, "G main": 2 ** -8, "G reg": 2 ** -7,
+                  "D": 2 ** -11, "loss main": 2 ** -18, "loss reg": 2 ** -9,
+                  "pl_mean": 2 ** -10, "w_avg": 2 ** -20}
+
+
+def _fault_zero_halo():
+    """The halo rows a window takes from its neighbours zero-filled (the
+    exchange itself still runs)."""
+    orig = spatial_lib.RowLayout._halo
+
+    def zero_halo(self, x, k):
+        w = orig(self, x, k).clone()
+        w[..., :k, :] = 0
+        w[..., w.shape[-2] - k:, :] = 0
+        return w
+    return spatial_lib.RowLayout, "_halo", zero_halo
+
+
+def _fault_divided_bucket():
+    """Every phase's gradients divided by the world size before Adam, as
+    the data-parallel mean would divide them."""
+    orig = ts._scrub
+
+    def divided(grads):
+        return {k: g / 2 for k, g in orig(grads).items()}
+    return ts, "_scrub", divided
+
+
+SPATIAL_FAULTS = {"halo rows zero-filled": _fault_zero_halo,
+                  "gradients divided by the world size":
+                      _fault_divided_bucket}
+
+
+@contextlib.contextmanager
+def _planted(plant):
+    owner, attr, fn = plant()
+    orig = getattr(owner, attr)
+    setattr(owner, attr, fn)
+    try:
+        yield
+    finally:
+        setattr(owner, attr, orig)
+
+
+def _on_card(device) -> bool:
+    return torch.device(device).type == "cuda"
+
+
+def _sync_dev(device):
+    if _on_card(device):
+        torch.cuda.synchronize(device)
+
+
+def _reset_peak(device):
+    if _on_card(device):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _peak(device) -> int:
+    return torch.cuda.max_memory_allocated(device) if _on_card(device) else 0
+
+
+class _Collectives:
+    """Counts the mesh's all_reduces (data parallelism's and spatial
+    sharding's) and the bytes a rank hands to them."""
+
+    def __init__(self):
+        self.calls = self.bytes = 0
+
+    @contextlib.contextmanager
+    def counting(self):
+        orig = mesh_lib.Mesh.all_reduce_
+
+        def counted(mesh, t):
+            if mesh.sharded:
+                self.calls += 1
+                self.bytes += t.numel() * t.element_size()
+            return orig(mesh, t)
+        mesh_lib.Mesh.all_reduce_ = counted
+        try:
+            yield self
+        finally:
+            mesh_lib.Mesh.all_reduce_ = orig
+
+
+def _spatial_g(plan: SpatialPlan, fp32: bool):
+    """The CLI's G (FFHQ-1024 at full width, bf16 in its 4 highest
+    resolutions, conv_clamp 256, the packed last block, the fused level),
+    all in fp32 with ``fp32``."""
+    return train_run(plan.fwd_batch, plan.res, plan.channel_base,
+                     fp32=fp32).g_cfg
+
+
+def _spatial_forward(mesh, plan: SpatialPlan):
+    """(a) spatial_synthesis_fn at batch plan.fwd_batch from seeded weights:
+    in fp32 at each min_res (the gathered image, the rank's fused launches
+    and exchanges), with zero-filled halos at the first, and in bf16 at the
+    first; rank 0 then runs the one-process forwards while rank 1 waits."""
+    dev = mesh.device
+    out = {"fp32": {}, "launches": {}, "exchanges": {}}
+    z = torch.randn((plan.fwd_batch, 512), generator=torch.Generator()
+                    .manual_seed(3)).to(dev)
+    runs = {}
+    for fp32 in (True, False):
+        g_cfg = _spatial_g(plan, fp32)
+        params = seeded_weights(sg2.init_generator(
+            g_cfg, torch.Generator().manual_seed(0), dev))
+        wsb = sg2.mapping_apply(g_cfg.mapping, params["mapping"], z)
+        runs[fp32] = (g_cfg, params, wsb)
+        min_res = plan.fwd_min_res if fp32 else plan.fwd_min_res[:1]
+        for m in min_res:
+            fn = spatial_lib.spatial_synthesis_fn(g_cfg, mesh, min_res=m)
+            fmc.fused_modconv3x3.launches = 0
+            spatial_lib.reset_stats()
+            with torch.no_grad():
+                img = spatial_lib.gather_rows(fn(params, wsb), mesh,
+                                              plan.res)
+            _sync_dev(dev)
+            key = m if fp32 else "bf16"
+            out["launches"][key] = fmc.fused_modconv3x3.launches
+            out["exchanges"][key] = (spatial_lib.STATS["exchanges"],
+                                     spatial_lib.STATS["bytes"])
+            if fp32:
+                out["fp32"][m] = img.cpu()
+            else:
+                out["bf16"] = img.cpu()
+            if fp32 and m == plan.fwd_min_res[0]:
+                with _planted(_fault_zero_halo), torch.no_grad():
+                    out["fault"] = spatial_lib.gather_rows(
+                        fn(params, wsb), mesh, plan.res).cpu()
+        del params
+    mesh.barrier()
+    if mesh.rank == 0:
+        for fp32, (g_cfg, params, wsb) in runs.items():
+            with torch.no_grad():
+                out["one_fp32" if fp32 else "one_bf16"] = sg2.synthesis_apply(
+                    g_cfg.synthesis, params["synthesis"], wsb).cpu()
+    del runs
+    mesh.barrier()
+    return out
+
+
+def _spatial_check(mesh, plan: SpatialPlan):
+    """(b) The three variants in fp32 at global batch plan.check_batch and
+    learning rate 0 with the GA Dmain round, min_res 256 (the CLI's plan for
+    two devices), each rank's gradients kept, each planted fault in "none";
+    rank 0 then runs the one-process step of the same plan while rank 1
+    waits, and compares."""
+    check = dict(batch=plan.check_batch, ada_p=0.2, lrate=0.0, fp32=True,
+                 ga_threshold=0.5, img_resolution=plan.res,
+                 channel_base=plan.channel_base)
+    steps, state, inputs = spatial_train_entry(
+        mesh, min_res=plan.fwd_min_res[0], **check)
+    runs = dryrun.run_variants(mesh, steps, state, inputs, DIST_VARIANTS,
+                               keep=_grad_leaves)
+    faults = {}
+    for name, plant in SPATIAL_FAULTS.items():
+        with _planted(plant):
+            faults[name] = dryrun.run_variants(
+                mesh, steps, state, inputs, ("none",),
+                keep=_grad_leaves)["none"]
+    out = {"launches": {v: r["launches"] for v, r in runs.items()},
+           "s": {v: r["s"] for v, r in runs.items()}}
+    del steps, state, inputs
+    mesh.barrier()
+    if mesh.rank == 0:
+        steps, state, inputs = train_entry(mesh.device, n_devices=2, **check)
+        ref = dryrun.run_variants(None, steps, state, inputs, DIST_VARIANTS,
+                                  keep=_grad_leaves)
+        out["ref_s"] = {v: r["s"] for v, r in ref.items()}
+        out["compare"] = {v: _compare_grads(
+            runs[v]["state"], ref[v]["state"], runs[v]["metrics"],
+            ref[v]["metrics"]) for v in DIST_VARIANTS}
+        out["faults"] = {name: _compare_grads(
+            f["state"], ref["none"]["state"], f["metrics"],
+            ref["none"]["metrics"]) for name, f in faults.items()}
+        del steps, state, inputs, ref
+    mesh.barrier()
+    return out
+
+
+def _spatial_arm(mesh, plan: SpatialPlan, build):
+    """One bf16 "none" arm: built, run once, then timed; its s/step, the
+    rank's peak memory, its fused launches and the mesh's all_reduces of
+    the timed step."""
+    dev = mesh.device
+    _reset_peak(dev)
+    steps, state, inputs = build()
+    s = copy.deepcopy(state)
+    s, _ = steps["none"](s, *inputs)
+    del s
+    counter = _Collectives()
+    s = copy.deepcopy(state)
+    fmc.fused_modconv3x3.launches = 0
+    _sync_dev(dev)
+    with counter.counting():
+        t0 = time.perf_counter()
+        s, metrics = steps["none"](s, *inputs)
+        _sync_dev(dev)
+        sec = time.perf_counter() - t0
+    out = {"s": sec, "peak": _peak(dev), "calls": counter.calls,
+           "bytes": counter.bytes, "launches": fmc.fused_modconv3x3.launches,
+           "finite": all(bool(torch.isfinite(v).all())
+                         for v in metrics.values())}
+    del steps, state, inputs, s
+    _reset_peak(dev)
+    return out
+
+
+def _spatial_arms(mesh, plan: SpatialPlan):
+    """(c) The bf16 "none" step at global batch plan.arm_batch: two-rank
+    data parallelism, then spatial sharding at each of plan.arm_min_res,
+    then the one process on rank 0 while rank 1 waits."""
+    size = dict(batch=plan.arm_batch, ada_p=0.2, img_resolution=plan.res,
+                channel_base=plan.channel_base)
+    arms = {"data parallel": _spatial_arm(
+        mesh, plan, lambda: dp_train_entry(mesh, **size))}
+    for m in plan.arm_min_res:
+        arms[f"spatial {m}"] = _spatial_arm(
+            mesh, plan, lambda m=m: spatial_train_entry(mesh, min_res=m,
+                                                        **size))
+    mesh.barrier()
+    if mesh.rank == 0:
+        arms["one process"] = _spatial_arm(
+            mesh, plan, lambda: train_entry(mesh.device, **size))
+    mesh.barrier()
+    return arms
+
+
+def _spatial_loop(mesh, plan: SpatialPlan, data, out_dir):
+    """(d) training_loop with spatial_shard_min_res (the CLI's plan for two
+    devices at plan.loop_batch) on ``data`` for plan.loop_batches batches,
+    each rank in a run directory of its own: the files each wrote, its
+    stats lines and fused launches (the replica check runs before the
+    snapshot)."""
+    run = train_run(plan.loop_batch, plan.res, plan.channel_base,
+                    n_devices=2, snap=1, seed=0,
+                    spatial_shard_min_res=plan.fwd_min_res[0])
+    kimg = plan.loop_batches * plan.loop_batch / 1000
+    run_dir = os.path.join(out_dir, "spatial_run", f"rank{mesh.rank}")
+    loop_cfg = dataclasses.replace(
+        run.loop_cfg, run_dir=run_dir, total_kimg=kimg, kimg_per_tick=kimg,
+        image_snapshot_ticks=None, network_snapshot_ticks=1,
+        log_param_histograms=False)
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    state = loop_lib.training_loop(
+        loop_cfg, run.train_cfg, run.g_cfg, run.d_cfg,
+        train_cli.open_dataset(data, random_seed=0)[0],
+        augment_cfg=run.augment_cfg, reg_remat=run.reg_remat,
+        spatial_shard_min_res=run.spatial_shard_min_res, mesh=mesh)
+    _sync_dev(mesh.device)
+    files = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+    stats = []
+    if "stats.jsonl" in files:
+        with open(os.path.join(run_dir, "stats.jsonl")) as f:
+            stats = [json.loads(ln) for ln in f if ln.strip()]
+    return {"files": files, "stats": stats, "cur_nimg": state.cur_nimg,
+            "launches": fmc.fused_modconv3x3.launches,
+            "wall": time.perf_counter() - t0}
+
+
+def spatial_rank(mesh, plan: SpatialPlan, data, out_dir):
+    """One of two ranks sharing the card over gloo: (a)-(d)."""
+    _dist_settings()
+    out = {"forward": _spatial_forward(mesh, plan)}
+    out["check"] = _spatial_check(mesh, plan)
+    out["arms"] = _spatial_arms(mesh, plan)
+    out["loop"] = _spatial_loop(mesh, plan, data, out_dir)
+    return out
+
+
+def _spatial_breaks(c, variant: str) -> list:
+    """The quantities of a step comparison past their SPATIAL_BOUNDS (G's
+    by its last phase), and a changed ada_p."""
+    got = {"G main" if variant == "none" else "G reg": c["nets"]["G"][0],
+           "D": c["nets"]["D"][0], "loss main": c["loss"]["main"],
+           "loss reg": c["loss"]["reg"], "pl_mean": c["pl_mean"],
+           "w_avg": c["w_avg"]}
+    bad = [k for k, v in got.items() if not v <= SPATIAL_BOUNDS[k]]
+    return bad + (["ada_p"] if c["ada_p"] != 0 else [])
+
+
+def spatial_phase(tmp, data, card, plan: SpatialPlan = SPATIAL):
+    """Spatial sharding on the card, two gloo ranks sharing it (NCCL refuses
+    that), deterministic algorithms and TF32 off: (a) the
+    sharded forward against one process in fp32, a planted fault and the
+    bf16 difference; (b) the fp32 step against one process (SPATIAL_BOUNDS,
+    the ranks bit-equal) and two planted faults; (c) the bf16 "none" step
+    in four arms (one process, data parallelism, spatial at two min_res):
+    s/step, peak memory a rank, all_reduces and bytes a step; (d) the loop,
+    writing from rank 0.  Returns rank 0's fused launches."""
+    phase("spatial")
+    on_card = _on_card(plan.device)
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    t0 = time.perf_counter()
+    try:
+        ranks = mesh_lib.spawn(spatial_rank, 2, backend="gloo",
+                               devices=plan.device, timeout=DIST_TIMEOUT,
+                               limit=DIST_TIMEOUT,
+                               args=(plan, data, tmp))
+    finally:
+        if alloc_conf is None:
+            del os.environ["PYTORCH_CUDA_ALLOC_CONF"]
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
+    wall = time.perf_counter() - t0
+
+    fwd = [r["forward"] for r in ranks]
+    first = plan.fwd_min_res[0]
+    for m in plan.fwd_min_res:
+        if not torch.equal(fwd[0]["fp32"][m], fwd[1]["fp32"][m]):
+            raise AssertionError(f"spatial forward {m}: the ranks' gathered "
+                                 f"images differ")
+    errs = {m: float((fwd[0]["fp32"][m] - fwd[0]["one_fp32"]).abs().max())
+            for m in plan.fwd_min_res}
+    fault = float((fwd[0]["fault"] - fwd[0]["one_fp32"]).abs().max())
+    bf16 = float((fwd[0]["bf16"] - fwd[0]["one_bf16"]).abs().max())
+    print(f"spatial forward, fp32, batch {plan.fwd_batch}, two ranks vs one "
+          f"process: max|diff| by min_res { {m: float(f'{e:.4g}') for m, e in errs.items()} } "
+          f"(bound {SPATIAL_BOUNDS['forward']:.4g}); zero-filled halos at "
+          f"{first}: {fault:.4g}; bf16 at {first}: {bf16:.4g}; fused "
+          f"launches a rank {[f['launches'] for f in fwd]}; all_reduces and "
+          f"bytes a forward {fwd[0]['exchanges']}; on {card}", flush=True)
+    if any(e > SPATIAL_BOUNDS["forward"] for e in errs.values()):
+        raise AssertionError(f"spatial forward: {errs} past the bound")
+    if not fault > SPATIAL_BOUNDS["forward"]:
+        raise AssertionError("spatial forward: the bound does not fail "
+                             "zero-filled halos")
+    if on_card and not all(f["launches"][first] > 0 for f in fwd):
+        raise AssertionError(f"spatial forward: no fused launch at min_res "
+                             f"{first}")
+
+    st = ranks[0]["check"]
+    bounds = ", ".join(f"{k} {v:.4g}" for k, v in SPATIAL_BOUNDS.items())
+    for v in DIST_VARIANTS:
+        c = st["compare"][v]
+        print(f"spatial 2 ranks vs one process, fp32, {v} (min_res {first},"
+              f" batch {plan.check_batch}): {_dist_reading(c)} (bounds "
+              f"{bounds}; ada_p equal); s {st['s'][v]:.4f} a rank, one "
+              f"process {st['ref_s'][v]:.4f}; fused launches "
+              f"{st['launches'][v]}", flush=True)
+        if _spatial_breaks(c, v):
+            raise AssertionError(f"spatial {v}: two ranks are not the "
+                                 f"one-process step: {_spatial_breaks(c, v)}")
+    for name, c in st["faults"].items():
+        broken = _spatial_breaks(c, "none")
+        print(f"spatial planted fault, {name} (none): {_dist_reading(c)}; "
+              f"past its bounds: {broken}", flush=True)
+        if not broken:
+            raise AssertionError(f"spatial: the bounds do not fail the "
+                                 f"planted fault {name}")
+
+    arms, peaks1 = ranks[0]["arms"], ranks[1]["arms"]
+    for name in ("one process", "data parallel") + tuple(
+            f"spatial {m}" for m in plan.arm_min_res):
+        a = arms[name]
+        other = ("" if name == "one process" else
+                 f" (rank 1: {peaks1[name]['peak'] / 2 ** 30:.3f} GiB, "
+                 f"{peaks1[name]['s']:.4f} s)")
+        print(f"spatial arm {name}, bf16 none at global batch "
+              f"{plan.arm_batch}: {a['s']:.4f} s/step, peak "
+              f"{a['peak'] / 2 ** 30:.3f} GiB a rank{other}, "
+              f"{a['calls']} all_reduces of {a['bytes'] / 2 ** 20:.1f} MiB a "
+              f"step, fused launches {a['launches']}; on {card}", flush=True)
+        if not a["finite"]:
+            raise AssertionError(f"spatial arm {name}: non-finite metrics")
+    one_peak = arms["one process"]["peak"]
+    for m in plan.arm_min_res:
+        for r in ranks:
+            if on_card and not r["arms"][f"spatial {m}"]["peak"] < one_peak:
+                raise AssertionError(
+                    f"spatial {m}: a rank's peak is not below the one "
+                    f"process's: the maps were not sharded")
+
+    loops = [r["loop"] for r in ranks]
+    for r, lp in enumerate(loops):
+        print(f"spatial loop rank {r} (min_res {first}, {plan.loop_batches} "
+              f"batches of {plan.loop_batch}): files {lp['files']}, stats "
+              f"lines {len(lp['stats'])}, fused launches {lp['launches']}, "
+              f"{lp['wall']:.2f} s", flush=True)
+    snaps = [f for f in loops[0]["files"] if f.startswith("network-snapshot")]
+    if (loops[1]["files"] or len(snaps) != 1 or len(loops[0]["stats"]) != 1
+            or any(lp["cur_nimg"] != plan.loop_batch * plan.loop_batches
+                   for lp in loops)):
+        raise AssertionError("spatial loop: files, stats or images")
+    print(f"spatial phase: two ranks {wall:.1f} s, on {card}", flush=True)
+    return (sum(fwd[0]["launches"].values()) + sum(st["launches"].values())
+            + sum(a["launches"] for k, a in ranks[0]["arms"].items()
+                  if k != "one process") + loops[0]["launches"])
+
+
 def main():
     card, peaks = device_phase()
     build_phase()
@@ -4607,6 +5062,8 @@ def main():
         dist_launches = dist_phase(tmp, data, card, seconds, ga_run)
         del ga_run
         torch.cuda.empty_cache()
+        spatial_launches = spatial_phase(tmp, data, card)
+        torch.cuda.empty_cache()
         metrics_launches, ppl_launches = metrics_phase(tmp, snap, card)
         torch.cuda.empty_cache()
         inversion_launches, ii2s_needs = inversion_phase(tmp, card)
@@ -4625,7 +5082,7 @@ def main():
                "inversion": inversion_launches, "face": face_launches,
                "state": state_launches, "tail": tail_launches,
                "examples": examples_launches, "zoo": zoo_launches,
-               "dist": dist_launches}
+               "dist": dist_launches, "spatial": spatial_launches}
     f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",

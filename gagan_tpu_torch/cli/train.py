@@ -28,8 +28,11 @@ of every batch and only rank 0 writes files.  Started by ``torchrun``
 devices: ``--cfg auto``'s batch and mbstd group, and rounds of the
 per-device batch.
 
-Not ported yet, raising ``NotImplementedError``: ``--spatial-shard-min-res``
-(spatial sharding, the next slice of ROADMAP item 10).
+``--spatial-shard-min-res R`` with several ranks (``--gpus N``,
+``torchrun``, or ``--device cpu`` over gloo) shards the height of every
+map at res >= R over the ranks instead of the batch
+(``parallel/spatial.py``): each rank reads the whole batch and holds its
+rows of the large maps.  With one rank it does nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ class Run:
     main_remat: bool
     reg_remat: bool
     parametrization: Optional[str] = None    # offsets grammar, or None
+    spatial_shard_min_res: Optional[int] = None
 
     def plan(self) -> Dict[str, Any]:
         """The plan the command prints (the JAX command's JSON)."""
@@ -120,10 +124,6 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
     """The configs and memory plan of a run on ``res``^2 images with
     ``num_channels`` channels over ``n_devices`` (default 1) data-parallel
     ranks, from the command's options."""
-    if spatial_shard_min_res is not None:
-        raise NotImplementedError(
-            "--spatial-shard-min-res is not ported yet (spatial sharding, "
-            "the next slice of ROADMAP item 10)")
     spec = dict(CFG_SPECS[cfg])
     n_dev = n_devices or 1
     if cfg == "auto":
@@ -222,7 +222,7 @@ def build_run(res: int, num_channels: int = 3, label_dim: int = 0, *,
                phase_schedule, (accum_rounds, g_reg_rounds, d_reg_rounds),
                main_remat, reg_remat,
                domain_modulation_parametrization if use_domain_modulation
-               else None)
+               else None, spatial_shard_min_res)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -269,7 +269,9 @@ def build_parser() -> argparse.ArgumentParser:
     add("--packed-head-blocks", type=int, default=1)
     add("--ga-threshold", type=float, default=None)
     add("--ga-mutation-rate", type=float, default=0.1)
-    add("--spatial-shard-min-res", type=int, default=None)
+    add("--spatial-shard-min-res", type=int, default=None,
+        help="Shard the rows of every map at res >= this over the ranks "
+             "(spatial sharding) instead of the batch")
     add("--dry-run", action="store_true")
     add("--device", default="cuda",
         help="torch device (default cuda; cpu runs the plain PyTorch "
@@ -365,7 +367,8 @@ def _train(run: Run, dataset, mesh):
     return loop_lib.training_loop(
         run.loop_cfg, run.train_cfg, run.g_cfg, run.d_cfg, dataset,
         augment_cfg=run.augment_cfg, parametrization=run.parametrization,
-        weight_parts=run.parts, reg_remat=run.reg_remat, mesh=mesh)
+        weight_parts=run.parts, reg_remat=run.reg_remat,
+        spatial_shard_min_res=run.spatial_shard_min_res, mesh=mesh)
 
 
 def _train_rank(mesh, data: str, data_kw: Dict[str, Any],

@@ -8,7 +8,8 @@
   the one-device counterpart of ``__graft_entry__.dryrun_multichip`` at
   full width, configured by the port's training CLI's plan for a 1024^2 run
   (``cli/train.py::build_run``, ``--cfg auto``); :func:`dp_train_entry`,
-  the same as one rank of a data-parallel world.
+  the same as one rank of a data-parallel world, and
+  :func:`spatial_train_entry`, as one rank of a spatially sharded one.
 * :func:`dryrun_multichip`: ``__graft_entry__.dryrun_multichip``'s one
   full fused step at a tiny size over n ranks.
 * :func:`fewshot_entry`: the few-shot Affine+ adaptation step at
@@ -53,6 +54,7 @@ from .models import stylegan2 as sg2
 from .models import swin
 from .parallel import dryrun as dryrun_lib
 from .parallel import mesh as mesh_lib
+from .parallel import spatial as spatial_lib
 from .params import offsets as offs_lib
 from .train import adapt_losses as al
 from .train import adaptation as ad
@@ -176,6 +178,21 @@ def dp_train_entry(mesh: mesh_lib.Mesh, batch: int = 32,
                       mesh.device, batch, ada_p, mesh)
 
 
+def spatial_train_entry(mesh: mesh_lib.Mesh, batch: int = 32,
+                        min_res: int = 256, img_resolution: int = 1024,
+                        channel_base: Optional[int] = None,
+                        ada_p: float = 0.0, **options):
+    """:func:`train_entry` as rank ``mesh.rank`` of a spatially sharded world
+    (``cli/train.py --spatial-shard-min-res min_res``): the CLI's plan for
+    ``mesh.world_size`` devices, the same seeded state on every rank, the
+    steps with ``parallel.spatial``'s hooks (synthesis layers at res >=
+    ``min_res``) and D constraint over the mesh, called without it, and the
+    whole inputs on every rank (real images, None, z, None, key)."""
+    return _run_steps(train_run(batch, img_resolution, channel_base,
+                                n_devices=mesh.world_size, **options),
+                      mesh.device, batch, ada_p, spatial=(mesh, min_res))
+
+
 def dryrun_multichip(n_devices: int, device="cuda",
                      backend: Optional[str] = None,
                      timeout: float = 300.0) -> Dict[str, float]:
@@ -208,7 +225,8 @@ def fewshot_entry(device="cuda", batch: int = 32, img_resolution: int = 1024,
                                 **FEWSHOT_OPTIONS), device, batch, ada_p)
 
 
-def _run_steps(run, device, batch: int, ada_p: float, mesh=None):
+def _run_steps(run, device, batch: int, ada_p: float, mesh=None,
+               spatial=None):
     g_cfg, d_cfg, cfg, aug_cfg = (run.g_cfg, run.d_cfg, run.train_cfg,
                                   run.augment_cfg)
     r1_d_cfg = dataclasses.replace(d_cfg, remat=True) if run.reg_remat else None
@@ -229,13 +247,19 @@ def _run_steps(run, device, batch: int, ada_p: float, mesh=None):
     pl_g_cfg = dataclasses.replace(g_cfg, synthesis=dataclasses.replace(
         g_cfg.synthesis, pallas_level=False))
     augment_fn = augment.make_augment_fn(aug_cfg)
+    extra_hooks = d_constraint = None
+    if spatial is not None:
+        extra_hooks = spatial_lib.spatial_sharding_hooks(
+            g_cfg.synthesis, spatial[0], min_res=spatial[1])
+        d_constraint = spatial_lib.d_spatial_constraint(spatial[0])
     steps: Dict[str, object] = {}
     for name, do_g, do_d in dryrun_lib.VARIANTS:
         steps[name] = ts.make_fused_step(
             cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
             do_g_reg=do_g, do_d_reg=do_d, reg_g_cfg=pl_g_cfg if do_g else None,
             reg_d_cfg=r1_d_cfg if do_d else None, offsets_spec=spec,
-            offsets_tx=offsets_tx)
+            offsets_tx=offsets_tx, extra_hooks=extra_hooks,
+            d_constraint=d_constraint)
         if mesh is not None:
             steps[name] = mesh_lib.shard_train_step(steps[name], mesh)
     gen = torch.Generator().manual_seed(2)

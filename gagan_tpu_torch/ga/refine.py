@@ -61,17 +61,22 @@ def apply_genetic_refinement(
     hooks: Optional[sg2.LayerHooks] = None,
     return_mask: bool = False,
     shard=None,
+    d_constraint=None,
 ):
     """Fakes with near-boundary samples replaced by GA offspring (and, with
     ``return_mask``, the [N] replacement mask).  Runs under no_grad: the
     refinement is a data transformation outside autograd.  ``shard``: the
     images are a rank's share of the batch (``parallel.mesh.BatchShard``),
-    which D's minibatch stddev reads whole."""
+    which D's minibatch stddev reads whole.  ``d_constraint`` forwards to
+    discriminator_apply's ``spatial_constraint`` (the step runs spatially
+    sharded)."""
     with torch.no_grad():
-        d_real = sg2.discriminator_apply(d_cfg, d_params, real_img,
-                                         shard=shard)[:, 0]
-        d_fake = sg2.discriminator_apply(d_cfg, d_params, fake_img,
-                                         shard=shard)[:, 0]
+        d_real = sg2.discriminator_apply(
+            d_cfg, d_params, real_img, shard=shard,
+            spatial_constraint=d_constraint)[:, 0]
+        d_fake = sg2.discriminator_apply(
+            d_cfg, d_params, fake_img, shard=shard,
+            spatial_constraint=d_constraint)[:, 0]
         mask = (d_real - d_fake).abs() < threshold             # [N]
 
         k_enc, k_cx, k_mut, k_noise = key.split(4)

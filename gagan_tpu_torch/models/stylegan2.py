@@ -18,8 +18,10 @@ block under ``torch.utils.checkpoint``, as the JAX package wraps it in
 and recomputed in the backward, to first and second order.  Layer hooks
 (``LayerHooks``, made by params/offsets.py) transform a synthesis layer's
 w, styles, affine weight, conv weight or output, as in the JAX package.
-Not in this module yet: the discriminator's ``spatial_constraint``
-(multi-device).
+Spatial (height) sharding over ``torch.distributed`` ranks
+(parallel/spatial.py) rides on the same hooks: a "post" hook that carries a
+row layout runs its layer on this rank's rows, and the discriminator's
+``spatial_constraint`` does the same for its large blocks.
 ``noise_mode="random"`` draws each layer's noise from a key of the
 caller's :class:`~gagan_tpu_torch.utils.rng.Rng` (or a key drawn from a
 ``torch.Generator``), folded with the layer name as the JAX package folds
@@ -457,16 +459,30 @@ def _layer_weight(lp: Params, layer_name: str,
 
 
 def _noise(cfg: SynthesisConfig, lp: Params, noise_mode: str, shape,
-           rng: Optional[Rng], name: str) -> Optional[torch.Tensor]:
+           rng: Optional[Rng], name: str, rows=None) -> Optional[torch.Tensor]:
     """Scaled layer noise: [H, W] for const, ``shape`` for random (drawn
-    from ``rng`` folded with the layer name)."""
+    from ``rng`` folded with the layer name).  With a row layout ``rows``
+    (parallel/spatial.py): this rank's rows of it, the random draw made at
+    the global shape on every rank from the same key."""
     if not cfg.use_noise or noise_mode == "none":
         return None
-    if noise_mode == "const":
-        return lp["noise_const"] * lp["noise_strength"]
     strength = lp["noise_strength"]
-    nz = rng.fold_in(name_fold(name)).normal(shape, device=strength.device)
-    return nz.to(strength.device) * strength
+    if noise_mode == "const":
+        nz = lp["noise_const"]
+    else:
+        nz = rng.fold_in(name_fold(name)).normal(shape, device=strength.device)
+        nz = nz.to(strength.device)
+    if rows is not None:
+        nz = rows.rows(nz, shape[-2])
+        (strength,) = rows.enter(strength)
+    return nz * strength
+
+
+def _row_layout(hooks: Optional[LayerHooks], layer_name: str):
+    """The row layout (parallel/spatial.py) that the layer's "post" hook
+    carries when it shards the layer over several ranks, else None."""
+    lay = getattr(_hook(hooks, layer_name, "post"), "row_layout", None)
+    return lay if lay is not None and lay.world_size > 1 else None
 
 
 def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
@@ -476,12 +492,19 @@ def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
                           rng: Optional[Rng] = None,
                           hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """SynthesisLayer forward.  The fused level takes the hooked styles and
-    weight; a "post" hook keeps the layer on the composed path."""
+    weight; a "post" hook keeps the layer on the composed path.  A "post"
+    hook that carries a row layout (parallel/spatial.py) runs the layer on
+    this rank's rows: ``x`` is the input map whole or as this rank's rows,
+    and the output is this rank's rows."""
+    lay = _row_layout(hooks, layer_name)
     styles = _layer_styles(lp, w, 1.0, layer_name, hooks)
     weight = _layer_weight(lp, layer_name, hooks)
     noise = _noise(cfg, lp, noise_mode, (x.shape[0], 1, resolution, resolution),
-                   rng, layer_name)
+                   rng, layer_name, lay)
     post = _hook(hooks, layer_name, "post")
+    if lay is not None:
+        return _synthesis_layer_rows(cfg, lay, lp, x, styles, weight, noise,
+                                     resolution, up, resample_filter, post)
 
     if (cfg.pallas_level and up == 1 and cfg.activation == "lrelu"
             and post is None
@@ -507,20 +530,57 @@ def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
                     clamp=cfg.conv_clamp)
 
 
+def _synthesis_layer_rows(cfg: SynthesisConfig, lay, lp: Params,
+                          x: torch.Tensor, styles: torch.Tensor,
+                          weight: torch.Tensor, noise, resolution: int,
+                          up: int, resample_filter: torch.Tensor,
+                          post) -> torch.Tensor:
+    """A synthesis layer on this rank's rows: the composed modulated conv on
+    the input's window (its rows and a halo of kernel // 2 rows, of the
+    low-resolution input before an up=2 conv), the window's extra output
+    rows cropped; noise, bias, activation and clamp are row-local."""
+    styles, weight, bias = lay.enter(styles, weight, lp["bias"])
+    halo = weight.shape[-1] // 2
+    x = lay.window(x, resolution // up, halo)
+    x = modulated_conv2d(x, weight, styles, up=up,
+                         padding=weight.shape[-1] // 2,
+                         resample_filter=resample_filter,
+                         flip_weight=(up == 1))
+    x = post(lay.crop(x, halo * up, resolution))
+    if noise is not None:
+        x = x + noise.to(x.dtype)
+    return bias_act(x, bias.to(x.dtype), act=cfg.activation,
+                    gain=activation_funcs[cfg.activation].def_gain,
+                    clamp=cfg.conv_clamp)
+
+
 def torgb_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
                       w: torch.Tensor, layer_name: str = "",
-                      hooks: Optional[LayerHooks] = None) -> torch.Tensor:
-    """ToRGBLayer forward (1x1, no demodulation)."""
+                      hooks: Optional[LayerHooks] = None,
+                      rows=None) -> torch.Tensor:
+    """ToRGBLayer forward (1x1, no demodulation).  With a row layout
+    ``rows`` (parallel/spatial.py), ``x`` is this rank's rows and so is the
+    output."""
     in_ch = lp["weight"].shape[1]
     kernel = lp["weight"].shape[-1]
     styles = _layer_styles(lp, w, 1.0 / np.sqrt(in_ch * kernel ** 2),
                            layer_name, hooks)
-    x = modulated_conv2d(x, _layer_weight(lp, layer_name, hooks), styles,
-                         demodulate=False)
+    weight, bias = _layer_weight(lp, layer_name, hooks), lp["bias"]
+    if rows is not None:
+        styles, weight, bias = rows.enter(styles, weight, bias)
+    x = modulated_conv2d(x, weight, styles, demodulate=False)
     post = _hook(hooks, layer_name, "post")
     if post is not None:
         x = post(x)
-    return bias_act(x, lp["bias"].to(x.dtype), clamp=cfg.conv_clamp)
+    return bias_act(x, bias.to(x.dtype), clamp=cfg.conv_clamp)
+
+
+def _upsample_rows(lay, img: torch.Tensor, f: torch.Tensor,
+                   resolution: int) -> torch.Tensor:
+    """``upsample2d`` of the skip image (whole or this rank's rows) to this
+    rank's rows at ``resolution``: a window with a halo of one row."""
+    return lay.crop(upsample2d(lay.window(img, resolution // 2, 1), f), 2,
+                    resolution)
 
 
 def _packed_tail(cfg: SynthesisConfig, params: Params,
@@ -629,7 +689,8 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                     noise_mode: str = "const",
                     generator: "Optional[torch.Generator | Rng]" = None,
                     force_fp32: bool = False,
-                    hooks: Optional[LayerHooks] = None) -> torch.Tensor:
+                    hooks: Optional[LayerHooks] = None,
+                    rows_out: bool = False) -> torch.Tensor:
     """SynthesisNetwork forward: ws [N, num_ws, w_dim] -> img [N, C, R, R].
     ``noise_mode="random"`` draws from ``generator``: an :class:`Rng` key,
     or a ``torch.Generator`` that one key is drawn from.  With
@@ -638,7 +699,12 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
     and runs unpacked.  ``hooks`` are the layers' transforms; a "post" hook
     on a layer of the packed tail keeps all its blocks unpacked, and with
     hooks the packed tail is not rematerialized (other blocks still are),
-    as in the JAX package."""
+    as in the JAX package.
+
+    Spatial sharding (parallel/spatial.py): a block whose conv1 "post" hook
+    carries a row layout runs its layers, torgb and the skip image's
+    upsampling on this rank's rows, and the image is gathered whole at the
+    end; with ``rows_out`` this rank's rows of it are returned instead."""
     if noise_mode not in ("random", "const", "none"):
         raise ValueError(f"noise_mode must be random, const or none, "
                          f"got {noise_mode!r}")
@@ -673,6 +739,9 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
         num_conv = 1 if res == 4 else 2
         block_ws = [ws[:, w_idx + i] for i in range(num_conv + 1)]
         w_idx += num_conv
+        # The sharded blocks are the highest ones (spatial_sharding_hooks):
+        # once a block runs on rows, every later one does, the last too.
+        lay = _row_layout(hooks, f"b{res}.conv1")
 
         if res == tail_start:
             tail_res = resolutions[resolutions.index(res):]
@@ -688,7 +757,7 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
             return tail_fn(params, x, img, tail_ws)
 
         def block_fn(block, x, img, block_ws, res=res, dtype=dtype,
-                     num_conv=num_conv):
+                     num_conv=num_conv, lay=lay):
             if res == 4:
                 x = block["const"].to(dtype)[None].repeat(batch, 1, 1, 1)
             else:
@@ -701,11 +770,12 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                                       resample_filter, f"b{res}.conv1",
                                       noise_mode, rng, hooks)
             if img is not None:
-                img = upsample2d(img, resample_filter)
+                img = (upsample2d(img, resample_filter) if lay is None else
+                       _upsample_rows(lay, img, resample_filter, res))
             if "torgb" in block:
                 y = torgb_layer_apply(cfg, block["torgb"], x,
                                       block_ws[num_conv], f"b{res}.torgb",
-                                      hooks).float()
+                                      hooks, lay).float()
                 img = y if img is None else img + y
             return x, img
 
@@ -713,6 +783,8 @@ def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
             x, img = _remat(block_fn, block, x, img, block_ws)
         else:
             x, img = block_fn(block, x, img, block_ws)
+    if lay is not None and not rows_out:
+        img = lay.gather(img, resolutions[-1])
     return img
 
 
@@ -849,32 +921,45 @@ def _equalized(w: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_res_core(cfg: DiscriminatorConfig, block: Params, x: torch.Tensor,
-                     dtype: torch.dtype) -> torch.Tensor:
+                     dtype: torch.dtype, lay=None) -> torch.Tensor:
     """conv0/conv1/skip of a resnet block on the packed grid (ops/packed.py):
     ``x`` is the packed input [N, 4C, res/2, res/2]; returns the unpacked
-    [N, C_out, res/2, res/2] block output."""
+    [N, C_out, res/2, res/2] block output.  With a row layout ``lay``
+    (parallel/spatial.py), ``x`` is this rank's rows of the packed grid, each
+    3x3 conv takes a window with a halo of one packed row, and the output is
+    this rank's rows."""
     taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
                            device=x.device)
     taps = taps / taps.sum()
     spec = activation_funcs[cfg.activation]
-    y = pk.conv_packed(x, pk.build_packed_conv3x3(
-        _equalized(block["conv0"]["weight"])).to(dtype))
+
+    def conv(v, wp):
+        if lay is None:
+            return pk.conv_packed(v, wp.to(dtype))
+        h = v.shape[-2] * lay.world_size
+        return lay.crop(pk.conv_packed(lay.window(v, h, 1), wp.to(dtype)),
+                        1, h)
+
+    y = conv(x, pk.build_packed_conv3x3(_equalized(block["conv0"]["weight"])))
     y = bias_act(y, pk.pack_channel_tile(block["conv0"]["bias"]).to(y.dtype),
                  act=cfg.activation, gain=spec.def_gain, clamp=cfg.conv_clamp)
-    y = pk.conv_packed(y, pk.build_packed_downconv(
-        _equalized(block["conv1"]["weight"]), taps).to(dtype))
+    y = conv(y, pk.build_packed_downconv(_equalized(block["conv1"]["weight"]),
+                                         taps))
     g = float(np.sqrt(0.5))
     y = bias_act(y, block["conv1"]["bias"].to(y.dtype), act=cfg.activation,
                  gain=spec.def_gain * g,
                  clamp=cfg.conv_clamp * g if cfg.conv_clamp else None)
-    sk = pk.conv_packed(x, pk.build_packed_down1x1(
-        _equalized(block["skip"]["weight"]), taps).to(dtype))
+    sk = conv(x, pk.build_packed_down1x1(_equalized(block["skip"]["weight"]),
+                                         taps))
     sk = sk * torch.full((), g, dtype=sk.dtype, device=sk.device)
     return sk + y
 
 
 def _d_block(cfg: DiscriminatorConfig, block: Params, x, img,
-             resample_filter, dtype):
+             resample_filter, dtype, lay=None, res: Optional[int] = None):
+    if lay is not None:
+        return _d_block_rows(cfg, lay, lay.enter_tree(block), x, img,
+                             resample_filter, dtype, res)
     if x is not None:
         x = x.to(dtype)
     if "fromrgb" in block:
@@ -903,6 +988,44 @@ def _d_block(cfg: DiscriminatorConfig, block: Params, x, img,
     return x, img
 
 
+def _d_block_rows(cfg: DiscriminatorConfig, lay, block: Params, x, img,
+                  resample_filter, dtype, res: int):
+    """:func:`_d_block` on this rank's rows of its ``res``-row input
+    (parallel/spatial.py): ``x`` is those rows (or None), ``img`` the whole
+    image, ``block`` the entered parameters.  Each conv runs on a window of
+    its input, a halo of one row before a 3x3 conv and two before a stride-2
+    op, and keeps the rank's rows of its output."""
+
+    def conv(p, v, act, halo, down=1, **kw):
+        y = conv2d_layer_apply(p, v, act, down=down,
+                               resample_filter=resample_filter if down > 1
+                               else None, **kw)
+        return lay.crop(y, halo // down, res // down)
+
+    if x is not None:
+        x = x.to(dtype)
+    if "fromrgb" in block:
+        y = conv(block["fromrgb"], lay.rows(img, res).to(dtype),
+                 cfg.activation, 0, conv_clamp=cfg.conv_clamp)
+        x = x + y if x is not None else y
+        img = (downsample2d(img, resample_filter)
+               if cfg.architecture == "skip" else None)
+    g = float(np.sqrt(0.5))
+    if cfg.architecture == "resnet":
+        xw = lay.window(x, res, 2, stride2=True)
+        y = conv(block["skip"], xw, "linear", 2, down=2, gain=g)
+        x = conv(block["conv0"], xw[..., 1:-1, :], cfg.activation, 1,
+                 conv_clamp=cfg.conv_clamp)
+        x = conv(block["conv1"], lay.window(x, res, 2, stride2=True),
+                 cfg.activation, 2, down=2, conv_clamp=cfg.conv_clamp, gain=g)
+        return y + x, img
+    x = conv(block["conv0"], lay.window(x, res, 1), cfg.activation, 1,
+             conv_clamp=cfg.conv_clamp)
+    x = conv(block["conv1"], lay.window(x, res, 2, stride2=True),
+             cfg.activation, 2, down=2, conv_clamp=cfg.conv_clamp)
+    return x, img
+
+
 def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
                         img: torch.Tensor, c: Optional[torch.Tensor] = None,
                         force_fp32: bool = False,
@@ -911,32 +1034,45 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
 
     ``shard`` (a ``parallel.mesh.BatchShard``): ``img`` is this rank's
     share of a global batch, and the minibatch stddev reads every rank's.
-    ``spatial_constraint`` belongs to the JAX package's spatial sharding
-    over a device mesh; the port takes it only as None."""
-    if spatial_constraint is not None:
-        raise NotImplementedError(
-            "spatial_constraint (spatial sharding over several devices) is "
-            "not ported yet (the next slice of ROADMAP item 10)")
+    ``spatial_constraint``: from ``parallel.spatial.d_spatial_constraint``,
+    ``img`` is whole on every rank and each block whose input has at least
+    ``min_rows`` rows a rank runs on this rank's rows (the packed first
+    block on an even row block with halos on the packed grid); smaller
+    blocks and the epilogue run on the gathered map.  Any other callable is
+    applied to the image, to each unpacked block's input and to the last
+    block's output, as the JAX package applies it."""
     resample_filter = setup_filter(cfg.resample_filter, device=img.device)
     spec = activation_funcs[cfg.activation]
+    lay = getattr(spatial_constraint, "row_layout", None)
+    if lay is not None and lay.world_size == 1:
+        spatial_constraint = lay = None
+    constrain = (spatial_constraint if lay is None and spatial_constraint
+                 is not None else (lambda t: t))
+    img = constrain(img)
 
-    def first_block_packed(block, img, dtype):
+    def first_block_packed(block, img, dtype, lay=None):
         """fromrgb 1x1 as a cell-diagonal conv on pack(img), then the
-        packed conv0/conv1/skip core."""
+        packed conv0/conv1/skip core; with ``lay``, on this rank's rows."""
+        if lay is not None:
+            block = lay.enter_tree(block)
+            img = lay.rows(img, cfg.img_resolution)
         w = pk.build_packed_conv1x1(_equalized(block["fromrgb"]["weight"]))
         h = pk.conv_packed(pk.pack(img.to(dtype)), w.to(dtype))
         h = bias_act(h, pk.pack_channel_tile(
             block["fromrgb"]["bias"]).to(h.dtype), act=cfg.activation,
             gain=spec.def_gain, clamp=cfg.conv_clamp)
-        return _packed_res_core(cfg, block, h, dtype)
+        return _packed_res_core(cfg, block, h, dtype, lay)
 
-    def head_block_packed(block, x, dtype):
-        return _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype)
+    def head_block_packed(block, x, dtype, lay=None, res=None):
+        if lay is not None:
+            block, x = lay.enter_tree(block), lay.rows(x, res)
+        return _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype, lay)
 
-    def d_block(block, x, img, dtype):
-        return _d_block(cfg, block, x, img, resample_filter, dtype)
+    def d_block(block, x, img, dtype, lay=None, res=None):
+        return _d_block(cfg, block, x, img, resample_filter, dtype, lay, res)
 
     x = None
+    x_rows = None        # the layout x is this rank's rows in, if any
     for bi, res in enumerate(cfg.block_resolutions):
         block = params[f"b{res}"]
         dtype = (torch.bfloat16 if res >= cfg.bf16_resolution and not force_fp32
@@ -945,13 +1081,25 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
         packed_ok = (cfg.packed_first_block and res > 4
                      and cfg.architecture == "resnet"
                      and bi < cfg.packed_head_blocks)
+        rows = (lay if lay is not None and spatial_constraint.sharded(res)
+                else None)
+        if x_rows is not None and rows is None:
+            x = x_rows.gather(x, res)
+        if rows is not None:
+            rows.block(res, stride2=True)
         if packed_ok and res == cfg.img_resolution:
-            x = run(first_block_packed, block, img, dtype)
+            x = run(first_block_packed, block, img, dtype, rows)
             img = None
         elif packed_ok:
-            x = run(head_block_packed, block, x, dtype)
+            x = run(head_block_packed, block, x, dtype, rows, res)
         else:
-            x, img = run(d_block, block, x, img, dtype)
+            if x is not None:
+                x = constrain(x)
+            x, img = run(d_block, block, x, img, dtype, rows, res)
+        x_rows = rows
+    if x_rows is not None:
+        x = x_rows.gather(x, cfg.block_resolutions[-1] // 2)
+    x = constrain(x)
 
     cmap = None
     if cfg.c_dim > 0:

@@ -1,7 +1,8 @@
-"""Multi-device helpers (port of gagan_tpu/parallel/): data parallelism over
-``torch.distributed`` ranks (``mesh.py``) and hook composition.  Spatial
-(height) sharding of ``parallel/spatial.py`` is the next slice of ROADMAP
-item 10: its functions raise."""
+"""Multi-device helpers (port of gagan_tpu/parallel/) over
+``torch.distributed`` ranks: data parallelism (``mesh.py``: each rank its
+share of the batch, gradients averaged over the ranks) and spatial (height)
+sharding (``spatial.py``: each rank the whole batch and its row blocks of
+the large maps, with halo exchanges), and hook composition."""
 
 from .mesh import (
     Mesh,
@@ -13,16 +14,26 @@ from .mesh import (
     share_rows,
     spawn,
 )
-from .spatial import merge_hooks
+from .spatial import (
+    d_spatial_constraint,
+    gather_rows,
+    merge_hooks,
+    spatial_sharding_hooks,
+    spatial_synthesis_fn,
+)
 
 __all__ = [
     "Mesh",
     "check_replica_consistency",
     "create_mesh",
+    "d_spatial_constraint",
+    "gather_rows",
     "merge_hooks",
     "place_state",
     "shard_batch",
     "shard_train_step",
     "share_rows",
+    "spatial_sharding_hooks",
+    "spatial_synthesis_fn",
     "spawn",
 ]

@@ -16,7 +16,8 @@ import the port and nothing else.
   (:func:`mbstd_rank`, :func:`augment_rank`), the GA with ``mesh=``
   (:func:`ga_rank`), the training loop (:func:`loop_rank`), the replica
   check (:func:`replica_check_rank`) and the modules a rank imports
-  (:func:`modules_rank`).
+  (:func:`modules_rank`); spatial sharding's (:func:`spatial_rank`: the
+  sharded synthesis, D, the exchanges' adjoints and gradchecks, the step).
 
     python -m gagan_tpu_torch.parallel.dryrun [--ranks 2] [--device cpu]
         [--backend gloo]
@@ -46,6 +47,7 @@ from ..data import ImageFolderDataset
 from ..ga.search import evolve_directions
 from ..models import stylegan2 as sg2
 from ..ops import fused_modconv as fmc
+from ..params import offsets as offs_lib
 from ..train import augment as aug
 from ..train import train_step as ts
 from ..train.loop import training_loop
@@ -53,6 +55,7 @@ from ..utils import checkpoint as ckpt
 from ..utils.rng import Rng
 from ..utils.stats import Collector
 from . import mesh as mesh_lib
+from . import spatial as spatial_lib
 
 
 def tiny_configs(mbstd_group_size: int = 2, img_resolution: int = 32):
@@ -84,11 +87,14 @@ class StepCase:
     weights: Optional[tuple] = None
     augment_cfg: Any = None
     ada_p: float = 0.0
+    spatial_min_res: Optional[int] = None
 
     def build(self, mesh: Optional[mesh_lib.Mesh], device="cuda"):
         """(steps by variant, state, inputs) on ``mesh``, or in one process
         on ``device`` without one (the card unless 'cpu' is asked for);
-        the steps are bound to the mesh."""
+        the steps are bound to the mesh.  With ``spatial_min_res`` the
+        steps run spatially sharded over the mesh instead (every rank the
+        whole batch, the steps not bound to it)."""
         device = mesh.device if mesh is not None else resolve_device(device)
         cfg = self.train_cfg
         if self.weights is None:
@@ -104,16 +110,23 @@ class StepCase:
         state.ada_p = torch.tensor(float(self.ada_p), device=device)
         augment_fn = (aug.make_augment_fn(self.augment_cfg)
                       if self.augment_cfg is not None else None)
+        spatial = mesh is not None and self.spatial_min_res is not None
+        hooks = constraint = None
+        if spatial:
+            hooks = spatial_lib.spatial_sharding_hooks(
+                self.g_cfg.synthesis, mesh, min_res=self.spatial_min_res)
+            constraint = spatial_lib.d_spatial_constraint(mesh)
         steps = {}
         for name, do_g, do_d in VARIANTS:
             step = ts.make_fused_step(cfg, self.g_cfg, self.d_cfg, g_tx, d_tx,
                                       augment_fn=augment_fn, do_g_reg=do_g,
-                                      do_d_reg=do_d)
+                                      do_d_reg=do_d, extra_hooks=hooks,
+                                      d_constraint=constraint)
             steps[name] = (mesh_lib.shard_train_step(step, mesh)
-                           if mesh is not None else step)
+                           if mesh is not None and not spatial else step)
         real = torch.from_numpy(self.real)
         real = (mesh_lib.shard_batch(mesh, real, ts.data_rounds(cfg))
-                if mesh is not None else real.to(device))
+                if mesh is not None and not spatial else real.to(device))
         z = torch.from_numpy(self.z).to(device)
         return steps, state, (real, None, z, None, self.key)
 
@@ -382,7 +395,8 @@ def ga_rank(mesh, g_cfg: sg2.GeneratorConfig, g_flat: dict,
 
 
 def loop_rank(mesh, loop_cfg, train_cfg, g_cfg, d_cfg, data: str,
-              augment_cfg=None) -> Dict[str, Any]:
+              augment_cfg=None,
+              spatial_shard_min_res: Optional[int] = None) -> Dict[str, Any]:
     """``training_loop`` on this rank over ``data`` (a folder or zip of
     images), with the run directory made per rank (``run_dir/rankN``) so
     that the files each rank wrote can be told apart; returns the final
@@ -390,10 +404,167 @@ def loop_rank(mesh, loop_cfg, train_cfg, g_cfg, d_cfg, data: str,
     run_dir = os.path.join(loop_cfg.run_dir, f"rank{mesh.rank}")
     state = training_loop(dataclasses.replace(loop_cfg, run_dir=run_dir),
                           train_cfg, g_cfg, d_cfg, ImageFolderDataset(data),
-                          augment_cfg=augment_cfg, mesh=mesh)
+                          augment_cfg=augment_cfg,
+                          spatial_shard_min_res=spatial_shard_min_res,
+                          mesh=mesh)
     files = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
     return {"digest": state_digest(state), "files": files,
             "cur_nimg": state.cur_nimg}
+
+
+@dataclasses.dataclass
+class SpatialCase:
+    """The checks of :func:`spatial_rank`, each optional: ``synthesis``,
+    (g_cfg, flat G weights, ws, [(label, min_res, None or (offsets spec,
+    offsets tree of numpy))]); ``d``, (d_cfg, flat D weights, real images);
+    ``step``, a :class:`StepCase` with ``spatial_min_res``; ``probes``: the
+    exchanges' adjoints and gradchecks."""
+    synthesis: Optional[tuple] = None
+    d: Optional[tuple] = None
+    step: Optional[StepCase] = None
+    probes: bool = False
+
+
+def spatial_synthesis(mesh, g_cfg, g_flat, ws, min_res, offsets=None):
+    """``spatial_synthesis_fn`` on this rank, with the hooks of an offsets
+    (spec, tree) as its base hooks: (the image gathered whole, the shape of
+    the rank's block)."""
+    params = ckpt.flat_to_tree(g_flat, mesh.device)
+    base = None
+    if offsets is not None:
+        spec, tree = offsets
+        base = offs_lib.make_hooks(
+            offs_lib.OffsetsSpec.from_string(spec),
+            {k: {kk: torch.from_numpy(vv).to(mesh.device)
+                 for kk, vv in v.items()} for k, v in tree.items()})
+    fn = spatial_lib.spatial_synthesis_fn(g_cfg, mesh, min_res=min_res,
+                                          base_hooks=base)
+    rows = fn(params, torch.from_numpy(ws).to(mesh.device))
+    return spatial_lib.gather_rows(rows, mesh, g_cfg.img_resolution).cpu(
+    ).numpy(), tuple(rows.shape)
+
+
+def spatial_d(mesh, d_cfg, d_flat, real) -> Dict[str, np.ndarray]:
+    """D under ``d_spatial_constraint`` on this rank: the logits, the R1
+    penalty's per-sample values and its gradient with respect to every D
+    leaf (through the exchanges twice)."""
+    params = ckpt.flat_to_tree(d_flat, mesh.device)
+    leaves = ckpt.tree_to_flat_tensors(params)
+    for t in leaves.values():
+        t.requires_grad_(True)
+    constraint = spatial_lib.d_spatial_constraint(mesh)
+    img = torch.from_numpy(real).to(mesh.device).requires_grad_(True)
+    logits = sg2.discriminator_apply(d_cfg, params, img,
+                                     spatial_constraint=constraint)
+    (g,) = torch.autograd.grad(logits.sum(), img, create_graph=True)
+    r1 = g.square().sum(dim=(1, 2, 3))
+    grads = torch.autograd.grad(r1.sum(), list(leaves.values()),
+                                allow_unused=True)
+    return {"logits": logits.detach().cpu().numpy(),
+            "r1": r1.detach().cpu().numpy(),
+            "grads": {k: (torch.zeros_like(t) if g is None else g).cpu()
+                      .numpy() for (k, t), g in zip(leaves.items(), grads)}}
+
+
+def _probe_fns(layout, h: int):
+    """Three maps of a [1, 2, h, 3] input (and a [2, 2, 3, 3] weight), each
+    whole on every rank, through one of the pairs: "halo" (rows, a halo of
+    one, a 3x3 conv without H padding, tanh, gather), "enter" (the weight
+    entered into the rows' product), "gather" (rows, tanh, gather,
+    squared)."""
+
+    def halo(x, w):
+        win = layout.window(layout.rows(x, h), h, 1)
+        (w,) = layout.enter(w)
+        y = torch.nn.functional.conv2d(win, w, padding=(0, 1))
+        return layout.gather(torch.tanh(y), h)
+
+    def enter(x, w):
+        (w,) = layout.enter(w)
+        y = layout.rows(x, h) * w[:, :, :1, :].sum(dim=2, keepdim=True)
+        return layout.gather(torch.tanh(y), h)
+
+    def gather(x, w):
+        return layout.gather(torch.tanh(layout.rows(x, h)), h).square() * w[
+            0, 0, 0, 0]
+
+    return {"halo": halo, "enter": enter, "gather": gather}
+
+
+def _adjoint_gap(mesh, fn, x, y, x_whole: bool, y_whole: bool) -> float:
+    """|<fn(x), y> - <x, fn^T(y)>| relative, fn^T the autograd backward.
+    An inner product of rank-local tensors is summed over the ranks, one of
+    tensors whole on every rank (``x_whole`` / ``y_whole``) taken once."""
+    x = x.clone().requires_grad_(True)
+    out = fn(x)
+    (xt,) = torch.autograd.grad(out, x, y)
+    n = mesh.world_size
+    dots = torch.stack([(out.detach() * y).sum() / (n if y_whole else 1),
+                        (x.detach() * xt).sum() / (n if x_whole else 1)])
+    mesh.all_reduce_(dots)
+    return float((dots[0] - dots[1]).abs() / dots.abs().max())
+
+
+def spatial_probes(mesh) -> Dict[str, Any]:
+    """Each exchange pair (:mod:`parallel.spatial`): the gap between
+    <A x, y> and <x, A^T y> (float64, summed over the ranks) for A the
+    halo exchange (rows in, a window of two rows each side out), ``enter``
+    and the row gather, and ``gradcheck`` / ``gradgradcheck`` of a map of
+    whole tensors through each."""
+    layout = spatial_lib.RowLayout(mesh)
+    h = 4 * mesh.world_size
+    gen = torch.Generator().manual_seed(0)
+    rows = h // mesh.world_size
+    local = torch.Generator().manual_seed(100 + mesh.rank)
+    f64 = dict(dtype=torch.float64)
+    adjoint = {
+        "halo": _adjoint_gap(
+            mesh, lambda v: layout.window(v, h, 2),
+            torch.randn((1, 2, rows, 3), generator=local, **f64),
+            torch.randn((1, 2, rows + 4, 3), generator=local, **f64),
+            False, False),
+        "enter": _adjoint_gap(
+            mesh, lambda v: layout.enter(v)[0] * 1.0,
+            torch.randn((2, 3), generator=gen, **f64),
+            torch.randn((2, 3), generator=local, **f64), True, False),
+        "gather": _adjoint_gap(
+            mesh, lambda v: layout.gather(v, h),
+            torch.randn((1, 2, rows, 3), generator=local, **f64),
+            torch.randn((1, 2, h, 3), generator=gen, **f64), False, True),
+    }
+    x = torch.randn((1, 2, h, 3), generator=gen, **f64).requires_grad_(True)
+    w = torch.randn((2, 2, 3, 3), generator=gen, **f64).requires_grad_(True)
+    checks = {}
+    # gradgradcheck draws its output gradients from the global generator:
+    # the same on every rank, as the outputs are whole on every rank.
+    torch.manual_seed(0)
+    for name, fn in _probe_fns(layout, h).items():
+        checks[name] = (
+            torch.autograd.gradcheck(fn, (x, w), raise_exception=False),
+            torch.autograd.gradgradcheck(fn, (x, w), raise_exception=False))
+    return {"adjoint": adjoint, "gradcheck": checks}
+
+
+def spatial_rank(mesh, case: SpatialCase) -> Dict[str, Any]:
+    """This rank's run of ``case``'s checks, with the collectives each
+    issued (``parallel.spatial.STATS``)."""
+    out: Dict[str, Any] = {}
+    if case.probes:
+        out["probes"] = spatial_probes(mesh)
+    if case.synthesis is not None:
+        g_cfg, g_flat, ws, synth_runs = case.synthesis
+        out["synthesis"] = {
+            label: spatial_synthesis(mesh, g_cfg, g_flat, ws, min_res,
+                                     offsets)
+            for label, min_res, offsets in synth_runs}
+    if case.d is not None:
+        out["d"] = spatial_d(mesh, *case.d)
+    if case.step is not None:
+        spatial_lib.reset_stats()
+        out["step"] = run_variants(mesh, *case.step.build(mesh),
+                                   [v for v, _, _ in VARIANTS])
+        out["stats"] = dict(spatial_lib.STATS)
+    return out
 
 
 def protocols_rank(mesh, out_dir: str) -> Dict[str, Any]:

@@ -14,7 +14,11 @@ in for ``jax.vjp`` / ``jax.grad``.
 Under data parallelism each loss runs on a rank's share of the batch with a
 ``shard`` (``parallel.mesh.BatchShard``): D's minibatch stddev and the
 path-length mean then read the global batch, and the train step averages
-the losses' gradients and metrics over the ranks.
+the losses' gradients and metrics over the ranks.  Under spatial sharding
+(``parallel/spatial.py``) every rank runs the whole batch: G's hooks and
+D's ``d_constraint`` put the large maps on row blocks, G's image comes out
+whole, and the ADA pipe warps the whole image with the same draws on every
+rank before D takes its rows.
 """
 
 from __future__ import annotations
@@ -87,23 +91,27 @@ def run_G(g_cfg: sg2.GeneratorConfig, g_params: Params, z: torch.Tensor,
 
 def run_D(d_cfg: sg2.DiscriminatorConfig, d_params: Params,
           img: torch.Tensor, c: Optional[torch.Tensor],
-          augment_fn: AugmentFn, ada_p, key, shard=None) -> torch.Tensor:
+          augment_fn: AugmentFn, ada_p, key, shard=None,
+          d_constraint=None) -> torch.Tensor:
     if augment_fn is not None:
         img = augment_fn(img, ada_p, key)
-    return sg2.discriminator_apply(d_cfg, d_params, img, c, shard=shard)
+    return sg2.discriminator_apply(d_cfg, d_params, img, c, shard=shard,
+                                   spatial_constraint=d_constraint)
 
 
 def g_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                 d_cfg: sg2.DiscriminatorConfig, g_params: Params,
                 d_params: Params, z: torch.Tensor, c: Optional[torch.Tensor],
                 key, augment_fn: AugmentFn = None, ada_p=None,
-                hooks: Optional[sg2.LayerHooks] = None, shard=None):
-    """Gmain: maximize D's logits on fakes."""
+                hooks: Optional[sg2.LayerHooks] = None, shard=None,
+                d_constraint=None):
+    """Gmain: maximize D's logits on fakes.  (JAX's Gmain takes no
+    ``d_constraint``; here it puts D's large blocks on row blocks too.)"""
     k_g, k_aug = key.split(2)
     gen_img, gen_ws = run_G(g_cfg, g_params, z, c, k_g, cfg.style_mixing_prob,
                             hooks)
     gen_logits = run_D(d_cfg, d_params, gen_img, c, augment_fn, ada_p, k_aug,
-                       shard)
+                       shard, d_constraint)
     loss = softplus(-gen_logits).mean()
     metrics = {
         "Loss/scores/fake": gen_logits.mean(),
@@ -162,7 +170,8 @@ def g_pl_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 
 def _ga_refine_fakes(g_cfg, d_cfg, g_params, d_params, real_img, gen_img,
                      gen_ws, key, ga_threshold: float,
-                     ga_mutation_rate: float, hooks=None, shard=None):
+                     ga_mutation_rate: float, hooks=None, shard=None,
+                     d_constraint=None):
     """GA refinement of near-boundary fakes before D scores them: fakes
     whose |D(real) - D(fake)| < threshold are replaced by crossed and
     mutated offspring regenerated through G.  A data transformation outside
@@ -172,7 +181,8 @@ def _ga_refine_fakes(g_cfg, d_cfg, g_params, d_params, real_img, gen_img,
     refined, mask = apply_genetic_refinement(
         g_cfg, g_params, d_cfg, d_params, real_img, gen_img, gen_ws, key,
         threshold=ga_threshold, mutation_rate=ga_mutation_rate,
-        hooks=hooks, return_mask=True, shard=shard)
+        hooks=hooks, return_mask=True, shard=shard,
+        d_constraint=d_constraint)
     return refined, mask.float().mean()
 
 
@@ -184,7 +194,8 @@ def d_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                 augment_fn: AugmentFn = None, ada_p=None,
                 hooks: Optional[sg2.LayerHooks] = None,
                 ga_threshold: Optional[float] = None,
-                ga_mutation_rate: float = 0.1, shard=None):
+                ga_mutation_rate: float = 0.1, shard=None,
+                d_constraint=None):
     """Dmain: minimize logits on fakes, maximize on reals; with
     ``ga_threshold`` set, near-boundary fakes are first replaced by GA
     offspring."""
@@ -196,13 +207,13 @@ def d_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     if ga_threshold is not None:
         gen_img, replaced = _ga_refine_fakes(
             g_cfg, d_cfg, g_params, d_params, real_img, gen_img, gen_ws,
-            k_ga, ga_threshold, ga_mutation_rate, hooks, shard)
+            k_ga, ga_threshold, ga_mutation_rate, hooks, shard, d_constraint)
         metrics["Loss/ga/replaced"] = replaced
     gen_logits = run_D(d_cfg, d_params, gen_img, gen_c, augment_fn, ada_p,
-                       k_aug1, shard)
+                       k_aug1, shard, d_constraint)
     loss_gen = softplus(gen_logits).mean()
     real_logits = run_D(d_cfg, d_params, real_img, real_c, augment_fn, ada_p,
-                        k_aug2, shard)
+                        k_aug2, shard, d_constraint)
     loss_real = softplus(-real_logits).mean()
     metrics.update({
         "Loss/scores/fake": gen_logits.mean(),
@@ -222,7 +233,8 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
                  augment_fn: AugmentFn = None, ada_p=None,
                  hooks: Optional[sg2.LayerHooks] = None,
                  ga_threshold: Optional[float] = None,
-                 ga_mutation_rate: float = 0.1, shard=None):
+                 ga_mutation_rate: float = 0.1, shard=None,
+                 d_constraint=None):
     """Gmain + Dmain as one scalar over one G forward: loss_g sees detached
     D parameters and loss_d detached fakes, so one backward of the sum gives
     exactly the per-phase gradients.  The fake is augmented with one key on
@@ -237,7 +249,7 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     # G route: D with frozen parameters.
     d_frozen = sg2.tree_map(torch.Tensor.detach, d_params)
     gen_logits_g = run_D(d_cfg, d_frozen, gen_img, gen_c, augment_fn, ada_p,
-                         k_aug1, shard)
+                         k_aug1, shard, d_constraint)
     loss_g = softplus(-gen_logits_g).mean()
 
     # D route: the same fake, detached (or its GA-refined replacement).
@@ -246,12 +258,12 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
     if ga_threshold is not None:
         gen_img_d, replaced = _ga_refine_fakes(
             g_cfg, d_cfg, g_params, d_params, real_img, gen_img_d, gen_ws,
-            k_ga, ga_threshold, ga_mutation_rate, hooks, shard)
+            k_ga, ga_threshold, ga_mutation_rate, hooks, shard, d_constraint)
         metrics["Loss/ga/replaced"] = replaced
     gen_logits_d = run_D(d_cfg, d_params, gen_img_d, gen_c, augment_fn, ada_p,
-                         k_aug1, shard)
+                         k_aug1, shard, d_constraint)
     real_logits = run_D(d_cfg, d_params, real_img, real_c, augment_fn, ada_p,
-                        k_aug2, shard)
+                        k_aug2, shard, d_constraint)
     loss_d = softplus(gen_logits_d).mean() + softplus(-real_logits).mean()
     metrics.update({
         "Loss/scores/fake": gen_logits_d.mean(),
@@ -268,11 +280,12 @@ def gd_main_loss(cfg: GANLossConfig, g_cfg: sg2.GeneratorConfig,
 def d_r1_loss(cfg: GANLossConfig, d_cfg: sg2.DiscriminatorConfig,
               d_params: Params, real_img: torch.Tensor,
               real_c: Optional[torch.Tensor], key,
-              augment_fn: AugmentFn = None, ada_p=None, shard=None):
+              augment_fn: AugmentFn = None, ada_p=None, shard=None,
+              d_constraint=None):
     """Dreg: R1 gradient penalty on reals, through the augment pipe."""
     img = real_img.detach().requires_grad_(True)
     logits = run_D(d_cfg, d_params, img, real_c, augment_fn, ada_p, key,
-                   shard)
+                   shard, d_constraint)
     (grads,) = torch.autograd.grad(logits.sum(), img, create_graph=True)
     r1_penalty = grads.square().sum(dim=(1, 2, 3))
     loss = r1_penalty.mean() * (cfg.r1_gamma / 2.0)

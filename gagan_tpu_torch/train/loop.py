@@ -26,8 +26,12 @@ rank 0 writes files and runs ``metrics_fn`` and ``progress_fn`` (the others
 wait), rank 0's ``abort_fn`` decides for all, and the parameters are
 checked equal across ranks before each network snapshot.
 
-Not ported yet, raising ``NotImplementedError``: spatial sharding (the next
-slice of ROADMAP item 10).
+Spatial sharding (``spatial_shard_min_res``, as the JAX loop takes it):
+over a mesh of several ranks, every rank reads the whole global batch and
+steps with ``parallel.spatial``'s hooks (the synthesis layers at res >=
+``spatial_shard_min_res``) and D constraint, holding the large maps' rows
+only; the step is not bound to the mesh.  Rank 0 writes, as above.  In a
+world of one the option does nothing, as in JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from ..data import native_loader as nl
 from ..data.dataset import data_loader
 from ..models import stylegan2 as sg2
 from ..parallel import mesh as mesh_lib
+from ..parallel import spatial as spatial_lib
 from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils import config as config_lib
@@ -106,13 +111,6 @@ def _merge(dst, src):
                 dst[k] = v.to(device=dst[k].device, dtype=dst[k].dtype)
 
 
-def _refuse(spatial_shard_min_res):
-    if spatial_shard_min_res is not None:
-        raise NotImplementedError(
-            "spatial_shard_min_res is not ported yet (spatial sharding, the "
-            "next slice of ROADMAP item 10)")
-
-
 def training_loop(
     loop_cfg: LoopConfig,
     train_cfg: ts.TrainConfig,
@@ -134,8 +132,9 @@ def training_loop(
     source (default ``Rng(loop_cfg.random_seed)``; anything with the
     ``Rng`` methods, e.g. JAX's key tree in the tests).  ``mesh``: this
     rank's mesh (default: ``create_mesh(loop_cfg.n_devices)``, a world of
-    one outside a process group); its device replaces ``device``."""
-    _refuse(spatial_shard_min_res)
+    one outside a process group); its device replaces ``device``.
+    ``spatial_shard_min_res``: spatial sharding over the mesh's ranks
+    (module docstring)."""
     if mesh is None:
         mesh = mesh_lib.create_mesh(loop_cfg.n_devices,
                                     device=resolve_device(device))
@@ -195,25 +194,38 @@ def training_loop(
         pl_g_cfg = dataclasses.replace(
             g_cfg, synthesis=dataclasses.replace(
                 g_cfg.synthesis, pallas_level=False))
+    # Spatial sharding: hooks and a D constraint over the mesh, and a step
+    # that every rank runs on the whole batch.
+    extra_hooks = d_constraint = None
+    spatial = (spatial_shard_min_res is not None and mesh.sharded
+               and mesh.world_size > 1)
+    if spatial:
+        extra_hooks = spatial_lib.spatial_sharding_hooks(
+            g_cfg.synthesis, mesh, min_res=spatial_shard_min_res)
+        d_constraint = spatial_lib.d_spatial_constraint(mesh)
     steps = {}
     for do_g in (False, True):
         for do_d in (False, True):
-            steps[(do_g, do_d)] = mesh_lib.shard_train_step(ts.make_fused_step(
+            step = ts.make_fused_step(
                 train_cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn=augment_fn,
                 do_g_reg=do_g, do_d_reg=do_d,
                 reg_g_cfg=pl_g_cfg if do_g else None,
                 reg_d_cfg=r1_d_cfg if do_d else None,
-                offsets_spec=offsets_spec, offsets_tx=offsets_tx), mesh)
+                offsets_spec=offsets_spec, offsets_tx=offsets_tx,
+                extra_hooks=extra_hooks, d_constraint=d_constraint)
+            steps[(do_g, do_d)] = (step if spatial else
+                                   mesh_lib.shard_train_step(step, mesh))
 
     # Data: decoded by the loader's threads into pinned host memory when
     # the card is the target, then copied without blocking the host.  A
-    # rank reads only its rows of each global batch.
+    # data-parallel rank reads only its rows of each global batch; a
+    # spatially sharded one reads all of it.
     pin = None
     if device.type == "cuda":
         def pin(batch):
             return tuple(torch.from_numpy(a).pin_memory() for a in batch)
     rows = None
-    if mesh.sharded:
+    if mesh.sharded and not spatial:
         rows = mesh_lib.share_rows(train_cfg.batch_size, mesh.world_size,
                                    mesh.rank, ts.data_rounds(train_cfg))
     if isinstance(dataset, nl.NativeZipDataset):

@@ -30,6 +30,15 @@ images are the rank's share, laid out in :func:`data_rounds` rounds; ``z``,
 rows with the global batch's draws, and each phase averages its gradients
 and metrics over the ranks in one ``all_reduce`` before Adam, so the step
 is the one-process step on the global batch.
+
+Spatial (height) sharding (``parallel/spatial.py``) is the other way to
+spread a step over ranks: ``extra_hooks`` (``spatial_sharding_hooks``) are
+merged after the offsets hooks on every G forward and ``d_constraint``
+(``d_spatial_constraint``) goes to every D call.  The step is then called
+without a mesh: every rank runs the whole batch with the same draws and
+holds the large maps' rows only, and the gradients leave the backward whole
+on every rank (the row layers' ``enter`` sums them over the ranks), so no
+phase averages anything over the ranks.
 """
 
 from __future__ import annotations
@@ -43,6 +52,7 @@ import torch
 
 from ..models import stylegan2 as sg2
 from ..parallel import mesh as mesh_lib
+from ..parallel import spatial as spatial_lib
 from ..params import offsets as offs_lib
 from ..utils.checkpoint import tree_to_flat_tensors
 from . import gan_loss, masks as masks_lib
@@ -350,14 +360,6 @@ def _update_w_avg(g_cfg: sg2.GeneratorConfig, g_params: Params,
         w_avg.copy_(mean_w + g_cfg.mapping.w_avg_beta * (w_avg - mean_w))
 
 
-def _refuse(**unported):
-    for name, value in unported.items():
-        if value is not None:
-            raise NotImplementedError(
-                f"{name} is not ported yet (spatial sharding, the next "
-                f"slice of ROADMAP item 10)")
-
-
 def _round_shard(mesh, n: int, rounds: int, layout: int):
     """The shard of one round's chunk of a global batch of ``n`` cut into
     ``rounds``, whose rows lie in ``layout`` blocks (None without a
@@ -389,8 +391,10 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
     phase needs ``pallas_level=False``: the fused level is differentiable
     once).  With ``offsets_spec`` every G forward runs under the hooks of
     ``state.offsets``, and with ``offsets_tx`` the G phases train the
-    offsets' trainable leaves too."""
-    _refuse(extra_hooks=extra_hooks, d_constraint=d_constraint)
+    offsets' trainable leaves too.  ``extra_hooks`` are merged after the
+    offsets hooks on every G forward and ``d_constraint`` goes to every D
+    call: with ``parallel.spatial``'s, the phases run spatially sharded (see
+    the module docstring)."""
     lcfg = cfg.loss
     reg_g_cfg = reg_g_cfg or g_cfg
     reg_d_cfg = reg_d_cfg or d_cfg
@@ -398,9 +402,10 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
     layout = data_rounds(cfg)
 
     def make_hooks(offsets):
-        if offsets_spec is None:
-            return None
-        return offs_lib.make_hooks(offsets_spec, offsets)
+        hooks = (None if offsets_spec is None
+                 else offs_lib.make_hooks(offsets_spec, offsets))
+        return (spatial_lib.merge_hooks(hooks, extra_hooks) if extra_hooks
+                else hooks)
 
     def g_leaves(state: TrainState):
         """G's trainable leaves ("G/"), and the offsets' ("O/") when they
@@ -427,7 +432,8 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
             return gan_loss.g_main_loss(
                 lcfg, g_cfg, d_cfg, state.g_params, state.d_params, zr, cr, k,
                 augment_fn=augment_fn, ada_p=state.ada_p,
-                hooks=make_hooks(state.offsets), shard=shard)
+                hooks=make_hooks(state.offsets), shard=shard,
+                d_constraint=d_constraint)
 
         metrics, grads = _accum(run_round, main_rounds, key, g_leaves(state),
                                 mesh)
@@ -477,7 +483,8 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 augment_fn=augment_fn, ada_p=state.ada_p,
                 hooks=make_hooks(state.offsets),
                 ga_threshold=cfg.ga_threshold,
-                ga_mutation_rate=cfg.ga_mutation_rate, shard=shard)
+                ga_mutation_rate=cfg.ga_mutation_rate, shard=shard,
+                d_constraint=d_constraint)
 
         metrics, grads = _accum(run_round, main_rounds, key, leaves, mesh)
         grads = _scrub(grads)
@@ -502,7 +509,8 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 augment_fn=augment_fn, ada_p=state.ada_p,
                 hooks=make_hooks(state.offsets),
                 ga_threshold=cfg.ga_threshold,
-                ga_mutation_rate=cfg.ga_mutation_rate, shard=shard)
+                ga_mutation_rate=cfg.ga_mutation_rate, shard=shard,
+                d_constraint=d_constraint)
 
         metrics, grads = _accum(run_round, main_rounds, key, leaves, mesh)
         d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
@@ -519,7 +527,8 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 lcfg, reg_d_cfg, state.d_params,
                 _chunk(real_img, d_reg_rounds, r),
                 _chunk(real_c, d_reg_rounds, r), _sharded(shard, k)[0],
-                augment_fn=augment_fn, ada_p=state.ada_p, shard=shard)
+                augment_fn=augment_fn, ada_p=state.ada_p, shard=shard,
+                d_constraint=d_constraint)
             return loss * gain, metrics
 
         metrics, grads = _accum(run_round, d_reg_rounds, key, leaves, mesh)
@@ -539,13 +548,22 @@ def make_fused_step(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
     ``step(state, real_img, real_c, z, gen_c, key, mesh=None) -> (state,
     metrics)``; ``cur_nimg`` advances by ``cfg.batch_size``.  With a
     sharded ``mesh`` (``parallel.mesh.shard_train_step``) the step is one
-    rank's part of the data-parallel step (see the module docstring)."""
+    rank's part of the data-parallel step; with ``parallel.spatial``'s
+    ``extra_hooks`` / ``d_constraint`` it is one rank's part of the
+    spatially sharded step, called without a mesh (see the module
+    docstring)."""
     g_main, g_reg, d_main, d_reg, gd_main = make_phase_steps(
         cfg, g_cfg, d_cfg, g_tx, d_tx, augment_fn, offsets_spec=offsets_spec,
         offsets_tx=offsets_tx, reg_g_cfg=reg_g_cfg, reg_d_cfg=reg_d_cfg,
         extra_hooks=extra_hooks, d_constraint=d_constraint)
 
+    spatial = spatial_lib.is_spatial(extra_hooks, d_constraint)
+
     def step(state: TrainState, real_img, real_c, z, gen_c, key, mesh=None):
+        if spatial and mesh is not None and mesh.sharded:
+            raise ValueError(
+                "a spatially sharded step holds the whole batch on every "
+                "rank: call it without a mesh (the hooks carry theirs)")
         if (mesh is not None and mesh.sharded
                 and real_img.shape[0] * mesh.world_size != z.shape[0]):
             raise ValueError(

@@ -736,3 +736,51 @@ def test_dist_phase_drives_the_full_size_path():
     assert {v for _, v in cs.DIST_FAULTS.values()} == {"none", "greg"}
     assert all(cs.DIST_BOUNDS[k] <= 2 ** -7 for k in (
         "D", "loss main", "loss reg", "pl_mean", "w_avg", "G main"))
+
+
+def test_spatial_phase_runs_on_cpu(tmp_path):
+    """The spatial phase's control flow on two CPU ranks over gloo at 16^2
+    (channel_base 256; the ranks take the sizes as SpatialPlan, since they
+    re-import the script): the forward within its bound and zero-filled
+    halos past it, the fp32 step within SPATIAL_BOUNDS and both planted
+    faults past them, the four arms, the loop writing from rank 0.  On the
+    CPU there is no fused launch and no peak memory to compare."""
+    from gagan_tpu_torch.utils.png import write_png
+
+    data = tmp_path / "imgs"
+    data.mkdir()
+    rng = np.random.RandomState(0)
+    for i in range(8):
+        write_png(str(data / f"{i:03d}.png"),
+                  rng.randint(0, 256, (16, 16, 3)).astype(np.uint8))
+    plan = cs.SpatialPlan(res=16, channel_base=256, fwd_batch=2,
+                          fwd_min_res=(8, 4), check_batch=4, arm_batch=4,
+                          arm_min_res=(8, 4), loop_batch=4, loop_batches=2,
+                          device="cpu")
+    assert cs.spatial_phase(str(tmp_path), str(data), "cpu", plan) == 0
+
+
+def test_spatial_phase_drives_the_full_size_path():
+    """On the card: FFHQ-1024 at full width with the CLI's G (bf16 in 4
+    resolutions, conv_clamp 256, the packed last block, the fused level),
+    min_res 256 (b128.conv1 stays fused on every rank) and 64 / 128; the
+    fp32 check at global batch 4 in one round a rank with the GA round;
+    the arms at global batch 8; the bounds at most 2^-4."""
+    from gagan_tpu_torch import entry
+
+    plan = cs.SPATIAL
+    assert (plan.res, plan.channel_base, plan.device) == (1024, None,
+                                                          "cuda:0")
+    assert plan.fwd_min_res == (256, 64) and plan.arm_min_res == (256, 128)
+    g = entry.train_run(plan.fwd_batch).g_cfg
+    assert g.synthesis.num_fp16_res == 4 and g.synthesis.conv_clamp == 256
+    assert g.synthesis.packed_last_block and g.synthesis.pallas_level
+    assert g.synthesis.channel_base == 32768
+    check = entry.train_run(plan.check_batch, n_devices=2, fp32=True,
+                            ga_threshold=0.5)
+    assert check.accum_rounds[0] == 1 and check.train_cfg.ga_threshold
+    assert entry.train_run(plan.arm_batch, n_devices=2).accum_rounds[0] == 1
+    assert plan.check_batch <= 8 and plan.arm_batch == 8
+    assert set(cs.SPATIAL_FAULTS) == {"halo rows zero-filled",
+                                      "gradients divided by the world size"}
+    assert all(v <= 2 ** -4 for v in cs.SPATIAL_BOUNDS.values())

@@ -183,37 +183,53 @@ def test_build_run_configs_match_jax(res, kw, monkeypatch):
 @pytest.mark.parametrize("flags,match", [
     (["--gpus", "2"], "item 10"), (["--spatial-shard-min-res", "8"], "item 10"),
     (["--packed-tail-blocks", "2"], "tail")])
-def test_train_refuses_unported_options(flags, match, tmp_path, capsys):
-    """--spatial-shard-min-res stays refused.  --packed-tail-blocks 2,
-    refused while the port's packed tail was one block, now builds its run
-    with a two-block packed tail.  --gpus 2, refused while the port trained
-    on one card, now spawns two ranks (CPU ranks over gloo with --device
-    cpu): one batch (--kimg 0), then one snapshot and one stats line, all
-    from rank 0; on the card, more ranks than visible cards are refused."""
+def test_train_refuses_unported_options(flags, match, tmp_path, capsys,
+                                       monkeypatch):
+    """Each option, refused once, now runs.  --packed-tail-blocks 2,
+    refused while the port's packed tail was one block, builds its run with
+    a two-block packed tail.  --gpus 2, refused while the port trained on
+    one card, spawns two ranks (CPU ranks over gloo with --device cpu): one
+    batch (--kimg 0), then one snapshot and one stats line, all from rank
+    0; on the card, more ranks than visible cards are refused.
+    --spatial-shard-min-res 8, refused while spatial sharding was not
+    ported, goes into the run and reaches the loop, which trains (in a world
+    of one here, where the option does nothing, as in JAX; chip_smoke's
+    spatial phase, rehearsed in test_torch_chip_smoke_cases.py, runs the
+    loop over two ranks)."""
     data = _folder(tmp_path / "d", 16)
     argv = ["--outdir", str(tmp_path / "o"), "--data", data, "--dry-run"]
-    if flags[0] == "--gpus":
+    if flags[0] in ("--gpus", "--spatial-shard-min-res"):
         out = tmp_path / "dp"
-        assert ttrain.main(["--outdir", str(out), "--data", data, "--batch",
-                            "4", "--kimg", "0", "--snap", "1", "--device",
-                            "cpu"] + flags) is None
+        seen = {}
+        loop = tloop.training_loop
+
+        def recorded(*a, **k):
+            seen.update(k)
+            return loop(*a, **k)
+        monkeypatch.setattr(tloop, "training_loop", recorded)
+        ranks = [] if flags[0] == "--gpus" else ["--gpus", "1"]
+        state = ttrain.main(["--outdir", str(out), "--data", data, "--batch",
+                             "4", "--kimg", "0", "--snap", "1", "--device",
+                             "cpu"] + flags + ranks)
         assert '"accum_rounds"' in capsys.readouterr().out
         files = sorted(os.listdir(out))
         assert [f for f in files if f.startswith("network-snapshot")] == [
             "network-snapshot-000000.npz"]
         with open(out / "stats.jsonl") as f:
             assert len(f.readlines()) == 1
-        if torch.cuda.device_count() < 2:
-            with pytest.raises(SystemExit):
-                ttrain.main(argv + flags)
+        if ranks:
+            assert seen["spatial_shard_min_res"] == 8
+            assert state.cur_nimg == 4
+        else:
+            assert state is None
+            if torch.cuda.device_count() < 2:
+                with pytest.raises(SystemExit):
+                    ttrain.main(argv + flags)
     elif match == "tail":
         assert ttrain.main(argv + flags) is None
         assert "Dry run" in capsys.readouterr().out
         syn = ttrain.build_run(1024, packed_tail_blocks=2).g_cfg.synthesis
         assert syn.packed_last_block and syn.packed_tail_blocks == 2
-    else:
-        with pytest.raises(NotImplementedError, match=match):
-            ttrain.main(argv + flags)
     with pytest.raises(SystemExit):                     # 4 % 3 != 0
         ttrain.main(["--outdir", str(tmp_path / "o"), "--data", data,
                      "--batch", "4", "--batch-gpu", "3", "--dry-run"])

@@ -207,8 +207,12 @@ def test_discriminator_config_round_trips():
 
 def test_remat_and_spatial_constraint_raise():
     """remat / remat_min_res run (block rematerialization, the plain
-    forward's values; tests/test_torch_remat.py holds the gradients); the
-    spatial constraint (multi-device) still raises."""
+    forward's values; tests/test_torch_remat.py holds the gradients).  The
+    spatial constraint, refused while the port ran on one device, now
+    runs: a plain callable is applied where JAX applies it (an identity
+    leaves the logits as they were), and ``d_spatial_constraint`` in a
+    world of one is the identity (tests/test_torch_spatial.py holds it over
+    two ranks)."""
     _, tcfg = _cfgs()
     params = tsg.init_discriminator(tcfg, torch.Generator().manual_seed(0),
                                     "cpu")
@@ -218,9 +222,18 @@ def test_remat_and_spatial_constraint_raise():
         got = tsg.discriminator_apply(dataclasses.replace(tcfg, **change),
                                       params, img)
         assert torch.equal(got, want)
-    with pytest.raises(NotImplementedError, match="spatial"):
-        tsg.discriminator_apply(tcfg, params, img,
-                                spatial_constraint=lambda t: t)
+    from gagan_tpu_torch.parallel import mesh as tmesh
+    from gagan_tpu_torch.parallel import spatial as tsp
+
+    seen = []
+    got = tsg.discriminator_apply(
+        tcfg, params, img, spatial_constraint=lambda t: seen.append(
+            t.shape[2]) or t)
+    assert torch.equal(got, want)
+    assert seen[0] == 32 and seen[-1] == 4        # the image, then b8's out
+    one = tsp.d_spatial_constraint(tmesh.Mesh(1, 0, torch.device("cpu")))
+    assert torch.equal(tsg.discriminator_apply(tcfg, params, img,
+                                               spatial_constraint=one), want)
     gcfg = tsg.SynthesisConfig(img_resolution=16, channel_base=256,
                                channel_max=16, w_dim=8)
     gparams = tsg.init_synthesis(torch.Generator().manual_seed(0), gcfg)

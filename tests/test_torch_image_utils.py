@@ -169,5 +169,21 @@ def test_merge_hooks_runs_base_first_then_extra():
         assert m["b16.conv0"]["weight"](1.0) == -1.0
         assert merge(None, extra) is extra and merge({}, extra) is extra
         assert base["b8.conv0"]["style"](1.0) == 2.0          # not mutated
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        tspatial.spatial_sharding_hooks(None, None)
+    # spatial_sharding_hooks, refused while the port ran on one device,
+    # now gives JAX's keys; their "post" slot keeps its layout through
+    # merge_hooks in either order.
+    from gagan_tpu.models import stylegan2 as jsg
+    from gagan_tpu.parallel import create_mesh
+    from gagan_tpu.parallel.spatial import spatial_sharding_hooks as jhooks
+    from gagan_tpu_torch.models import stylegan2 as tsg
+    from gagan_tpu_torch.parallel import mesh as tmesh
+
+    mesh = tmesh.Mesh(2, 0, torch.device("cpu"), "gloo", object())
+    hooks = tspatial.spatial_sharding_hooks(
+        tsg.SynthesisConfig(img_resolution=64), mesh, min_res=16)
+    assert set(hooks) == set(jhooks(jsg.SynthesisConfig(img_resolution=64),
+                                    create_mesh(2), min_res=16))
+    post = {"b64.conv1": {"post": lambda v: v + 1}}
+    for m in (tmerge(hooks, post), tmerge(post, hooks)):
+        assert m["b64.conv1"]["post"].row_layout.world_size == 2
+        assert m["b64.conv1"]["post"](1.0) == 2.0

@@ -569,3 +569,45 @@ def test_parallel_runs_without_jax():
                            timeout=120, limit=120):
         assert "torch" in mods
         assert not {"jax", "jaxlib", "gagan_tpu", "pytest"} & set(mods), mods
+
+
+def test_spatial_runs_without_jax():
+    """With JAX and the JAX package blocked, ``parallel.spatial`` imports
+    and runs in a world of one on the CPU (its hooks' forward is the plain
+    one, D's constraint the identity), and ``entry.spatial_train_entry``'s
+    mesh refuses CUDA without a card."""
+    code = ("import sys\n"
+            "for m in ('jax', 'gagan_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch\n"
+            "from gagan_tpu_torch.models import stylegan2 as sg2\n"
+            "from gagan_tpu_torch.parallel import mesh, spatial\n"
+            "from gagan_tpu_torch import entry\n"
+            "one = mesh.create_mesh(device='cpu')\n"
+            "g = sg2.GeneratorConfig(z_dim=8, w_dim=8, img_resolution=16, "
+            "mapping=sg2.MappingConfig(num_layers=1), synthesis="
+            "sg2.SynthesisConfig(channel_base=128, channel_max=16))\n"
+            "p = sg2.init_generator(g, torch.Generator().manual_seed(0), "
+            "'cpu')\n"
+            "ws = torch.randn(2, g.num_ws, 8)\n"
+            "img = spatial.spatial_synthesis_fn(g, one, min_res=8)(p, ws)\n"
+            "assert torch.equal(img, sg2.synthesis_apply(g.synthesis, "
+            "p['synthesis'], ws))\n"
+            "d = sg2.DiscriminatorConfig(img_resolution=16, channel_base=128,"
+            " channel_max=16)\n"
+            "dp = sg2.init_discriminator(d, torch.Generator().manual_seed(1), "
+            "'cpu')\n"
+            "c = spatial.d_spatial_constraint(one)\n"
+            "assert torch.equal(sg2.discriminator_apply(d, dp, img, "
+            "spatial_constraint=c), sg2.discriminator_apply(d, dp, img))\n"
+            "try:\n"
+            "    entry.spatial_train_entry(mesh.create_mesh())\n"
+            "    raise AssertionError('ran without CUDA')\n"
+            "except RuntimeError as e:\n"
+            "    assert 'CUDA' in str(e)\n"
+            "print('ok')")
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

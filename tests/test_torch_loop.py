@@ -303,10 +303,12 @@ def test_loop_resumes_and_aborts(data_dir, jax_snapshot, tmp_path):
     ({"spatial_shard_min_res": 64}, "item 10"),
     ({"n_devices": 2}, "item 10")])
 def test_loop_refuses_unported_options(kw, match, data_dir, tmp_path):
-    """Spatial sharding stays refused.  ``n_devices=2``, refused while the
-    port trained on one card, now trains over two ranks
-    (:func:`_check_two_rank_loop`); outside a process group it asks for
-    the ranks to be started."""
+    """Both options, refused while the port trained on one card, now run.
+    ``n_devices=2`` trains over two ranks (:func:`_check_two_rank_loop`);
+    outside a process group it asks for the ranks to be started.
+    ``spatial_shard_min_res`` does nothing in a world of one, as in JAX:
+    the run equals the plain one (test_torch_cli_train.py runs it over two
+    ranks, tests/test_torch_spatial.py holds the sharded step)."""
     tg, td = _cfgs(tsg)
     dataset = ImageFolderDataset(data_dir)
     if "n_devices" in kw:
@@ -316,10 +318,14 @@ def test_loop_refuses_unported_options(kw, match, data_dir, tmp_path):
                                 device="cpu")
         _check_two_rank_loop(data_dir, tmp_path)
         return
-    with pytest.raises(NotImplementedError, match=match):
-        tloop.training_loop(_loop_cfg(tloop, str(tmp_path)),
-                            _train_cfg(tts, tgl), tg, td, dataset,
-                            device="cpu", **kw)
+    short = dict(total_kimg=0.004, image_snapshot_ticks=None,
+                 network_snapshot_ticks=None)
+    states = [tloop.training_loop(
+        _loop_cfg(tloop, str(tmp_path / name), **short),
+        _train_cfg(tts, tgl), tg, td, dataset, device="cpu", **extra)
+        for name, extra in (("plain", {}), ("spatial", kw))]
+    a, b = (tck.tree_to_flat_tensors(s.g_params) for s in states)
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def _check_two_rank_loop(data_dir, tmp_path):

@@ -169,15 +169,34 @@ def test_train_config_fields_match_jax():
 
 
 def test_unported_options_raise():
+    """``extra_hooks`` and ``d_constraint``, refused while spatial sharding
+    was not ported, now run: an empty hook tree and an identity constraint
+    leave the step bit-equal to the plain one
+    (tests/test_torch_spatial.py holds the spatial ones over two ranks); a
+    spatially sharded step refuses a data-parallel mesh."""
+    from gagan_tpu_torch.parallel import mesh as tmesh
+    from gagan_tpu_torch.parallel import spatial as tsp
+
     gflat, dflat = tiny_weights()
-    _, d = tiny_cfgs(tsg)
-    g, _ = tiny_cfgs(tsg)
-    cfg = tts.TrainConfig()
-    g_tx, d_tx, _, _ = tts.build_optimizers(cfg, tck.flat_to_tree(gflat),
-                                            tck.flat_to_tree(dflat))
-    for kw in ({"extra_hooks": {}}, {"d_constraint": lambda t: t}):
-        with pytest.raises(NotImplementedError):
-            tts.make_fused_step(cfg, g, d, g_tx, d_tx, **kw)
+    g, d = tiny_cfgs(tsg)
+    cfg = tts.TrainConfig(batch_size=2, g_reg_interval=None,
+                          d_reg_interval=None)
+    real, z = (torch.from_numpy(a) for a in tiny_batch(n=2))
+    states = []
+    for kw in ({}, {"extra_hooks": {}}, {"d_constraint": lambda t: t}):
+        gp, dp = tck.flat_to_tree(gflat), tck.flat_to_tree(dflat)
+        g_tx, d_tx, _, _ = tts.build_optimizers(cfg, gp, dp)
+        state = tts.init_train_state(cfg, gp, dp, g_tx, d_tx)
+        step = tts.make_fused_step(cfg, g, d, g_tx, d_tx, **kw)
+        states.append(tck.tree_to_flat_tensors(
+            step(state, real, None, z, None, Rng(3))[0].g_params))
+    for other in states[1:]:
+        assert all(torch.equal(other[k], v) for k, v in states[0].items())
+    mesh = tmesh.Mesh(2, 0, torch.device("cpu"), "gloo", object())
+    step = tts.make_fused_step(cfg, g, d, g_tx, d_tx, d_constraint=(
+        tsp.d_spatial_constraint(mesh)))
+    with pytest.raises(ValueError, match="without a mesh"):
+        step(state, real, None, z, None, Rng(3), mesh=mesh)
 
 
 # ----------------------------------------------------------------------------
