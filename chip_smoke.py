@@ -64,6 +64,12 @@ no ok line):
                s/kimg, peak memory); pallas vs composed gradients of the
                affines and offsets (TF32 off); one adaptive layer probe at
                FFHQ-1024 (train/auto_layers.py, random ViT-B/32);
+     pickle  - (after fewshot) the loop's snapshot as an NVlabs network
+               pickle (modules of a stand-in checkout's training/networks.py
+               holding the fewshot phase's leaves and resample filters),
+               cli/convert_weights.py nvlabs --reference-path: the npz
+               bit-equal to the state-dict route's, __config__ included;
+               generate on it with the fused level (PNGs, 4 launches);
  11. adapt   - one-shot CLIP adaptation (StyleGAN-NADA td_single, s_delta
                offsets) at FFHQ-1024 with a random ViT-B/32 of the real shape
                and the byte tokenizer: cli/adapt.py on
@@ -118,7 +124,7 @@ no ok line):
                bit-equal), and two planted faults that the bounds must
                fail (mbstd over a rank's rows, every rank drawing the
                first rows); the
-               training loop on the dataset zip for 4 batches (files from
+               training loop on the dataset zip for 2 batches (files from
                rank 0 only, one snapshot, stats.jsonl against the
                one-process loop, each rank's loader and wait); the GA with
                ``mesh=`` against the ga phase's batched run (scores,
@@ -127,21 +133,24 @@ no ok line):
      spatial - (after dist) spatial (height) sharding over two gloo ranks
                sharing the card (parallel/spatial.py), deterministic
                algorithms, TF32 off (SpatialPlan): (a) spatial_synthesis_fn
-               at FFHQ-1024, batch 4, fp32, min_res 256 and 64, gathered,
-               against the one-process forward (SPATIAL_BOUNDS; zero-filled
-               halos must fail it), the bf16 difference, fused launches a
-               rank; (b) the three variants in fp32 at global batch 4 with
-               the ADA pipe and the GA Dmain round against the one-process
-               step of the same plan (each quantity within its bound, the
-               ranks bit-equal) and two planted faults that must fail them
-               (zero-filled halos, gradients divided by the world size);
-               (c) a bf16 "none" step at global batch 8 in four arms (one
-               process, two-rank data parallelism, spatial at min_res 256
-               and 128): s/step, peak memory a rank (each spatial arm's
-               below the one process's), all_reduces and bytes a step;
-               (d) training_loop with spatial_shard_min_res 256 for 2
-               batches: files from rank 0 only, the stats line, the replica
-               check before the snapshot;
+               at FFHQ-1024, batch 4, fp32, min_res 256, gathered, against
+               the one-process forward (SPATIAL_BOUNDS; zero-filled halos
+               must fail it), the bf16 difference, fused launches a rank;
+               (c) a bf16 "none" step at global batch 8 in three arms (one
+               process, two-rank data parallelism, spatial at min_res 256):
+               s/step, peak memory a rank (the spatial arm's below the one
+               process's), all_reduces and bytes a step; then over three
+               ranks (SPATIAL3: blocks of 342, 341 and 341 rows at 1024^2):
+               (a) at min_res 256 and 64; (b) the three variants in fp32 at
+               global batch 4 with the ADA pipe and the GA Dmain round
+               against the one-process step of the same plan (each quantity
+               within its bound, the ranks bit-equal) and two planted
+               faults that must fail them (zero-filled halos, gradients
+               divided by the world size); (c) the spatial arm at min_res
+               256, each rank's peak below the two ranks'; (d)
+               training_loop with spatial_shard_min_res 256 for 2 batches:
+               files from rank 0 only, the stats line, the replica check
+               before the snapshot;
  14. metrics - cli/calc_metrics.py --metrics fid1k,kid1k on the loop's
                snapshot and PNGs, twice (metric-*.jsonl, the random-detector
                warning, the second run's dataset statistics read from the
@@ -187,6 +196,11 @@ no ok line):
                G, each against the unpacked composed forward, with its
                fused launches and ms at batch 32; a "none" train step with
                packed_tail_blocks 2;
+     resnet  - (after tail) an architecture="resnet" G at FFHQ-1024 (a skip
+               conv a block, never read: the "orig" forward): fused
+               against composed at batch 8, launches, ms beside the "orig"
+               G of the same leaves; one bf16 "none" step at batch 8 whose
+               skip leaves stay bit-unchanged;
      examples - (after face) the five examples at FFHQ-1024 on a seeded
                snapshot and two adaptation checkpoints: PNGs, fused
                launches, wall time, against the pallas_level=False run;
@@ -243,7 +257,7 @@ from gagan_tpu_torch.entry import (FEWSHOT_OPTIONS,  # noqa: E402
                                    im2im_entry, rescale_random_convs,
                                    restyle_entry, spatial_train_entry,
                                    train_configs, train_entry, train_run,
-                                   zoo_entry)
+                                   write_nvlabs_pickle, zoo_entry)
 from gagan_tpu_torch.examples import numpy_latents  # noqa: E402
 from gagan_tpu_torch.ga import evaluation as ga_eval  # noqa: E402
 from gagan_tpu_torch.ga import search as ga_search  # noqa: E402
@@ -382,8 +396,11 @@ KERNEL_CASES = (
 )
 
 
+START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - START:.1f} s)", flush=True)
 
 
 def bf16_ulp(v: float) -> float:
@@ -2000,6 +2017,76 @@ def convert_snapshot(tmp, snap):
     print(f"convert nvlabs: {n_kept} tensors bit-equal, {n_drop} resample "
           f"filters dropped, in {wall:.2f} s (the command's process)")
     return dest
+
+
+def pickle_phase(tmp, snap, card):
+    """cli/convert_weights.py nvlabs --reference-path on an NVlabs network
+    pickle of the loop's snapshot at FFHQ-1024: the fewshot phase's
+    NVlabs-named leaves with their resample filters (nvlabs_buffers) in
+    modules of a stand-in checkout's training/networks.py
+    (entry.write_nvlabs_pickle).  The npz must equal the state-dict route's
+    (convert_snapshot's converted.npz) key for key and bit for bit,
+    __config__ included; then generate runs on its G_ema with the loop's G
+    config (the fused level): the PNGs and the fused launches.  Returns the
+    fused launches."""
+    phase("pickle")
+    trees, config = ckpt.load_snapshot(snap)
+    nets = {}
+    for name in ("G", "G_ema", "D"):
+        flat = ckpt.tree_to_flat_tensors(trees[name])
+        nets[name] = {**flat, **nvlabs_buffers(flat)}
+    g_cfg = config_lib.generator_config_from_dict(config["g_cfg"])
+    attrs = dict(z_dim=g_cfg.z_dim, c_dim=g_cfg.c_dim, w_dim=g_cfg.w_dim,
+                 img_resolution=g_cfg.img_resolution,
+                 img_channels=g_cfg.img_channels)
+    src = os.path.join(tmp, "network-snapshot.pkl")
+    reference = os.path.join(tmp, "nvlabs_reference")
+    t0 = time.perf_counter()
+    write_nvlabs_pickle(src, reference, nets, attrs)
+    pickled = time.perf_counter() - t0
+    del trees, nets
+    dest = os.path.join(tmp, "converted_pkl.npz")
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-m", "gagan_tpu_torch.cli.convert_weights",
+                    "nvlabs", "--src", src, "--dest", dest,
+                    "--reference-path", reference], cwd=REPO, check=True,
+                   timeout=600)
+    wall = time.perf_counter() - t0
+    with np.load(os.path.join(tmp, "converted.npz")) as want, \
+            np.load(dest) as got:
+        if sorted(got.files) != sorted(want.files):
+            raise AssertionError("pickle: the keys differ from the "
+                                 "state-dict route's")
+        for k in want.files:
+            if got[k].dtype != want[k].dtype or not np.array_equal(got[k],
+                                                                   want[k]):
+                raise AssertionError(f"pickle: {k} differs from the "
+                                     f"state-dict route's")
+        n_keys = len(want.files)
+    print(f"pickle: {os.path.getsize(src) / 2 ** 20:.1f} MiB written in "
+          f"{pickled:.2f} s, converted with --reference-path in {wall:.2f} s "
+          f"(the command's process): {n_keys} entries bit-equal to the "
+          f"state-dict route's, __config__ included", flush=True)
+
+    g_ema = ckpt.load_snapshot(dest, device=DEVICE)[0]["G_ema"]
+    fused = os.path.join(tmp, "converted_pkl_fused.npz")
+    ckpt.save_snapshot(fused, g_ema=g_ema, config={"g_cfg": config["g_cfg"]})
+    del g_ema
+    out = os.path.join(tmp, "pickle_out")
+    fmc.fused_modconv3x3.launches = 0
+    generate.main(["--network", fused, "--seeds", "0,1", "--outdir", out,
+                   "--device", DEVICE])
+    torch.cuda.synchronize()
+    launches = fmc.fused_modconv3x3.launches
+    names = sorted(os.listdir(out))
+    check_pngs(out, names, (g_cfg.img_resolution, g_cfg.img_resolution, 3))
+    want = 2 * expected_launches(g_cfg, 1)
+    print(f"pickle: generate on its G_ema wrote {names}, fused launches "
+          f"{launches} (expected {want}) on {card}", flush=True)
+    if names != ["seed0000.png", "seed0001.png"] or launches != want:
+        raise AssertionError(f"pickle: generate wrote {names} with "
+                             f"{launches} launches")
+    return launches
 
 
 def fewshot_cli_run(tmp, resume, card):
@@ -3801,6 +3888,51 @@ def tail_config(tail_blocks, fused=True, architecture="skip",
         architecture=architecture))
 
 
+def tail_latents(z_dim):
+    """The tail and resnet phases' z at BATCH (seed 1) and at TIMED_BATCH
+    (seed 2)."""
+    return tuple(torch.randn((n, z_dim), generator=torch.Generator()
+                             .manual_seed(seed)).to(DEVICE)
+                 for n, seed in ((BATCH, 1), (TIMED_BATCH, 2)))
+
+
+def g_forward(cfg, params, z):
+    with torch.no_grad():
+        return sg2.generator_apply(cfg, params, z, noise_mode="const")
+
+
+def forward_check(label, cfg, params, z, zt, ref, card):
+    """``cfg``'s forward of ``params`` at ``z`` (TF32 off) against the
+    unpacked composed forward ``ref`` within the main phase's bounds (2^-5
+    relative RMS, 2^-3 of max|img|), its fused launches against
+    expected_launches, and its ms per forward at ``zt`` (TF32 convolutions
+    on).  Returns (launches, ms)."""
+    res = cfg.img_resolution
+    fmc.fused_modconv3x3.launches = 0
+    img = g_forward(cfg, params, z)
+    torch.cuda.synchronize()
+    launches = fmc.fused_modconv3x3.launches
+    want = expected_launches(cfg, z.shape[0])
+    peak = float(ref.abs().max())
+    diff = (img - ref).float()
+    rel_rms = float(diff.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
+    max_err = float(diff.abs().max())
+    torch.backends.cudnn.allow_tf32 = True
+    ms = time_ms(lambda: g_forward(cfg, params, zt), iters=3, warmup=1)
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"{label}: fused launches {launches} (expected {want}), vs the "
+          f"unpacked composed forward max_abs_err {max_err:.4g} (max|img| "
+          f"{peak:.4g}) rel_rms {rel_rms:.4g}; {ms:.3f} ms per "
+          f"batch-{zt.shape[0]} forward on {card}", flush=True)
+    if launches != want or tuple(img.shape) != (z.shape[0], 3, res, res):
+        raise AssertionError(f"{label}: {launches} launches, "
+                             f"{tuple(img.shape)}")
+    if not (rel_rms <= 2 ** -5 and max_err <= 2 ** -3 * peak):
+        raise AssertionError(f"{label}: disagrees with the unpacked composed "
+                             f"forward")
+    return launches, ms
+
+
 def tail_phase(card, train_none_s):
     """The FFHQ-1024 forward (entry_config's G, random weights with noise
     and biases seeded) with packed_tail_blocks 1, 2 and 3, with the fused
@@ -3822,17 +3954,10 @@ def tail_phase(card, train_none_s):
     orig_params = {"mapping": params["mapping"], "synthesis": {
         k: {n: v for n, v in blk.items() if n != "torgb" or k == last}
         for k, blk in params["synthesis"].items()}}
-    z = torch.randn((BATCH, z_dim), generator=torch.Generator().manual_seed(1)
-                    ).to(DEVICE)
-    zt = torch.randn((TIMED_BATCH, z_dim),
-                     generator=torch.Generator().manual_seed(2)).to(DEVICE)
-
-    def forward(cfg, p, z):
-        with torch.no_grad():
-            return sg2.generator_apply(cfg, p, z, noise_mode="const")
-
-    refs = {arch: forward(tail_config(1, architecture=arch, pallas_level=False,
-                                      packed=False), p, z)
+    z, zt = tail_latents(z_dim)
+    refs = {arch: g_forward(tail_config(1, architecture=arch,
+                                        pallas_level=False, packed=False),
+                            p, z)
             for arch, p in (("skip", params), ("orig", orig_params))}
     variants = [(f"{n} block{'s' if n > 1 else ''}, "
                  f"{'fused' if fused else 'unfused'} torgb",
@@ -3840,34 +3965,11 @@ def tail_phase(card, train_none_s):
                 for n in TAIL_BLOCKS for fused in (True, False)]
     variants.append(("orig", tail_config(1, architecture="orig"),
                      orig_params, "orig"))
-    total, ms = 0, {}
+    total = 0
     for label, cfg, p, arch in variants:
-        fmc.fused_modconv3x3.launches = 0
-        img = forward(cfg, p, z)
-        torch.cuda.synchronize()
-        launches = fmc.fused_modconv3x3.launches
-        total += launches
-        want = expected_launches(cfg, BATCH)
-        ref = refs[arch]
-        peak = float(ref.abs().max())
-        diff = (img - ref).float()
-        rel_rms = float(diff.pow(2).mean().sqrt() / ref.pow(2).mean().sqrt())
-        max_err = float(diff.abs().max())
-        torch.backends.cudnn.allow_tf32 = True
-        ms[label] = time_ms(lambda: forward(cfg, p, zt), iters=3, warmup=1)
-        torch.backends.cudnn.allow_tf32 = False
-        print(f"tail {label}: fused launches {launches} (expected {want}), "
-              f"vs the unpacked composed forward max_abs_err {max_err:.4g} "
-              f"(max|img| {peak:.4g}) rel_rms {rel_rms:.4g}; "
-              f"{ms[label]:.3f} ms per batch-{TIMED_BATCH} forward on {card}",
-              flush=True)
-        if launches != want or tuple(img.shape) != (BATCH, 3, res, res):
-            raise AssertionError(f"tail {label}: {launches} launches, "
-                                 f"{tuple(img.shape)}")
-        if not (rel_rms <= 2 ** -5 and max_err <= 2 ** -3 * peak):
-            raise AssertionError(f"tail {label}: disagrees with the "
-                                 f"unpacked composed forward")
-    del refs, img, ref, diff
+        total += forward_check(f"tail {label}", cfg, p, z, zt, refs[arch],
+                               card)[0]
+    del refs
 
     torch.backends.cudnn.allow_tf32 = True
     steps, state, (real, _, z, _, key) = train_entry(
@@ -3894,6 +3996,80 @@ def tail_phase(card, train_none_s):
           f"{TAIL_TRAIN}: {seconds:.4f} s (the train phase's with 1: "
           f"{train_none_s:.4f} s), fused launches {launches} (expected "
           f"{want}) on {card}", flush=True)
+    return total
+
+
+RESNET_BATCH = 8
+
+
+def skip_leaves(tree):
+    return {k: v for k, v in ckpt.tree_to_flat_tensors(tree).items()
+            if ".skip." in k}
+
+
+def resnet_phase(card):
+    """architecture="resnet" at FFHQ-1024, full width (entry_config's G
+    with a 1x1 ``skip`` conv in every block above 4x4, never read, as in
+    the JAX package, so its forward is the "orig" one): the fused forward
+    at batch 8 against the composed one within the main phase's bounds,
+    its fused launches and ms at batch 32 beside the "orig" G's of the
+    same leaves; then one bf16 "none" train step at batch 8 (the CLI's
+    plan with a resnet G): its fused launches, the skip leaves bit-unchanged
+    in G and G_ema and their Adam moments zero.  Returns the fused
+    launches."""
+    phase("resnet")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tail_config(1, architecture="resnet")
+    params = seeded_weights(sg2.init_generator(
+        cfg, torch.Generator().manual_seed(0), DEVICE))
+    if len(skip_leaves(params)) != len(cfg.synthesis.block_resolutions) - 1:
+        raise AssertionError("resnet: not one skip conv a block above 4x4")
+    orig = {"mapping": params["mapping"], "synthesis": {
+        k: {n: v for n, v in blk.items() if n != "skip"}
+        for k, blk in params["synthesis"].items()}}
+    z, zt = tail_latents(cfg.z_dim)
+    ref = g_forward(tail_config(1, architecture="resnet", pallas_level=False,
+                                packed=False), params, z)
+    total, ms = forward_check("resnet G", cfg, params, z, zt, ref, card)
+    launches, orig_ms = forward_check(
+        "the resnet G's leaves as an orig G", tail_config(
+            1, architecture="orig"), orig, z, zt, ref, card)
+    total += launches
+    del params, orig, ref
+
+    torch.backends.cudnn.allow_tf32 = True
+    steps, state, (real, _, z, _, key) = train_entry(
+        DEVICE, batch=RESNET_BATCH, ada_p=0.2, architecture="resnet")
+    run = train_run(RESNET_BATCH, architecture="resnet")
+    rounds = run.train_cfg.accum_rounds
+    want = expected_launches(run.g_cfg, RESNET_BATCH // rounds) * rounds
+    before = {k: v.clone() for k, v in skip_leaves(state.g_params).items()}
+    fmc.fused_modconv3x3.launches = 0
+    t0 = time.perf_counter()
+    state, metrics = steps["none"](state, real, None, z, None, key)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fmc.fused_modconv3x3.launches
+    total += launches
+    moved = [k for tree in (state.g_params, state.g_ema)
+             for k, v in skip_leaves(tree).items()
+             if not torch.equal(v, before[k])]
+    moments = [k for k in before if state.g_opt_state.mu[k].any()
+               or state.g_opt_state.nu[k].any()]
+    print(f"resnet train 'none' step, batch {RESNET_BATCH} (first call "
+          f"{seconds:.4f} s): fused launches {launches} (expected {want}); "
+          f"{len(before)} skip leaves bit-unchanged in G and G_ema: "
+          f"{not moved}, their Adam moments zero: {not moments}; the resnet "
+          f"forward {ms:.3f} ms against the orig's {orig_ms:.3f} ms at batch "
+          f"{TIMED_BATCH} on {card}", flush=True)
+    if (launches != want or moved or moments
+            or not all(bool(torch.isfinite(v).all())
+                       for v in metrics.values())):
+        raise AssertionError(f"resnet train step: {launches} launches "
+                             f"(expected {want}), skip leaves moved "
+                             f"{moved[:4]}, moments {moments[:4]} or "
+                             f"non-finite metrics")
     return total
 
 
@@ -4075,7 +4251,7 @@ def zoo_phase(tmp, card):
 # this many seconds; a rank that fails or hangs fails the phase.
 DIST_TIMEOUT = 600
 # The loop's batches over two ranks, and the resume cycle's global batch.
-DIST_LOOP_BATCHES, DIST_RESUME_BATCH = 4, 8
+DIST_LOOP_BATCHES, DIST_RESUME_BATCH = 2, 8
 # Two ranks against one process.  The comparison runs G and D and the ADA
 # pipe in fp32 (TF32 off, deterministic algorithms), at global batch
 # DIST_CHECK_BATCH in rounds of DIST_CHECK_BATCH_GPU a rank, so that what
@@ -4597,24 +4773,33 @@ def dist_phase(tmp, data, card, train_seconds, ga_run):
 @dataclasses.dataclass(frozen=True)
 class SpatialPlan:
     """The spatial phase's sizes.  Its ranks are spawned and re-import this
-    script, so the sizes travel as this argument: the CLI's G and D at
-    ``res``^2 (``channel_base`` None: full width), the forward check's
-    batch and min_res values (a), the fp32 step check's global batch (b),
-    the bf16 arms' global batch and min_res values (c), the loop's batch
-    and batches (d), and the card (``cuda:0``) or 'cpu'."""
+    script, so the sizes travel as this argument: the number of ranks, the
+    CLI's G and D at ``res``^2 (``channel_base`` None: full width), the
+    forward check's batch and min_res values (a), the fp32 step check's
+    global batch (b; None: no check), the bf16 arms' global batch and
+    min_res values, and whether the one-process and data-parallel arms run
+    beside them (c), the loop's batch and batches (d; 0: no loop), and the
+    card (``cuda:0``) or 'cpu'."""
+    ranks: int = 2
     res: int = 1024
     channel_base: Optional[int] = None
     fwd_batch: int = 4
     fwd_min_res: tuple = (256, 64)
-    check_batch: int = 4
+    check_batch: Optional[int] = 4
     arm_batch: int = 8
-    arm_min_res: tuple = (256, 128)
+    arm_min_res: tuple = (256,)
+    baseline_arms: bool = True
     loop_batch: int = 8
     loop_batches: int = 2
     device: str = "cuda:0"
 
 
-SPATIAL = SpatialPlan()
+# Two ranks: the forward and the bf16 arms, the baseline of three ranks'
+# peak memory.  Three ranks (no map of the CLI's G and D at 1024^2 splits
+# into equal blocks: 1024 rows are 342, 341 and 341) run the forward, the
+# fp32 step check and the loop too.
+SPATIAL = SpatialPlan(fwd_min_res=(256,), check_batch=None, loop_batches=0)
+SPATIAL3 = SpatialPlan(ranks=3, baseline_arms=False)
 # The checks of the phase against one process, each by its own bound: 16
 # times the first fp32 reading on the H100 (PERF.md §6), rounded up
 # to a power of two, as DIST_BOUNDS.  "forward": the gathered fp32 image's
@@ -4635,25 +4820,27 @@ SPATIAL_BOUNDS = {"forward": 2 ** -11, "G main": 2 ** -8, "G reg": 2 ** -7,
 
 
 def _fault_zero_halo():
-    """The halo rows a window takes from its neighbours zero-filled (the
-    exchange itself still runs)."""
-    orig = spatial_lib.RowLayout._halo
+    """The rows a window takes from other ranks zero-filled (the exchange
+    itself still runs)."""
+    orig = spatial_lib.RowLayout._fetch
 
-    def zero_halo(self, x, k):
-        w = orig(self, x, k).clone()
-        w[..., :k, :] = 0
-        w[..., w.shape[-2] - k:, :] = 0
+    def zero_halo(self, x, h, wins):
+        w = orig(self, x, h, wins).clone()
+        (a, b), (s, e) = wins[self.rank], self.block(h)
+        w[..., :max(s - a, 0), :] = 0
+        w[..., max(min(b, e) - a, 0):, :] = 0
         return w
-    return spatial_lib.RowLayout, "_halo", zero_halo
+    return spatial_lib.RowLayout, "_fetch", zero_halo
 
 
 def _fault_divided_bucket():
     """Every phase's gradients divided by the world size before Adam, as
     the data-parallel mean would divide them."""
     orig = ts._scrub
+    n = torch.distributed.get_world_size()
 
     def divided(grads):
-        return {k: g / 2 for k, g in orig(grads).items()}
+        return {k: g / n for k, g in orig(grads).items()}
     return ts, "_scrub", divided
 
 
@@ -4727,7 +4914,8 @@ def _spatial_forward(mesh, plan: SpatialPlan):
     """(a) spatial_synthesis_fn at batch plan.fwd_batch from seeded weights:
     in fp32 at each min_res (the gathered image, the rank's fused launches
     and exchanges), with zero-filled halos at the first, and in bf16 at the
-    first; rank 0 then runs the one-process forwards while rank 1 waits."""
+    first; rank 0 then runs the one-process forwards while the others
+    wait."""
     dev = mesh.device
     out = {"fp32": {}, "launches": {}, "exchanges": {}}
     z = torch.randn((plan.fwd_batch, 512), generator=torch.Generator()
@@ -4760,7 +4948,9 @@ def _spatial_forward(mesh, plan: SpatialPlan):
                 with _planted(_fault_zero_halo), torch.no_grad():
                     out["fault"] = spatial_lib.gather_rows(
                         fn(params, wsb), mesh, plan.res).cpu()
+            del img
         del params
+    _reset_peak(dev)
     mesh.barrier()
     if mesh.rank == 0:
         for fp32, (g_cfg, params, wsb) in runs.items():
@@ -4775,9 +4965,9 @@ def _spatial_forward(mesh, plan: SpatialPlan):
 def _spatial_check(mesh, plan: SpatialPlan):
     """(b) The three variants in fp32 at global batch plan.check_batch and
     learning rate 0 with the GA Dmain round, min_res 256 (the CLI's plan for
-    two devices), each rank's gradients kept, each planted fault in "none";
-    rank 0 then runs the one-process step of the same plan while rank 1
-    waits, and compares."""
+    plan.ranks devices), each rank's gradients kept, each planted fault in
+    "none"; rank 0 then runs the one-process step of the same plan while
+    the others wait, and compares."""
     check = dict(batch=plan.check_batch, ada_p=0.2, lrate=0.0, fp32=True,
                  ga_threshold=0.5, img_resolution=plan.res,
                  channel_base=plan.channel_base)
@@ -4794,9 +4984,11 @@ def _spatial_check(mesh, plan: SpatialPlan):
     out = {"launches": {v: r["launches"] for v, r in runs.items()},
            "s": {v: r["s"] for v, r in runs.items()}}
     del steps, state, inputs
+    _reset_peak(mesh.device)
     mesh.barrier()
     if mesh.rank == 0:
-        steps, state, inputs = train_entry(mesh.device, n_devices=2, **check)
+        steps, state, inputs = train_entry(mesh.device,
+                                           n_devices=plan.ranks, **check)
         ref = dryrun.run_variants(None, steps, state, inputs, DIST_VARIANTS,
                                   keep=_grad_leaves)
         out["ref_s"] = {v: r["s"] for v, r in ref.items()}
@@ -4840,19 +5032,22 @@ def _spatial_arm(mesh, plan: SpatialPlan, build):
 
 
 def _spatial_arms(mesh, plan: SpatialPlan):
-    """(c) The bf16 "none" step at global batch plan.arm_batch: two-rank
-    data parallelism, then spatial sharding at each of plan.arm_min_res,
-    then the one process on rank 0 while rank 1 waits."""
+    """(c) The bf16 "none" step at global batch plan.arm_batch: data
+    parallelism over the ranks (with plan.baseline_arms), then spatial
+    sharding at each of plan.arm_min_res, then (with plan.baseline_arms)
+    the one process on rank 0 while the others wait."""
     size = dict(batch=plan.arm_batch, ada_p=0.2, img_resolution=plan.res,
                 channel_base=plan.channel_base)
-    arms = {"data parallel": _spatial_arm(
-        mesh, plan, lambda: dp_train_entry(mesh, **size))}
+    arms = {}
+    if plan.baseline_arms:
+        arms["data parallel"] = _spatial_arm(
+            mesh, plan, lambda: dp_train_entry(mesh, **size))
     for m in plan.arm_min_res:
         arms[f"spatial {m}"] = _spatial_arm(
             mesh, plan, lambda m=m: spatial_train_entry(mesh, min_res=m,
                                                         **size))
     mesh.barrier()
-    if mesh.rank == 0:
+    if mesh.rank == 0 and plan.baseline_arms:
         arms["one process"] = _spatial_arm(
             mesh, plan, lambda: train_entry(mesh.device, **size))
     mesh.barrier()
@@ -4860,16 +5055,18 @@ def _spatial_arms(mesh, plan: SpatialPlan):
 
 
 def _spatial_loop(mesh, plan: SpatialPlan, data, out_dir):
-    """(d) training_loop with spatial_shard_min_res (the CLI's plan for two
-    devices at plan.loop_batch) on ``data`` for plan.loop_batches batches,
+    """(d) training_loop with spatial_shard_min_res (the CLI's plan for
+    plan.ranks devices at plan.loop_batch) on ``data`` for plan.loop_batches
+    batches,
     each rank in a run directory of its own: the files each wrote, its
     stats lines and fused launches (the replica check runs before the
     snapshot)."""
     run = train_run(plan.loop_batch, plan.res, plan.channel_base,
-                    n_devices=2, snap=1, seed=0,
+                    n_devices=plan.ranks, snap=1, seed=0,
                     spatial_shard_min_res=plan.fwd_min_res[0])
     kimg = plan.loop_batches * plan.loop_batch / 1000
-    run_dir = os.path.join(out_dir, "spatial_run", f"rank{mesh.rank}")
+    run_dir = os.path.join(out_dir, f"spatial_run{plan.ranks}",
+                           f"rank{mesh.rank}")
     loop_cfg = dataclasses.replace(
         run.loop_cfg, run_dir=run_dir, total_kimg=kimg, kimg_per_tick=kimg,
         image_snapshot_ticks=None, network_snapshot_ticks=1,
@@ -4893,12 +5090,15 @@ def _spatial_loop(mesh, plan: SpatialPlan, data, out_dir):
 
 
 def spatial_rank(mesh, plan: SpatialPlan, data, out_dir):
-    """One of two ranks sharing the card over gloo: (a)-(d)."""
+    """One of plan.ranks ranks sharing the card over gloo: (a)-(d), as the
+    plan asks."""
     _dist_settings()
     out = {"forward": _spatial_forward(mesh, plan)}
-    out["check"] = _spatial_check(mesh, plan)
+    if plan.check_batch:
+        out["check"] = _spatial_check(mesh, plan)
     out["arms"] = _spatial_arms(mesh, plan)
-    out["loop"] = _spatial_loop(mesh, plan, data, out_dir)
+    if plan.loop_batches:
+        out["loop"] = _spatial_loop(mesh, plan, data, out_dir)
     return out
 
 
@@ -4913,23 +5113,73 @@ def _spatial_breaks(c, variant: str) -> list:
     return bad + (["ada_p"] if c["ada_p"] != 0 else [])
 
 
-def spatial_phase(tmp, data, card, plan: SpatialPlan = SPATIAL):
-    """Spatial sharding on the card, two gloo ranks sharing it (NCCL refuses
-    that), deterministic algorithms and TF32 off: (a) the
-    sharded forward against one process in fp32, a planted fault and the
-    bf16 difference; (b) the fp32 step against one process (SPATIAL_BOUNDS,
-    the ranks bit-equal) and two planted faults; (c) the bf16 "none" step
-    in four arms (one process, data parallelism, spatial at two min_res):
-    s/step, peak memory a rank, all_reduces and bytes a step; (d) the loop,
-    writing from rank 0.  Returns rank 0's fused launches."""
-    phase("spatial")
+def _spatial_check_report(ranks, plan: SpatialPlan, n: str) -> int:
+    """(b) read: each variant within SPATIAL_BOUNDS of one process, each
+    planted fault past them.  Returns rank 0's fused launches."""
+    first = plan.fwd_min_res[0]
+    st = ranks[0]["check"]
+    bounds = ", ".join(f"{k} {v:.4g}" for k, v in SPATIAL_BOUNDS.items())
+    for v in DIST_VARIANTS:
+        c = st["compare"][v]
+        print(f"spatial {n} vs one process, fp32, {v} (min_res {first}, "
+              f"batch {plan.check_batch}): {_dist_reading(c)} (bounds "
+              f"{bounds}; ada_p equal); s {st['s'][v]:.4f} a rank, one "
+              f"process {st['ref_s'][v]:.4f}; fused launches "
+              f"{st['launches'][v]}", flush=True)
+        if _spatial_breaks(c, v):
+            raise AssertionError(f"spatial {v}: {n} are not the "
+                                 f"one-process step: {_spatial_breaks(c, v)}")
+    for fault_name, c in st["faults"].items():
+        broken = _spatial_breaks(c, "none")
+        print(f"spatial {n}, planted fault, {fault_name} (none): "
+              f"{_dist_reading(c)}; past its bounds: {broken}", flush=True)
+        if not broken:
+            raise AssertionError(f"spatial: the bounds do not fail the "
+                                 f"planted fault {fault_name}")
+    return sum(st["launches"].values())
+
+
+def _spatial_loop_report(ranks, plan: SpatialPlan) -> int:
+    """(d) read: rank 0 the only writer, one snapshot, one stats line, every
+    rank's images.  Returns rank 0's fused launches."""
+    first = plan.fwd_min_res[0]
+    loops = [r["loop"] for r in ranks]
+    for r, lp in enumerate(loops):
+        print(f"spatial loop rank {r} of {plan.ranks} (min_res {first}, "
+              f"{plan.loop_batches} batches of {plan.loop_batch}): files "
+              f"{lp['files']}, stats lines {len(lp['stats'])}, fused launches "
+              f"{lp['launches']}, {lp['wall']:.2f} s", flush=True)
+    snaps = [f for f in loops[0]["files"] if f.startswith("network-snapshot")]
+    if (any(lp["files"] for lp in loops[1:]) or len(snaps) != 1
+            or len(loops[0]["stats"]) != 1
+            or any(lp["cur_nimg"] != plan.loop_batch * plan.loop_batches
+                   for lp in loops)):
+        raise AssertionError("spatial loop: files, stats or images")
+    return loops[0]["launches"]
+
+
+def spatial_phase(tmp, data, card, plan: SpatialPlan = SPATIAL,
+                  peak_bound: Optional[int] = None):
+    """Spatial sharding on the card, plan.ranks gloo ranks sharing it (NCCL
+    refuses that), deterministic algorithms and TF32 off: (a) the sharded
+    forward against one process in fp32, a planted fault and the bf16
+    difference; (b) with plan.check_batch, the fp32 step against one
+    process (SPATIAL_BOUNDS, the ranks bit-equal) and two planted faults;
+    (c) the bf16 "none" step in its arms (spatial at each min_res of the
+    plan, and with plan.baseline_arms one process and data parallelism):
+    s/step, peak memory a rank (below the one process's, and below
+    ``peak_bound`` where given), all_reduces and bytes a step; (d) with
+    plan.loop_batches, the loop, writing from rank 0.  Returns (rank 0's
+    fused launches, each arm's largest peak over the ranks)."""
+    name = "spatial" if plan.ranks == 2 else f"spatial, {plan.ranks} ranks"
+    phase(name)
     on_card = _on_card(plan.device)
     os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     alloc_conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
     t0 = time.perf_counter()
     try:
-        ranks = mesh_lib.spawn(spatial_rank, 2, backend="gloo",
+        ranks = mesh_lib.spawn(spatial_rank, plan.ranks, backend="gloo",
                                devices=plan.device, timeout=DIST_TIMEOUT,
                                limit=DIST_TIMEOUT,
                                args=(plan, data, tmp))
@@ -4939,18 +5189,20 @@ def spatial_phase(tmp, data, card, plan: SpatialPlan = SPATIAL):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc_conf
     wall = time.perf_counter() - t0
+    n = f"{plan.ranks} ranks"
 
     fwd = [r["forward"] for r in ranks]
     first = plan.fwd_min_res[0]
     for m in plan.fwd_min_res:
-        if not torch.equal(fwd[0]["fp32"][m], fwd[1]["fp32"][m]):
+        if not all(torch.equal(fwd[0]["fp32"][m], f["fp32"][m])
+                   for f in fwd[1:]):
             raise AssertionError(f"spatial forward {m}: the ranks' gathered "
                                  f"images differ")
     errs = {m: float((fwd[0]["fp32"][m] - fwd[0]["one_fp32"]).abs().max())
             for m in plan.fwd_min_res}
     fault = float((fwd[0]["fault"] - fwd[0]["one_fp32"]).abs().max())
     bf16 = float((fwd[0]["bf16"] - fwd[0]["one_bf16"]).abs().max())
-    print(f"spatial forward, fp32, batch {plan.fwd_batch}, two ranks vs one "
+    print(f"spatial forward, fp32, batch {plan.fwd_batch}, {n} vs one "
           f"process: max|diff| by min_res { {m: float(f'{e:.4g}') for m, e in errs.items()} } "
           f"(bound {SPATIAL_BOUNDS['forward']:.4g}); zero-filled halos at "
           f"{first}: {fault:.4g}; bf16 at {first}: {bf16:.4g}; fused "
@@ -4965,63 +5217,41 @@ def spatial_phase(tmp, data, card, plan: SpatialPlan = SPATIAL):
         raise AssertionError(f"spatial forward: no fused launch at min_res "
                              f"{first}")
 
-    st = ranks[0]["check"]
-    bounds = ", ".join(f"{k} {v:.4g}" for k, v in SPATIAL_BOUNDS.items())
-    for v in DIST_VARIANTS:
-        c = st["compare"][v]
-        print(f"spatial 2 ranks vs one process, fp32, {v} (min_res {first},"
-              f" batch {plan.check_batch}): {_dist_reading(c)} (bounds "
-              f"{bounds}; ada_p equal); s {st['s'][v]:.4f} a rank, one "
-              f"process {st['ref_s'][v]:.4f}; fused launches "
-              f"{st['launches'][v]}", flush=True)
-        if _spatial_breaks(c, v):
-            raise AssertionError(f"spatial {v}: two ranks are not the "
-                                 f"one-process step: {_spatial_breaks(c, v)}")
-    for name, c in st["faults"].items():
-        broken = _spatial_breaks(c, "none")
-        print(f"spatial planted fault, {name} (none): {_dist_reading(c)}; "
-              f"past its bounds: {broken}", flush=True)
-        if not broken:
-            raise AssertionError(f"spatial: the bounds do not fail the "
-                                 f"planted fault {name}")
+    launches = sum(fwd[0]["launches"].values())
+    if plan.check_batch:
+        launches += _spatial_check_report(ranks, plan, n)
 
-    arms, peaks1 = ranks[0]["arms"], ranks[1]["arms"]
-    for name in ("one process", "data parallel") + tuple(
-            f"spatial {m}" for m in plan.arm_min_res):
-        a = arms[name]
-        other = ("" if name == "one process" else
-                 f" (rank 1: {peaks1[name]['peak'] / 2 ** 30:.3f} GiB, "
-                 f"{peaks1[name]['s']:.4f} s)")
-        print(f"spatial arm {name}, bf16 none at global batch "
-              f"{plan.arm_batch}: {a['s']:.4f} s/step, peak "
-              f"{a['peak'] / 2 ** 30:.3f} GiB a rank{other}, "
-              f"{a['calls']} all_reduces of {a['bytes'] / 2 ** 20:.1f} MiB a "
-              f"step, fused launches {a['launches']}; on {card}", flush=True)
+    arms = ranks[0]["arms"]
+    peaks = {k: max(r["arms"][k]["peak"] for r in ranks if k in r["arms"])
+             for k in arms}
+    for arm, a in arms.items():
+        others = "; ".join(
+            f"rank {i}: {r['arms'][arm]['peak'] / 2 ** 30:.3f} GiB, "
+            f"{r['arms'][arm]['s']:.4f} s" for i, r in enumerate(ranks)
+            if i and arm in r["arms"])
+        print(f"spatial arm {arm}, {n if arm != 'one process' else 'one'}, "
+              f"bf16 none at global batch {plan.arm_batch}: {a['s']:.4f} "
+              f"s/step, peak {a['peak'] / 2 ** 30:.3f} GiB a rank"
+              f"{f' ({others})' if others else ''}, {a['calls']} "
+              f"all_reduces of {a['bytes'] / 2 ** 20:.1f} MiB a step, fused "
+              f"launches {a['launches']}; on {card}", flush=True)
         if not a["finite"]:
-            raise AssertionError(f"spatial arm {name}: non-finite metrics")
-    one_peak = arms["one process"]["peak"]
+            raise AssertionError(f"spatial arm {arm}: non-finite metrics")
+    bound = {"one process": peaks.get("one process"),
+             "the given bound": peak_bound}
     for m in plan.arm_min_res:
-        for r in ranks:
-            if on_card and not r["arms"][f"spatial {m}"]["peak"] < one_peak:
+        for what, b in bound.items():
+            if on_card and b is not None and not peaks[f"spatial {m}"] < b:
                 raise AssertionError(
-                    f"spatial {m}: a rank's peak is not below the one "
-                    f"process's: the maps were not sharded")
+                    f"spatial {n}, {m}: a rank's peak {peaks[f'spatial {m}']}"
+                    f" is not below {what}'s {b}: the maps were not sharded")
 
-    loops = [r["loop"] for r in ranks]
-    for r, lp in enumerate(loops):
-        print(f"spatial loop rank {r} (min_res {first}, {plan.loop_batches} "
-              f"batches of {plan.loop_batch}): files {lp['files']}, stats "
-              f"lines {len(lp['stats'])}, fused launches {lp['launches']}, "
-              f"{lp['wall']:.2f} s", flush=True)
-    snaps = [f for f in loops[0]["files"] if f.startswith("network-snapshot")]
-    if (loops[1]["files"] or len(snaps) != 1 or len(loops[0]["stats"]) != 1
-            or any(lp["cur_nimg"] != plan.loop_batch * plan.loop_batches
-                   for lp in loops)):
-        raise AssertionError("spatial loop: files, stats or images")
-    print(f"spatial phase: two ranks {wall:.1f} s, on {card}", flush=True)
-    return (sum(fwd[0]["launches"].values()) + sum(st["launches"].values())
-            + sum(a["launches"] for k, a in ranks[0]["arms"].items()
-                  if k != "one process") + loops[0]["launches"])
+    if plan.loop_batches:
+        launches += _spatial_loop_report(ranks, plan)
+    print(f"spatial phase: {n} {wall:.1f} s, on {card}", flush=True)
+    launches += sum(a["launches"] for k, a in arms.items()
+                    if k != "one process")
+    return launches, peaks
 
 
 def main():
@@ -5040,6 +5270,8 @@ def main():
     torch.cuda.empty_cache()
     tail_launches = tail_phase(card, seconds["none"])
     torch.cuda.empty_cache()
+    resnet_launches = resnet_phase(card)
+    torch.cuda.empty_cache()
     warp_times = warp_phase(card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5053,6 +5285,8 @@ def main():
         (fewshot_launches, fewshot_seconds, fewshot_mem,
          fewshot_sec_per_kimg) = fewshot_phase(tmp, snap, card)
         torch.cuda.empty_cache()
+        pickle_launches = pickle_phase(tmp, snap, card)
+        torch.cuda.empty_cache()
         adapt_launches, adapt_rate = adapt_phase(card)
         torch.cuda.empty_cache()
         im2im_launches, im2im_needs, im2im_rate = im2im_phase(card)
@@ -5062,7 +5296,11 @@ def main():
         dist_launches = dist_phase(tmp, data, card, seconds, ga_run)
         del ga_run
         torch.cuda.empty_cache()
-        spatial_launches = spatial_phase(tmp, data, card)
+        spatial_launches, spatial_peaks = spatial_phase(tmp, data, card)
+        torch.cuda.empty_cache()
+        spatial3_launches, _ = spatial_phase(
+            tmp, data, card, SPATIAL3,
+            peak_bound=spatial_peaks[f"spatial {SPATIAL.arm_min_res[0]}"])
         torch.cuda.empty_cache()
         metrics_launches, ppl_launches = metrics_phase(tmp, snap, card)
         torch.cuda.empty_cache()
@@ -5082,7 +5320,9 @@ def main():
                "inversion": inversion_launches, "face": face_launches,
                "state": state_launches, "tail": tail_launches,
                "examples": examples_launches, "zoo": zoo_launches,
-               "dist": dist_launches, "spatial": spatial_launches}
+               "dist": dist_launches, "spatial": spatial_launches,
+               "pickle": pickle_launches, "resnet": resnet_launches,
+               "spatial3": spatial3_launches}
     f32 = k["fp32"]
     kernels = [dict(
         name="fused_modconv3x3", route="cuda",

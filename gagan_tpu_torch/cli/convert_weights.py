@@ -1,9 +1,11 @@
 """Convert PyTorch checkpoints to the npz layout both packages load (port of
-the state-dict paths of tools/convert_weights.py), without JAX.
+tools/convert_weights.py), without JAX.
 
     python -m gagan_tpu_torch.cli.convert_weights rosinality --src ckpt.pt \\
         --dest out.npz [--size 1024] [--channel-multiplier 2] [--device cuda]
     python -m gagan_tpu_torch.cli.convert_weights nvlabs --src nets.pt --dest out.npz
+    python -m gagan_tpu_torch.cli.convert_weights nvlabs --src snap.pkl \\
+        --dest out.npz --reference-path DIR
     python -m gagan_tpu_torch.cli.convert_weights openai-clip --src ViT-B-32.pt \\
         --dest vit_b_32.npz
     python -m gagan_tpu_torch.cli.convert_weights hf-clip \\
@@ -25,9 +27,13 @@ the state-dict paths of tools/convert_weights.py), without JAX.
   differ in ``w_avg`` only).
 * ``nvlabs``: a ``torch.save``'d dict ``{"G": state_dict, "G_ema": ...,
   "D": ...}`` of NVlabs StyleGAN2-ADA networks -> a snapshot with those
-  trees, without the resample filters and the offsets system's masks.  The
-  networks' ``.pkl`` needs the reference's ``torch_utils`` to unpickle and
-  is not read here: save its modules' ``state_dict()`` with torch first.
+  trees, without the resample filters and the offsets system's masks.
+  With ``--reference-path DIR``, ``--src`` is an NVlabs network pickle
+  (``network-snapshot-*.pkl``) instead, unpickled with ``DIR`` (a checkout
+  whose ``training/`` and ``torch_utils/`` define the pickled classes) on
+  ``sys.path``, as the JAX tool reads it; ``sys.path`` and the modules
+  imported from ``DIR`` are put back afterwards.  Unpickling runs code
+  that the file names: take this route for trusted files only.
 * ``openai-clip``: an OpenAI CLIP ``.pt`` (TorchScript archive or state
   dict) -> a CLIP npz (``GAGAN_CLIP_DIR`` of cli/adapt.py).
 * ``hf-clip``: a HuggingFace ``CLIPModel`` state dict file
@@ -50,8 +56,9 @@ adaptation checkpoint's offset heads into an offsets tree.
 Nothing is fetched: every source is a local file.  A snapshot is ``G_ema/``,
 ``G/``, ``D/`` prefixed dotted keys plus ``__config__`` (JSON as uint8), as
 ``utils/checkpoint.py`` reads it; a CLIP or VGG16 npz is the tree's dotted
-keys.  Every source is read with ``torch.load(weights_only=True)`` (an
-OpenAI TorchScript archive with ``torch.jit.load``).
+keys.  Every source but an NVlabs pickle is read with
+``torch.load(weights_only=True)`` (an OpenAI TorchScript archive with
+``torch.jit.load``).
 """
 
 from __future__ import annotations
@@ -59,6 +66,9 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
+import pickle
+import sys
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -211,7 +221,13 @@ def nvlabs_generator_config(sd: Dict[str, np.ndarray]) -> Dict:
 
 
 def convert_nvlabs(src: str, dest: str):
-    nets = _load(src)
+    try:
+        nets = _load(src)
+    except pickle.UnpicklingError as e:
+        raise ValueError(
+            f"{src} is not a torch.save'd dict of state dicts: an NVlabs "
+            f"network pickle needs --reference-path DIR, a checkout that "
+            f"defines its classes") from e
     out, config = {}, {}
     for name in ("G_ema", "G", "D"):
         sd = nets.get(name)
@@ -223,6 +239,60 @@ def convert_nvlabs(src: str, dest: str):
     save_snapshot(dest, g_ema_flat=out.get("G_ema"), g_flat=out.get("G"),
                   d_flat=out.get("D"), config=config)
     print(f"converted NVlabs state dicts ({', '.join(out)}) -> {dest}")
+
+
+def _imported_from(modules, root: str):
+    """The names of ``modules`` whose file (or, for a namespace package,
+    first directory) lies under ``root``."""
+    root = os.path.join(os.path.realpath(root), "")
+
+    def where(mod):
+        return (getattr(mod, "__file__", None)
+                or next(iter(getattr(mod, "__path__", None) or []), ""))
+    return [name for name, mod in modules.items()
+            if os.path.realpath(where(mod)).startswith(root)]
+
+
+def load_nvlabs_pickle(src: str, reference_path: str) -> Dict:
+    """{name: (state dict as numpy without the dropped buffers, module)} of
+    the ``G_ema``, ``G`` and ``D`` networks of an NVlabs network pickle,
+    unpickled with ``reference_path`` first on ``sys.path`` (the JAX tool's
+    ``convert_nvlabs_pkl``).  Unpickling runs code the file names: trusted
+    files only.  ``sys.path`` is put back and the modules imported from
+    ``reference_path`` are dropped from ``sys.modules`` afterwards, so that
+    its ``training`` and ``torch_utils`` do not shadow later imports."""
+    path = list(sys.path)
+    before = set(sys.modules)
+    sys.path.insert(0, reference_path)
+    try:
+        with open(src, "rb") as f:
+            data = pickle.load(f)
+    finally:
+        sys.path[:] = path
+        for name in _imported_from({k: v for k, v in sys.modules.items()
+                                    if k not in before}, reference_path):
+            del sys.modules[name]
+    return {name: ({k: v for k, v in _numpy(data[name].state_dict()).items()
+                    if _keep(k)}, data[name])
+            for name in ("G_ema", "G", "D") if data.get(name) is not None}
+
+
+def convert_nvlabs_pkl(src: str, dest: str, reference_path: str):
+    """An NVlabs network pickle -> a snapshot: :func:`load_nvlabs_pickle`'s
+    trees, and ``g_cfg`` from the ``G_ema`` module's attributes, as the JAX
+    tool writes them."""
+    nets = load_nvlabs_pickle(src, reference_path)
+    config = {}
+    if "G_ema" in nets:
+        g = nets["G_ema"][1]
+        config["g_cfg"] = {"z_dim": g.z_dim, "c_dim": g.c_dim,
+                           "w_dim": g.w_dim,
+                           "img_resolution": g.img_resolution,
+                           "img_channels": g.img_channels}
+    flat = {name: sd for name, (sd, _) in nets.items()}
+    save_snapshot(dest, g_ema_flat=flat.get("G_ema"), g_flat=flat.get("G"),
+                  d_flat=flat.get("D"), config=config)
+    print(f"converted NVlabs pkl ({', '.join(nets)}) -> {dest}")
 
 
 # ----------------------------------------------------------------------------
@@ -437,6 +507,13 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--device", default="cuda",
                             help="torch device of the w_avg mean (default "
                                  "cuda)")
+        if name == "nvlabs":
+            sp.add_argument(
+                "--reference-path", default=None, metavar="DIR",
+                help="--src is an NVlabs network pickle: unpickle it with "
+                     "DIR (a checkout defining training/ and torch_utils/) "
+                     "on sys.path.  Unpickling runs code that the file "
+                     "names: trusted files only")
         if name == "restyle":
             sp.add_argument("--size", type=int, default=None,
                             help="the decoder's resolution (default: the "
@@ -457,6 +534,8 @@ def main(argv: Optional[List[str]] = None):
         convert_rosinality(args.src, args.dest, size=args.size,
                            channel_multiplier=args.channel_multiplier,
                            n_mlp=args.n_mlp, device=args.device)
+    elif args.cmd == "nvlabs" and args.reference_path:
+        convert_nvlabs_pkl(args.src, args.dest, args.reference_path)
     elif args.cmd == "nvlabs":
         convert_nvlabs(args.src, args.dest)
     elif args.cmd == "openai-clip":

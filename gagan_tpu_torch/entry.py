@@ -33,12 +33,18 @@
   each of the five examples (``gagan_tpu_torch/examples``) on them.
 * :func:`zoo_entry`: a generator of the model zoo (``models/zoo.py``) and
   a batch of its latents.
+* :func:`write_nvlabs_pickle`: an NVlabs-style network pickle of given
+  state dicts, and the stand-in checkout that defines its classes, for
+  ``cli/convert_weights.py nvlabs --reference-path``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
+import pickle
+import sys
 from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
@@ -46,6 +52,7 @@ import torch
 
 from . import resolve_device
 from .cli import adapt as adapt_cli
+from .cli import convert_weights as convert_cli
 from .cli import train as train_cli
 from .ga import search as ga_search
 from .inversion import encoders as enc_lib
@@ -105,15 +112,18 @@ FEWSHOT_OPTIONS = dict(
 
 def train_run(batch: int = 32, img_resolution: int = 1024,
               channel_base: Optional[int] = None, fp32: bool = False,
-              **options):
+              architecture: Optional[str] = None, **options):
     """The training CLI's run (``cli/train.py::build_run``, ``--cfg auto``,
     the defaults, then ``options``) for ``batch`` RGB images at
     ``img_resolution``^2 (on one card unless ``options`` give
     ``n_devices``); ``channel_base`` overrides both networks' (for small
     CPU runs); ``fp32`` runs every block of G and D and the ADA pipe in
-    fp32 (the fused level takes its fp32 route)."""
+    fp32 (the fused level takes its fp32 route); ``architecture`` replaces
+    G's "skip" (a snapshot's G may be "orig" or "resnet")."""
     run = train_cli.build_run(img_resolution, 3, 0, batch=batch, **options)
     g_syn, d_cfg, aug_cfg = run.g_cfg.synthesis, run.d_cfg, run.augment_cfg
+    if architecture:
+        g_syn = dataclasses.replace(g_syn, architecture=architecture)
     if channel_base:
         g_syn = dataclasses.replace(g_syn, channel_base=channel_base)
         d_cfg = dataclasses.replace(d_cfg, channel_base=channel_base)
@@ -608,3 +618,81 @@ def zoo_entry(device="cuda", name: str = "stylegan2", batch: int = 8,
     z = torch.randn((batch, handle.dim_z),
                     generator=torch.Generator().manual_seed(1)).to(device)
     return handle, z
+
+
+# ----------------------------------------------------------------------------
+# A stand-in NVlabs network pickle
+
+NVLABS_STANDIN = '''"""A stand-in for an NVlabs StyleGAN2-ADA checkout's training/networks.py:
+modules that hold a network's tensors under their state-dict names and the
+attributes the converters read."""
+
+import torch
+
+BUFFERS = ("resample_filter", "w_avg", "noise_const")
+
+
+class _Network(torch.nn.Module):
+    def __init__(self, tensors, **attrs):
+        super().__init__()
+        for name, value in attrs.items():
+            setattr(self, name, value)
+        for key, t in tensors.items():
+            *path, leaf = key.split(".")
+            mod = self
+            for part in path:
+                if part not in mod._modules:
+                    mod.add_module(part, torch.nn.Module())
+                mod = mod._modules[part]
+            if leaf in BUFFERS:
+                mod.register_buffer(leaf, t)
+            else:
+                mod.register_parameter(
+                    leaf, torch.nn.Parameter(t, requires_grad=False))
+
+
+class Generator(_Network):
+    pass
+
+
+class Discriminator(_Network):
+    pass
+'''
+
+
+def write_nvlabs_pickle(path: str, reference_path: str,
+                        nets: Dict[str, Dict[str, torch.Tensor]],
+                        g_attrs: Dict[str, int]) -> None:
+    """Pickle ``{"G", "G_ema", "D"}`` (each a flat {state-dict key: tensor}
+    of ``nets``) as an NVlabs network pickle does: modules of
+    ``training.networks`` whose ``state_dict()`` is the given tensors, G and
+    G_ema with ``g_attrs`` (``z_dim``, ``c_dim``, ``w_dim``,
+    ``img_resolution``, ``img_channels``).  ``reference_path`` receives the
+    stand-in ``training/networks.py`` (:data:`NVLABS_STANDIN`) that
+    unpickling needs; ``sys.path`` and ``sys.modules`` are put back
+    afterwards."""
+    pkg = os.path.join(reference_path, "training")
+    os.makedirs(pkg, exist_ok=True)
+    with open(os.path.join(pkg, "__init__.py"), "w"):
+        pass
+    with open(os.path.join(pkg, "networks.py"), "w") as f:
+        f.write(NVLABS_STANDIN)
+    sys_path, before = list(sys.path), set(sys.modules)
+    sys.path.insert(0, reference_path)
+    try:
+        networks = importlib.import_module("training.networks")
+        d_attrs = {k: g_attrs[k] for k in ("c_dim", "img_resolution",
+                                           "img_channels")}
+        data = {name: (networks.Discriminator(nets[name], **d_attrs)
+                       if name == "D" else
+                       networks.Generator(nets[name], **g_attrs))
+                for name in ("G", "D", "G_ema") if name in nets}
+        data["augment_pipe"] = None
+        with open(path, "wb") as f:
+            pickle.dump(data, f, protocol=pickle.HIGHEST_PROTOCOL)
+    finally:
+        sys.path[:] = sys_path
+        for name in convert_cli._imported_from(
+                {k: v for k, v in sys.modules.items() if k not in before},
+                reference_path):
+            del sys.modules[name]

@@ -276,12 +276,13 @@ def _has_torgb(cfg: SynthesisConfig, res: int) -> bool:
 
 
 def _check_architecture(cfg: SynthesisConfig):
-    """"skip" and "orig" run; "resnet" is refused, because the JAX package's
-    resnet G never reads its skip convolutions (ROADMAP section 3)."""
-    if cfg.architecture not in ("skip", "orig"):
-        raise NotImplementedError(
-            f"architecture={cfg.architecture!r}: the port's G runs 'skip' "
-            f"and 'orig'")
+    """"skip", "orig" and "resnet" run.  A "resnet" G carries a 1x1 ``skip``
+    conv in every block above 4x4 and never reads it: its forward is the
+    "orig" one, as in the JAX package (a fault of the reference, ROADMAP
+    section 3)."""
+    if cfg.architecture not in ("skip", "orig", "resnet"):
+        raise ValueError(f"architecture={cfg.architecture!r}: a G is 'skip', "
+                         f"'orig' or 'resnet'")
 
 
 def init_synthesis(gen: torch.Generator, cfg: SynthesisConfig) -> Params:
@@ -297,6 +298,9 @@ def init_synthesis(gen: torch.Generator, cfg: SynthesisConfig) -> Params:
                 cfg.use_noise)
         block["conv1"] = _init_synthesis_layer(gen, out_ch, out_ch, cfg.w_dim,
                                                res, cfg.use_noise)
+        if cfg.architecture == "resnet" and res > 4:
+            block["skip"] = _init_conv(gen, cfg.channels(res // 2), out_ch, 1,
+                                       bias=False)
         if _has_torgb(cfg, res):
             torgb = _init_conv(gen, out_ch, cfg.img_channels, 1)
             torgb["affine"] = _init_fc(gen, cfg.w_dim, out_ch, bias_init=1.0)
@@ -536,17 +540,18 @@ def _synthesis_layer_rows(cfg: SynthesisConfig, lay, lp: Params,
                           up: int, resample_filter: torch.Tensor,
                           post) -> torch.Tensor:
     """A synthesis layer on this rank's rows: the composed modulated conv on
-    the input's window (its rows and a halo of kernel // 2 rows, of the
-    low-resolution input before an up=2 conv), the window's extra output
-    rows cropped; noise, bias, activation and clamp are row-local."""
+    the window of its input that the rank's output rows need (a halo of
+    kernel // 2 rows, of the low-resolution input before an up=2 conv), the
+    window's extra output rows cropped; noise, bias, activation and clamp
+    are row-local."""
     styles, weight, bias = lay.enter(styles, weight, lp["bias"])
-    halo = weight.shape[-1] // 2
-    x = lay.window(x, resolution // up, halo)
+    x, offset = lay.window(x, resolution // up, weight.shape[-1] // 2,
+                           resolution)
     x = modulated_conv2d(x, weight, styles, up=up,
                          padding=weight.shape[-1] // 2,
                          resample_filter=resample_filter,
                          flip_weight=(up == 1))
-    x = post(lay.crop(x, halo * up, resolution))
+    x = post(lay.crop(x, offset, resolution))
     if noise is not None:
         x = x + noise.to(x.dtype)
     return bias_act(x, bias.to(x.dtype), act=cfg.activation,
@@ -579,8 +584,8 @@ def _upsample_rows(lay, img: torch.Tensor, f: torch.Tensor,
                    resolution: int) -> torch.Tensor:
     """``upsample2d`` of the skip image (whole or this rank's rows) to this
     rank's rows at ``resolution``: a window with a halo of one row."""
-    return lay.crop(upsample2d(lay.window(img, resolution // 2, 1), f), 2,
-                    resolution)
+    img, offset = lay.window(img, resolution // 2, 1, resolution)
+    return lay.crop(upsample2d(img, f), offset, resolution)
 
 
 def _packed_tail(cfg: SynthesisConfig, params: Params,
@@ -921,13 +926,14 @@ def _equalized(w: torch.Tensor) -> torch.Tensor:
 
 
 def _packed_res_core(cfg: DiscriminatorConfig, block: Params, x: torch.Tensor,
-                     dtype: torch.dtype, lay=None) -> torch.Tensor:
+                     dtype: torch.dtype, lay=None,
+                     h: Optional[int] = None) -> torch.Tensor:
     """conv0/conv1/skip of a resnet block on the packed grid (ops/packed.py):
     ``x`` is the packed input [N, 4C, res/2, res/2]; returns the unpacked
     [N, C_out, res/2, res/2] block output.  With a row layout ``lay``
-    (parallel/spatial.py), ``x`` is this rank's rows of the packed grid, each
-    3x3 conv takes a window with a halo of one packed row, and the output is
-    this rank's rows."""
+    (parallel/spatial.py), ``x`` is this rank's rows of the ``h``-row packed
+    grid, each 3x3 conv takes a window with a halo of one packed row, and
+    the output is this rank's rows."""
     taps = torch.as_tensor(cfg.resample_filter, dtype=torch.float32,
                            device=x.device)
     taps = taps / taps.sum()
@@ -936,9 +942,8 @@ def _packed_res_core(cfg: DiscriminatorConfig, block: Params, x: torch.Tensor,
     def conv(v, wp):
         if lay is None:
             return pk.conv_packed(v, wp.to(dtype))
-        h = v.shape[-2] * lay.world_size
-        return lay.crop(pk.conv_packed(lay.window(v, h, 1), wp.to(dtype)),
-                        1, h)
+        v, offset = lay.window(v, h, 1)
+        return lay.crop(pk.conv_packed(v, wp.to(dtype)), offset, h)
 
     y = conv(x, pk.build_packed_conv3x3(_equalized(block["conv0"]["weight"])))
     y = bias_act(y, pk.pack_channel_tile(block["conv0"]["bias"]).to(y.dtype),
@@ -992,15 +997,16 @@ def _d_block_rows(cfg: DiscriminatorConfig, lay, block: Params, x, img,
                   resample_filter, dtype, res: int):
     """:func:`_d_block` on this rank's rows of its ``res``-row input
     (parallel/spatial.py): ``x`` is those rows (or None), ``img`` the whole
-    image, ``block`` the entered parameters.  Each conv runs on a window of
-    its input, a halo of one row before a 3x3 conv and two before a stride-2
-    op, and keeps the rank's rows of its output."""
+    image, ``block`` the entered parameters.  Each conv runs on the window
+    of its input that the rank's output rows need, a halo of one row before
+    a 3x3 conv and two before a stride-2 op, and keeps the rank's rows of
+    its output."""
 
-    def conv(p, v, act, halo, down=1, **kw):
+    def conv(p, v, act, offset, down=1, **kw):
         y = conv2d_layer_apply(p, v, act, down=down,
                                resample_filter=resample_filter if down > 1
                                else None, **kw)
-        return lay.crop(y, halo // down, res // down)
+        return lay.crop(y, offset, res // down)
 
     if x is not None:
         x = x.to(dtype)
@@ -1012,17 +1018,21 @@ def _d_block_rows(cfg: DiscriminatorConfig, lay, block: Params, x, img,
                if cfg.architecture == "skip" else None)
     g = float(np.sqrt(0.5))
     if cfg.architecture == "resnet":
-        xw = lay.window(x, res, 2, stride2=True)
-        y = conv(block["skip"], xw, "linear", 2, down=2, gain=g)
-        x = conv(block["conv0"], xw[..., 1:-1, :], cfg.activation, 1,
+        (xs, offset), (x0, offset0) = lay.windows(x, res, (2, res // 2),
+                                                  (1, res))
+        y = conv(block["skip"], xs, "linear", offset, down=2, gain=g)
+        x = conv(block["conv0"], x0, cfg.activation, offset0,
                  conv_clamp=cfg.conv_clamp)
-        x = conv(block["conv1"], lay.window(x, res, 2, stride2=True),
-                 cfg.activation, 2, down=2, conv_clamp=cfg.conv_clamp, gain=g)
+        x, offset = lay.window(x, res, 2, res // 2)
+        x = conv(block["conv1"], x, cfg.activation, offset, down=2,
+                 conv_clamp=cfg.conv_clamp, gain=g)
         return y + x, img
-    x = conv(block["conv0"], lay.window(x, res, 1), cfg.activation, 1,
+    x, offset = lay.window(x, res, 1)
+    x = conv(block["conv0"], x, cfg.activation, offset,
              conv_clamp=cfg.conv_clamp)
-    x = conv(block["conv1"], lay.window(x, res, 2, stride2=True),
-             cfg.activation, 2, down=2, conv_clamp=cfg.conv_clamp)
+    x, offset = lay.window(x, res, 2, res // 2)
+    x = conv(block["conv1"], x, cfg.activation, offset, down=2,
+             conv_clamp=cfg.conv_clamp)
     return x, img
 
 
@@ -1036,9 +1046,9 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
     share of a global batch, and the minibatch stddev reads every rank's.
     ``spatial_constraint``: from ``parallel.spatial.d_spatial_constraint``,
     ``img`` is whole on every rank and each block whose input has at least
-    ``min_rows`` rows a rank runs on this rank's rows (the packed first
-    block on an even row block with halos on the packed grid); smaller
-    blocks and the epilogue run on the gathered map.  Any other callable is
+    ``min_rows`` rows a rank runs on this rank's rows (a packed block on the
+    input rows under its block of the packed grid, with halos there);
+    smaller blocks and the epilogue run on the gathered map.  Any other callable is
     applied to the image, to each unpacked block's input and to the last
     block's output, as the JAX package applies it."""
     resample_filter = setup_filter(cfg.resample_filter, device=img.device)
@@ -1053,20 +1063,23 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
     def first_block_packed(block, img, dtype, lay=None):
         """fromrgb 1x1 as a cell-diagonal conv on pack(img), then the
         packed conv0/conv1/skip core; with ``lay``, on this rank's rows."""
+        res = cfg.img_resolution
         if lay is not None:
             block = lay.enter_tree(block)
-            img = lay.rows(img, cfg.img_resolution)
+            img = lay.window(img, res, 0, res // 2)[0]
         w = pk.build_packed_conv1x1(_equalized(block["fromrgb"]["weight"]))
         h = pk.conv_packed(pk.pack(img.to(dtype)), w.to(dtype))
         h = bias_act(h, pk.pack_channel_tile(
             block["fromrgb"]["bias"]).to(h.dtype), act=cfg.activation,
             gain=spec.def_gain, clamp=cfg.conv_clamp)
-        return _packed_res_core(cfg, block, h, dtype, lay)
+        return _packed_res_core(cfg, block, h, dtype, lay, res // 2)
 
     def head_block_packed(block, x, dtype, lay=None, res=None):
         if lay is not None:
-            block, x = lay.enter_tree(block), lay.rows(x, res)
-        return _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype, lay)
+            block = lay.enter_tree(block)
+            x = lay.window(x, res, 0, res // 2)[0]
+        return _packed_res_core(cfg, block, pk.pack(x.to(dtype)), dtype, lay,
+                                res // 2)
 
     def d_block(block, x, img, dtype, lay=None, res=None):
         return _d_block(cfg, block, x, img, resample_filter, dtype, lay, res)
@@ -1085,8 +1098,6 @@ def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
                 else None)
         if x_rows is not None and rows is None:
             x = x_rows.gather(x, res)
-        if rows is not None:
-            rows.block(res, stride2=True)
         if packed_ok and res == cfg.img_resolution:
             x = run(first_block_packed, block, img, dtype, rows)
             img = None

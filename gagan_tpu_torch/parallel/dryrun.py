@@ -417,12 +417,14 @@ class SpatialCase:
     """The checks of :func:`spatial_rank`, each optional: ``synthesis``,
     (g_cfg, flat G weights, ws, [(label, min_res, None or (offsets spec,
     offsets tree of numpy))]); ``d``, (d_cfg, flat D weights, real images);
-    ``step``, a :class:`StepCase` with ``spatial_min_res``; ``probes``: the
-    exchanges' adjoints and gradchecks."""
+    ``step``, a :class:`StepCase` with ``spatial_min_res``, run in the
+    ``variants`` named; ``probes``: the exchanges' adjoints and
+    gradchecks."""
     synthesis: Optional[tuple] = None
     d: Optional[tuple] = None
     step: Optional[StepCase] = None
     probes: bool = False
+    variants: tuple = tuple(v for v, _, _ in VARIANTS)
 
 
 def spatial_synthesis(mesh, g_cfg, g_flat, ws, min_res, offsets=None):
@@ -474,7 +476,7 @@ def _probe_fns(layout, h: int):
     squared)."""
 
     def halo(x, w):
-        win = layout.window(layout.rows(x, h), h, 1)
+        win = layout.window(layout.rows(x, h), h, 1)[0]
         (w,) = layout.enter(w)
         y = torch.nn.functional.conv2d(win, w, padding=(0, 1))
         return layout.gather(torch.tanh(y), h)
@@ -506,30 +508,43 @@ def _adjoint_gap(mesh, fn, x, y, x_whole: bool, y_whole: bool) -> float:
 
 
 def spatial_probes(mesh) -> Dict[str, Any]:
-    """Each exchange pair (:mod:`parallel.spatial`): the gap between
-    <A x, y> and <x, A^T y> (float64, summed over the ranks) for A the
-    halo exchange (rows in, a window of two rows each side out), ``enter``
-    and the row gather, and ``gradcheck`` / ``gradgradcheck`` of a map of
-    whole tensors through each."""
+    """Each exchange pair (:mod:`parallel.spatial`) on maps whose blocks
+    differ in size: the gap between <A x, y> and <x, A^T y> (float64,
+    summed over the ranks) for A the window exchange (rows in, a window
+    out: "halo" two rows each side, "up" the rows under an up=2 op's
+    blocks, "down" those under a stride-2 op's), ``enter`` and the row
+    gather, and ``gradcheck`` / ``gradgradcheck`` of a map of whole tensors
+    through the halo exchange, ``enter`` and the gather."""
     layout = spatial_lib.RowLayout(mesh)
-    h = 4 * mesh.world_size
+    h = 4 * mesh.world_size + 1
     gen = torch.Generator().manual_seed(0)
-    rows = h // mesh.world_size
     local = torch.Generator().manual_seed(100 + mesh.rank)
     f64 = dict(dtype=torch.float64)
+
+    def rows(h):
+        s, e = layout.block(h)
+        return e - s
+
+    def window_gap(h, k, out_h):
+        (a, b), _ = spatial_lib.op_windows(h, out_h, k, layout.world_size)[
+            mesh.rank]
+        return _adjoint_gap(
+            mesh, lambda v: layout.window(v, h, k, out_h)[0],
+            torch.randn((1, 2, rows(h), 3), generator=local, **f64),
+            torch.randn((1, 2, b - a, 3), generator=local, **f64),
+            False, False)
+
     adjoint = {
-        "halo": _adjoint_gap(
-            mesh, lambda v: layout.window(v, h, 2),
-            torch.randn((1, 2, rows, 3), generator=local, **f64),
-            torch.randn((1, 2, rows + 4, 3), generator=local, **f64),
-            False, False),
+        "halo": window_gap(h, 2, h),
+        "up": window_gap(h, 1, 2 * h),
+        "down": window_gap(h + 1, 2, (h + 1) // 2),
         "enter": _adjoint_gap(
             mesh, lambda v: layout.enter(v)[0] * 1.0,
             torch.randn((2, 3), generator=gen, **f64),
             torch.randn((2, 3), generator=local, **f64), True, False),
         "gather": _adjoint_gap(
             mesh, lambda v: layout.gather(v, h),
-            torch.randn((1, 2, rows, 3), generator=local, **f64),
+            torch.randn((1, 2, rows(h), 3), generator=local, **f64),
             torch.randn((1, 2, h, 3), generator=gen, **f64), False, True),
     }
     x = torch.randn((1, 2, h, 3), generator=gen, **f64).requires_grad_(True)
@@ -562,7 +577,7 @@ def spatial_rank(mesh, case: SpatialCase) -> Dict[str, Any]:
     if case.step is not None:
         spatial_lib.reset_stats()
         out["step"] = run_variants(mesh, *case.step.build(mesh),
-                                   [v for v, _, _ in VARIANTS])
+                                   case.variants)
         out["stats"] = dict(spatial_lib.STATS)
     return out
 

@@ -9,25 +9,31 @@ halo exchanges.  Nothing inserts them here: every rank of a
 whole global batch, replicated state, and of each sharded map only its
 rows, and the layers exchange their edge rows themselves.
 
-Layout (JAX's ``P(None, None, axis, None)``): rank ``r`` of ``n`` holds rows
-``[r*H/n, (r+1)*H/n)`` of a sharded ``[N, C, H, W]`` map, every sample.
-Mapping, styles, the blocks below the sharded resolutions, D's epilogue
-and the losses run whole on every rank.  A map that ``n`` does not split
-into equal blocks, or whose block would start on an odd row in front of a
-stride-2 op, is refused with a ``ValueError`` (XLA pads uneven shards; the
-port does not).
+Layout (JAX's ``P(None, None, axis, None)``): rank ``r`` of ``n`` holds one
+contiguous row block of a sharded ``[N, C, H, W]`` map, every sample:
+``H // n`` rows, one more on each of the first ``H % n`` ranks, so that any
+number of ranks splits any map of at least ``n`` rows (XLA pads uneven
+shards instead; the numbers are the same).  Each level of a network has its
+own blocks.  Mapping, styles, the blocks below the sharded resolutions, D's
+epilogue and the losses run whole on every rank.
 
-Each sharded layer takes a window of its input: its own rows and a halo of
-``k`` rows from each neighbour (zero rows at the image's edges), runs the
-port's composed op on the window with its usual padding, and keeps the
-rows that belong to it (:meth:`RowLayout.window`, :meth:`RowLayout.crop`).
+Each sharded layer takes a window of its input: the rows that this rank's
+block of its OUTPUT needs (its own rows, up to ``k`` more on each side, and
+for an up- or down-sampling op the rows of the input level under that
+block), fetched from whichever ranks hold them (zero rows outside the
+image); it runs the port's composed op on the window with its usual
+padding and keeps the rows of its block (:meth:`RowLayout.window`,
+:meth:`RowLayout.crop`).  So a level's blocks need not line up with the
+next level's: an odd first row in front of a stride-2 op, or over three
+ranks a first block of 86 of 256 rows under one of 171 of 512 rows (not
+2 * 86), only moves the window.
 
 The collectives are ``torch.autograd.Function`` pairs whose backward is the
 other of the pair, so that R1 and path-length regularisation differentiate
 through them twice:
 
-* the halo exchange and its adjoint, which sends the halo rows' gradients
-  back to their owners and adds them there;
+* the window exchange and its adjoint, which sends the gradients of the
+  window's rows that other ranks own back to them and adds them there;
 * ``enter`` (identity; backward: an all_reduce of the gradient) where a
   replicated tensor (a style, a weight, a bias, a noise strength, an image
   or map that is whole on every rank) enters the row-sharded computation,
@@ -52,7 +58,7 @@ from __future__ import annotations
 
 import collections
 import functools
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -62,7 +68,7 @@ from ..models.stylegan2 import LayerHooks
 
 # Collectives issued by this module since the last reset_stats(): "exchanges"
 # (all of them), "bytes" (the bytes a rank handed to them), and counts by
-# kind: "halo" (halo exchanges and their adjoints), "enter" (the gradient
+# kind: "halo" (window exchanges and their adjoints), "enter" (the gradient
 # all_reduces of enter), "gather" (row gathers and the all_reduces that are
 # enter's adjoints).
 STATS: "collections.Counter[str]" = collections.Counter()
@@ -147,76 +153,116 @@ class _Identity(torch.autograd.Function):
         return _AllReduce.apply(g, ctx.mesh), None
 
 
-class _Halo(torch.autograd.Function):
-    """This rank's rows with ``k`` rows of the rank above in front and ``k``
-    of the rank below behind (zero rows at the image's edges); its adjoint
-    is :class:`_HaloReturn`."""
+class _Fetch(torch.autograd.Function):
+    """Rows ``wins[rank]`` of an ``h``-row map from each rank's block (zero
+    rows outside the map); its adjoint is :class:`_FetchReturn`."""
 
     @staticmethod
-    def forward(ctx, x, layout, k):
-        ctx.args = (layout, k)
-        return layout._halo(x, k)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _HaloReturn.apply(g, *ctx.args), None, None
-
-
-class _HaloReturn(torch.autograd.Function):
-    """The adjoint of :class:`_Halo`: a window's halo rows sent back to the
-    ranks that own them and added into those rows."""
-
-    @staticmethod
-    def forward(ctx, g, layout, k):
-        ctx.args = (layout, k)
-        return layout._halo_return(g, k)
+    def forward(ctx, x, layout, h, wins):
+        ctx.args = (layout, h, wins)
+        return layout._fetch(x, h, wins)
 
     @staticmethod
     def backward(ctx, g):
-        return _Halo.apply(g, *ctx.args), None, None
+        return (_FetchReturn.apply(g, *ctx.args),) + (None,) * 3
+
+
+class _FetchReturn(torch.autograd.Function):
+    """The adjoint of :class:`_Fetch`: a window's gradient, its rows sent
+    back to the ranks that own them and added into those rows."""
+
+    @staticmethod
+    def forward(ctx, g, layout, h, wins):
+        ctx.args = (layout, h, wins)
+        return layout._fetch_return(g, h, wins)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_Fetch.apply(g, *ctx.args),) + (None,) * 3
 
 
 # ----------------------------------------------------------------------------
 # The row layout
 
 
+@functools.lru_cache(maxsize=None)
+def row_blocks(h: int, n: int) -> Tuple[Tuple[int, int], ...]:
+    """(first row, end row) of each of ``n`` ranks' blocks of an ``h``-row
+    map: ``h // n`` rows each, one more for each of the first ``h % n``
+    ranks.  Raises for a map of fewer rows than ranks."""
+    if h < n:
+        raise ValueError(f"spatial sharding over {n} ranks: a {h}-row map "
+                         f"has fewer rows than ranks")
+    q, extra = divmod(h, n)
+    blocks, s = [], 0
+    for r in range(n):
+        e = s + q + (r < extra)
+        blocks.append((s, e))
+        s = e
+    return tuple(blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def op_windows(h: int, out_h: int, k: int, n: int):
+    """For each of ``n`` ranks, ((a, b), offset): the rows ``[a, b)`` of an
+    ``h``-row input that an op onto an ``out_h``-row output (``h``, ``2h``
+    or ``h / 2`` rows) reaching ``k`` input rows past its centre needs for
+    the rank's output block, and the row of the op's output on that window
+    where the block starts (the op's output row ``j`` on a window from row
+    ``a`` is the map's row ``a * out_h / h + j``)."""
+    out = []
+    for s, e in row_blocks(out_h, n):
+        if out_h == h:
+            a, b = s - k, e + k
+        elif out_h == 2 * h:
+            a, b = s // 2 - k, (e + 1) // 2 + k
+        elif 2 * out_h == h and k % 2 == 0:
+            a, b = 2 * s - k, 2 * e + k
+        else:
+            raise ValueError(f"no row window of an op from {h} to {out_h} "
+                             f"rows reaching {k} rows")
+        out.append(((a, b), s - a * out_h // h))
+    return tuple(out)
+
+
+def _outside(win, block):
+    """The parts of the window ``[a, b)`` before and after the block
+    ``[s, e)``, as two (first, end) row ranges (empty ones have first ==
+    end)."""
+    (a, b), (s, e) = win, block
+    return (a, max(a, min(b, s))), (min(b, max(a, e)), b)
+
+
 class RowLayout:
-    """The row blocks of the maps sharded over ``mesh``'s ranks, and the
-    operations of a layer on them.  A map of ``h`` rows is this rank's
-    block when it holds ``h / world_size`` rows, and whole (replicated)
-    when it holds ``h``."""
+    """The row blocks of the maps sharded over ``mesh``'s ranks
+    (:func:`row_blocks`), and the operations of a layer on them.  A map of
+    ``h`` rows is this rank's block when it holds the block's rows, and
+    whole (replicated) when it holds ``h``."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         self.world_size = mesh.world_size if mesh.sharded else 1
         self.rank = mesh.rank if mesh.sharded else 0
 
-    def block(self, h: int, stride2: bool = False):
-        """(first row, end row) of this rank's block of a map of ``h``
-        rows.  Refuses a map that does not split into equal blocks, and
-        with ``stride2`` a block that would start on an odd row."""
-        n = self.world_size
-        if h % n:
-            raise ValueError(
-                f"spatial sharding over {n} ranks: a {h}-row map does not "
-                f"split into {n} equal row blocks")
-        rows = h // n
-        if stride2 and rows % 2:
-            raise ValueError(
-                f"spatial sharding over {n} ranks: the {h}-row map's blocks "
-                f"of {rows} row(s) would start on an odd row in front of a "
-                f"stride-2 op")
-        return self.rank * rows, (self.rank + 1) * rows
+    def blocks(self, h: int):
+        """Every rank's (first row, end row) of an ``h``-row map."""
+        return row_blocks(h, self.world_size)
+
+    def block(self, h: int):
+        """(first row, end row) of this rank's block of an ``h``-row map."""
+        return self.blocks(h)[self.rank]
 
     def is_rows(self, x: torch.Tensor, h: int) -> bool:
         """Whether ``x`` (of a map of ``h`` rows) is this rank's block
         (False: the whole map)."""
         if x.shape[-2] == h:
             return False
-        if x.shape[-2] * self.world_size != h:
+        s, e = self.block(h)
+        if x.shape[-2] != e - s:
             raise ValueError(f"a tensor of {x.shape[-2]} rows is neither a "
-                             f"{h}-row map nor one of its "
-                             f"{self.world_size} row blocks")
+                             f"{h}-row map nor rank {self.rank}'s block of "
+                             f"it ({e - s} rows of {self.world_size} ranks' "
+                             f"blocks)")
         return True
 
     def enter(self, *ts):
@@ -252,28 +298,48 @@ class RowLayout:
                     for k, v in t.items()}
         return build(tree)
 
+    def windows(self, x: torch.Tensor, h: int, *ops):
+        """For each op ``(k, out_h)`` on the ``h``-row map ``x`` (whole, or
+        this rank's block), (window, offset) as :func:`op_windows` gives
+        them: the window's rows, zero outside the map, from one exchange
+        for all the ops, or sliced out of the whole map."""
+        specs = [op_windows(h, out_h, k, self.world_size) for k, out_h in ops]
+        wins = tuple((min(sp[r][0][0] for sp in specs),
+                      max(sp[r][0][1] for sp in specs))
+                     for r in range(self.world_size))
+        a, b = wins[self.rank]
+        if not self.is_rows(x, h):
+            (x,) = self.enter(x)
+            piece = x[..., max(a, 0):min(b, h), :]
+            xw = F.pad(piece, (0, 0, max(-a, 0), max(b - h, 0)))
+        elif any(lo != hi for w, blk in zip(wins, self.blocks(h))
+                 for lo, hi in _outside(w, blk)):
+            xw = _Fetch.apply(x, self, h, wins)
+        else:
+            s = self.block(h)[0]
+            xw = x[..., a - s:b - s, :]
+        out = []
+        for sp in specs:
+            (lo, hi), offset = sp[self.rank]
+            out.append((xw[..., lo - a:hi - a, :], offset))
+        return out
+
     def window(self, x: torch.Tensor, h: int, k: int,
-               stride2: bool = False) -> torch.Tensor:
-        """Rows ``[s - k, e + k)`` of the ``h``-row map, this rank's block
-        being ``[s, e)``, zero outside the map: from the rank's block by a
-        halo exchange, or sliced out of the whole map."""
-        s, e = self.block(h, stride2)
-        if self.is_rows(x, h):
-            return _Halo.apply(x, self, k) if k else x
-        (x,) = self.enter(x)
-        lo, hi = s - k, e + k
-        piece = x[..., max(lo, 0):min(hi, h), :]
-        return F.pad(piece, (0, 0, max(-lo, 0), max(hi - h, 0)))
+               out_h: Optional[int] = None):
+        """(window, offset) of one op (:meth:`windows`); ``out_h``
+        defaults to ``h``."""
+        return self.windows(x, h, (k, out_h or h))[0]
 
     def rows(self, x: torch.Tensor, h: int) -> torch.Tensor:
         """This rank's block of a map whole on every rank (or the block
         itself)."""
-        return self.window(x, h, 0)
+        return self.window(x, h, 0)[0]
 
     def crop(self, y: torch.Tensor, offset: int, h: int) -> torch.Tensor:
-        """Rows ``[offset, offset + h / world_size)`` of an op's output on
-        a window: the rank's block of the ``h``-row output map."""
-        return y[..., offset:offset + h // self.world_size, :]
+        """This rank's block of the ``h``-row output map from an op's
+        output on a window, the block starting at row ``offset``."""
+        s, e = self.block(h)
+        return y[..., offset:offset + e - s, :]
 
     def gather(self, x: torch.Tensor, h: int) -> torch.Tensor:
         """The whole ``h``-row map from every rank's block (the map itself
@@ -284,36 +350,56 @@ class RowLayout:
         s, e = self.block(h)
         return _AllReduce.apply(F.pad(x, (0, 0, s, h - e)), self.mesh)
 
-    def _halo(self, x, k):
-        """Each rank hands its last k rows (the halo above of the rank
-        below) and its first k (the halo below of the rank above) to one
-        all_reduce of a zero-filled [world_size, ...] buffer."""
-        n, r = self.world_size, self.rank
-        rows = x.shape[-2]
-        if rows < k:
-            raise ValueError(f"a halo of {k} rows is more than a block of "
-                             f"{rows}")
-        x = x.detach()
-        buf = x.new_zeros((n,) + tuple(x.shape[:-2]) + (2 * k, x.shape[-1]))
-        buf[r] = torch.cat([x[..., rows - k:, :], x[..., :k, :]], -2)
-        _all_reduce(self.mesh, buf, "halo")
-        edge = torch.zeros_like(buf[r][..., :k, :])
-        above = buf[r - 1][..., :k, :] if r > 0 else edge
-        below = buf[r + 1][..., k:, :] if r < n - 1 else edge
-        return torch.cat([above, x, below], -2)
+    def _buffer(self, t, h, wins):
+        """A zero-filled [world_size, ..., rows, W] buffer whose slot j
+        holds the rows of rank j's window outside j's block (those before
+        it, then those after it), the two parts of each rank's window, and
+        the rows a slot keeps for the first part."""
+        parts = [_outside(w, blk) for w, blk in zip(wins, self.blocks(h))]
+        before = max(e - s for (s, e), _ in parts)
+        after = max(e - s for _, (s, e) in parts)
+        buf = t.new_zeros((self.world_size,) + tuple(t.shape[:-2])
+                          + (before + after, t.shape[-1]))
+        return buf, parts, before
 
-    def _halo_return(self, g, k):
-        n, r = self.world_size, self.rank
-        g = g.detach()
-        rows = g.shape[-2] - 2 * k
-        buf = g.new_zeros((n,) + tuple(g.shape[:-2]) + (2 * k, g.shape[-1]))
-        buf[r] = torch.cat([g[..., :k, :], g[..., k + rows:, :]], -2)
+    def _owned(self, parts, before, h):
+        """(slot, its rows, the block's rows) of each piece of the ranks'
+        windows that this rank's block holds."""
+        s, e = self.block(h)
+        for j, (pre, post) in enumerate(parts):
+            for (lo, hi), base in ((pre, pre[0]), (post, post[0] - before)):
+                lo, hi = max(lo, s), min(hi, e)
+                if lo < hi:
+                    yield j, slice(lo - base, hi - base), slice(lo - s, hi - s)
+
+    def _fetch(self, x, h, wins):
+        """Each rank hands the rows of the ranks' windows that its block
+        holds to one all_reduce of a zero-filled buffer; this rank's window
+        is its own rows between the ones it received."""
+        x = x.detach()
+        buf, parts, before = self._buffer(x, h, wins)
+        for j, rows, mine in self._owned(parts, before, h):
+            buf[j][..., rows, :] = x[..., mine, :]
         _all_reduce(self.mesh, buf, "halo")
-        dx = g[..., k:k + rows, :].clone()
-        if r < n - 1:
-            dx[..., rows - k:, :] += buf[r + 1][..., :k, :]
-        if r > 0:
-            dx[..., :k, :] += buf[r - 1][..., k:, :]
+        (a, b), (s, e) = wins[self.rank], self.block(h)
+        (p0, p1), (q0, q1) = parts[self.rank]
+        slot = buf[self.rank]
+        return torch.cat([slot[..., :p1 - p0, :],
+                          x[..., p1 - s:max(q0, p1) - s, :],
+                          slot[..., before:before + q1 - q0, :]], -2)
+
+    def _fetch_return(self, g, h, wins):
+        g = g.detach()
+        a, (s, e) = wins[self.rank][0], self.block(h)
+        buf, parts, before = self._buffer(g, h, wins)
+        (p0, p1), (q0, q1) = parts[self.rank]
+        buf[self.rank][..., :p1 - p0, :] = g[..., :p1 - p0, :]
+        buf[self.rank][..., before:before + q1 - q0, :] = g[..., q0 - a:, :]
+        _all_reduce(self.mesh, buf, "halo")
+        dx = g.new_zeros(tuple(g.shape[:-2]) + (e - s, g.shape[-1]))
+        dx[..., p1 - s:max(q0, p1) - s, :] = g[..., p1 - a:max(q0, p1) - a, :]
+        for j, rows, mine in self._owned(parts, before, h):
+            dx[..., mine, :] += buf[j][..., rows, :]
         return dx
 
 

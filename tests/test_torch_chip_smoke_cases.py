@@ -5,6 +5,7 @@ the train phase's configuration (the JAX training CLI's 1024^2 plan) and
 its control flow at a small size."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -279,6 +280,9 @@ def test_fewshot_phase_runs_on_cpu(monkeypatch, tmp_path):
     assert sec_per_kimg > 0
     assert {"adaptation-000000.npz", "stats.jsonl"} <= set(
         os.listdir(tmp_path / "fewshot"))
+    # The pickle phase on the same snapshot and the fewshot phase's npz.
+    assert cs.pickle_phase(str(tmp_path), snap, "cpu") == 0
+    assert "training" not in sys.modules
 
 
 def test_fewshot_phase_drives_the_full_size_path():
@@ -646,6 +650,29 @@ def test_tail_phase_runs_on_cpu(monkeypatch):
         _small_g().synthesis
 
 
+def test_resnet_phase_runs_on_cpu(monkeypatch):
+    """The resnet phase at 64^2 (_small_g with architecture="resnet") and
+    its train step at 32^2: the forwards agree, the skip leaves stay
+    bit-unchanged through the step."""
+    from gagan_tpu_torch import entry
+
+    _cpu_card(monkeypatch)
+    monkeypatch.setattr(cs, "expected_launches", lambda *a: 0)
+    monkeypatch.setattr(cs, "entry_config", _small_g)
+    for name, value in (("BATCH", 2), ("TIMED_BATCH", 2),
+                        ("RESNET_BATCH", 4)):
+        monkeypatch.setattr(cs, name, value)
+    monkeypatch.setattr(cs, "train_entry", lambda device, batch, ada_p, **kw:
+                        entry.train_entry(device, batch=batch,
+                                          img_resolution=32, channel_base=256,
+                                          ada_p=ada_p, **kw))
+    monkeypatch.setattr(cs, "train_run", lambda batch, **kw: entry.train_run(
+        batch, 32, 256, **kw))
+    assert cs.resnet_phase("cpu") == 0
+    assert cs.tail_config(1, architecture="resnet").synthesis.architecture \
+        == "resnet"
+
+
 def test_examples_phase_runs_on_cpu(monkeypatch, tmp_path):
     """The five examples at 32^2 on the CPU, fused and composed snapshots
     (no CUDA kernel: 0 launches), each PNG at the shape it has at 1024^2
@@ -719,7 +746,7 @@ def test_dist_phase_drives_the_full_size_path():
     assert ts.data_rounds(two.train_cfg) == 2
     assert cs.TRAIN_BATCH // 2 // two.train_cfg.accum_rounds == 8
     assert two.reg_remat and two.g_cfg.synthesis.pallas_level
-    assert (cs.DIST_LOOP_BATCHES, cs.DIST_RESUME_BATCH) == (4, 8)
+    assert (cs.DIST_LOOP_BATCHES, cs.DIST_RESUME_BATCH) == (2, 8)
     assert cs.DIST_VARIANTS == ("none", "greg", "both")
     assert two.train_cfg.batch_size == cs.TRAIN_BATCH
     # The check against one process: fp32 G, D and ADA pipe at global batch
@@ -757,30 +784,47 @@ def test_spatial_phase_runs_on_cpu(tmp_path):
                           fwd_min_res=(8, 4), check_batch=4, arm_batch=4,
                           arm_min_res=(8, 4), loop_batch=4, loop_batches=2,
                           device="cpu")
-    assert cs.spatial_phase(str(tmp_path), str(data), "cpu", plan) == 0
+    launches, peaks = cs.spatial_phase(str(tmp_path), str(data), "cpu", plan)
+    assert launches == 0
+    assert set(peaks) == {"one process", "data parallel", "spatial 8",
+                          "spatial 4"}
 
 
 def test_spatial_phase_drives_the_full_size_path():
     """On the card: FFHQ-1024 at full width with the CLI's G (bf16 in 4
     resolutions, conv_clamp 256, the packed last block, the fused level),
-    min_res 256 (b128.conv1 stays fused on every rank) and 64 / 128; the
-    fp32 check at global batch 4 in one round a rank with the GA round;
-    the arms at global batch 8; the bounds at most 2^-4."""
+    min_res 256 (b128.conv1 stays fused on every rank); two ranks run the
+    forward and the arms at global batch 8; three ranks, whose blocks of
+    every sharded map differ in size, also min_res 64, the fp32 check at
+    global batch 4 in one round a rank with the GA round and the loop, with
+    the plan for three devices (mbstd groups of 4 still divide the
+    batches); the bounds at most 2^-4."""
     from gagan_tpu_torch import entry
+    from gagan_tpu_torch.parallel import spatial as sp
 
     plan = cs.SPATIAL
     assert (plan.res, plan.channel_base, plan.device) == (1024, None,
                                                           "cuda:0")
-    assert plan.fwd_min_res == (256, 64) and plan.arm_min_res == (256, 128)
+    assert plan.fwd_min_res == (256,) and plan.arm_min_res == (256,)
+    assert plan.check_batch is None and plan.loop_batches == 0
+    three = cs.SPATIAL3
+    assert (three.ranks, three.res, three.fwd_min_res, three.arm_min_res,
+            three.baseline_arms, three.loop_batches) == (
+        3, 1024, (256, 64), (256,), False, 2)
+    assert sp.row_blocks(1024, 3) == ((0, 342), (342, 683), (683, 1024))
+    for batch in (three.check_batch, three.arm_batch, three.loop_batch):
+        run = entry.train_run(batch, n_devices=3)
+        assert run.accum_rounds[0] == 1
+        assert batch % run.d_cfg.mbstd_group_size == 0
     g = entry.train_run(plan.fwd_batch).g_cfg
     assert g.synthesis.num_fp16_res == 4 and g.synthesis.conv_clamp == 256
     assert g.synthesis.packed_last_block and g.synthesis.pallas_level
     assert g.synthesis.channel_base == 32768
-    check = entry.train_run(plan.check_batch, n_devices=2, fp32=True,
+    check = entry.train_run(three.check_batch, n_devices=3, fp32=True,
                             ga_threshold=0.5)
     assert check.accum_rounds[0] == 1 and check.train_cfg.ga_threshold
     assert entry.train_run(plan.arm_batch, n_devices=2).accum_rounds[0] == 1
-    assert plan.check_batch <= 8 and plan.arm_batch == 8
+    assert three.check_batch <= 8 and plan.arm_batch == three.arm_batch == 8
     assert set(cs.SPATIAL_FAULTS) == {"halo rows zero-filled",
                                       "gradients divided by the world size"}
     assert all(v <= 2 ** -4 for v in cs.SPATIAL_BOUNDS.values())

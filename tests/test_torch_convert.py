@@ -10,7 +10,10 @@ suite's forward tolerance).
 """
 
 import importlib.util
+import json
 import os
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -161,6 +164,92 @@ def test_nvlabs_command_writes_what_jax_loads(tmp_path):
     assert config == {"g_cfg": {"z_dim": 16, "c_dim": 0, "w_dim": 16,
                                 "img_resolution": 16, "img_channels": 3}}
     assert jconfig.generator_config_from_dict(config["g_cfg"]).z_dim == 16
+
+
+def _nvlabs_nets():
+    """{"G", "G_ema", "D"} NVlabs-layout state dicts (with the buffers the
+    converters drop) as tensors, and G's attributes."""
+    g, gsd = _nvlabs_sd(6)
+    _, esd = _nvlabs_sd(7)
+    d = jsg.DiscriminatorConfig(img_resolution=16, channel_base=128,
+                                channel_max=16)
+    dsd = {k: np.asarray(v) for k, v in jck.tree_to_flat(
+        jsg.init_discriminator(jax.random.PRNGKey(8), d)).items()}
+    dsd["b16.conv0.resample_filter"] = np.ones((4, 4), np.float32)
+    nets = {name: {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+            for name, sd in (("G", gsd), ("G_ema", esd), ("D", dsd))}
+    attrs = dict(z_dim=g.z_dim, c_dim=g.c_dim, w_dim=g.w_dim,
+                 img_resolution=g.img_resolution, img_channels=3)
+    return nets, attrs
+
+
+@pytest.fixture
+def nvlabs_pkl(tmp_path):
+    """A stand-in NVlabs network pickle and the checkout that defines its
+    classes (``entry.write_nvlabs_pickle``); ``training`` is importable
+    neither before nor after."""
+    from gagan_tpu_torch import entry
+
+    nets, attrs = _nvlabs_nets()
+    ref, src = str(tmp_path / "reference"), str(tmp_path / "snap.pkl")
+    entry.write_nvlabs_pickle(src, ref, nets, attrs)
+    assert "training" not in sys.modules and ref not in sys.path
+    return src, ref, nets
+
+
+def test_nvlabs_pkl_command_writes_what_the_jax_tool_writes(
+        tool, nvlabs_pkl, tmp_path, monkeypatch):
+    """nvlabs --reference-path: the npz of tools/convert_weights.py's
+    convert_nvlabs_pkl on the same pickle, key for key and bit for bit,
+    with an equal __config__; the port puts sys.path back and drops the
+    checkout's modules."""
+    src, ref, nets = nvlabs_pkl
+    want, got = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    with monkeypatch.context() as m:
+        m.setattr(sys, "path", list(sys.path))     # the tool leaves it in
+        tool.convert_nvlabs_pkl(src, want, ref)
+    for name in [k for k in sys.modules
+                 if k == "training" or k.startswith("training.")]:
+        del sys.modules[name]
+    path = list(sys.path)
+    tcw.main(["nvlabs", "--src", src, "--dest", got, "--reference-path",
+              ref])
+    assert sys.path == path and "training" not in sys.modules
+    with np.load(want) as w, np.load(got) as g:
+        assert sorted(g.files) == sorted(w.files)
+        for k in w.files:
+            assert g[k].dtype == w[k].dtype, k
+            np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+        config = json.loads(bytes(g["__config__"]).decode())
+    assert config == {"g_cfg": {"z_dim": 16, "c_dim": 0, "w_dim": 16,
+                                "img_resolution": 16, "img_channels": 3}}
+    kept = sum(1 for sd in nets.values() for k in sd if tcw._keep(k))
+    assert len(w.files) == kept + 1
+
+
+def test_nvlabs_pkl_without_reference_path_names_the_flag(nvlabs_pkl,
+                                                          tmp_path):
+    src, _, _ = nvlabs_pkl
+    with pytest.raises(ValueError, match="--reference-path"):
+        tcw.main(["nvlabs", "--src", src, "--dest",
+                  str(tmp_path / "x.npz")])
+
+
+def test_nvlabs_pkl_route_imports_no_jax(nvlabs_pkl, tmp_path):
+    """The command on the pickle, in a process with JAX and the JAX package
+    blocked: it converts, and neither is imported."""
+    src, ref, _ = nvlabs_pkl
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['gagan_tpu'] = None\n"
+            "from gagan_tpu_torch.cli import convert_weights as c\n"
+            f"c.main(['nvlabs', '--src', {src!r}, '--dest', "
+            f"{str(tmp_path / 'y.npz')!r}, '--reference-path', {ref!r}])\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'gagan_tpu') and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120, env={**os.environ, "PYTHONPATH": REPO})
+    assert os.path.exists(tmp_path / "y.npz")
 
 
 # ----------------------------------------------------------------------------

@@ -81,10 +81,10 @@ def test_multi_block_convs_match_jax_and_reformulate_exactly():
 
 
 def _cfgs(tail_blocks=1, fused=True, architecture="skip", packed=True,
-          num_fp16_res=0):
+          num_fp16_res=0, res=64):
     def build(m):
         return m.GeneratorConfig(
-            z_dim=32, w_dim=32, img_resolution=64,
+            z_dim=32, w_dim=32, img_resolution=res,
             mapping=m.MappingConfig(num_layers=2),
             synthesis=m.SynthesisConfig(
                 channel_base=1024, channel_max=32, conv_clamp=256,
@@ -271,8 +271,128 @@ def test_orig_styles_and_hooks_follow_jax():
     close(got, want)
 
 
-def test_resnet_generator_stays_refused():
-    _, tcfg = _cfgs(architecture="resnet")
-    with pytest.raises(NotImplementedError, match="'skip' and 'orig'"):
-        tsg.synthesis_apply(tcfg.synthesis, {}, torch.zeros(1, tcfg.num_ws,
-                                                            32))
+def _skip_keys(flat):
+    return sorted(k for k in flat if k.split(".")[-2] == "skip")
+
+
+def test_resnet_generator_matches_jax():
+    """architecture="resnet" at 32^2 from JAX's init crossed as numpy: the
+    same leaves (a 1x1 ``skip`` conv without bias in every block above
+    4x4), the forward and the gradients of sum(img * r) as the "orig"
+    test holds them, and the skip convs never read: zero gradients in
+    JAX, none in the port."""
+    jcfg, tcfg = _cfgs(architecture="resnet", res=32)
+    flat = {k: np.asarray(v) for k, v in jck.tree_to_flat(
+        jsg.init_generator(jax.random.PRNGKey(3), jcfg)).items()}
+    rng = np.random.RandomState(35)
+    for k, v in flat.items():
+        if k.endswith("noise_strength"):
+            flat[k] = np.float32(rng.uniform(0.05, 0.3))
+        elif k.endswith(".bias") and ".affine." not in k:
+            flat[k] = (rng.randn(*v.shape) * 0.1).astype(np.float32)
+    port = tck.tree_to_flat(tsg.init_generator(
+        tcfg, torch.Generator().manual_seed(0), "cpu"))
+    assert set(port) == set(flat)
+    assert set(tsg.Generator(tcfg, "cpu").load_flat(flat).state_dict()) == \
+        set(flat)
+    skips = _skip_keys(flat)
+    assert skips == [f"synthesis.b{r}.skip.weight" for r in (16, 32, 8)]
+    assert all(port[k].shape == flat[k].shape for k in skips)
+    ws = rng.randn(2, tcfg.num_ws, 32).astype(np.float32)
+    r = rng.randn(2, 3, 32, 32).astype(np.float32)
+    img, g_leaves, g_ws = _port_fwd_grads(tcfg, flat, ws, r)
+    want_img, want_leaves, want_ws = _jax_fwd_grads(jcfg, flat, ws, r)
+    np.testing.assert_allclose(img, want_img, rtol=0,
+                               atol=TOL * np.abs(want_img).max())
+    np.testing.assert_allclose(g_ws, want_ws, rtol=0,
+                               atol=GRAD_TOL * np.abs(want_ws).max())
+    for k, g in g_leaves.items():
+        want = np.asarray(want_leaves[k])
+        if "skip" in k:
+            assert g is None and not want.any(), k
+            continue
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=GRAD_TOL * max(np.abs(want).max(),
+                                                       1e-12), err_msg=k)
+    # The "orig" forward of the same leaves without the skip convs.
+    _, orig = _cfgs(architecture="orig", res=32)
+    params = tck.flat_to_tree({k: v for k, v in flat.items()
+                               if k not in skips})["synthesis"]
+    with torch.no_grad():
+        ref = tsg.synthesis_apply(orig.synthesis, params,
+                                  torch.from_numpy(ws))
+    np.testing.assert_array_equal(img, ref.numpy())
+
+
+@pytest.mark.parametrize("variant", ["none", "both"])
+def test_resnet_train_step_matches_jax(variant):
+    """One make_fused_step of a resnet G at 32^2 (D resnet) against JAX's
+    on the same weights and draws, at test_torch_train_step.py's
+    tolerances; the skip leaves leave the step, G_ema and Adam's moments
+    bit-unchanged in both packages (zero gradients through Adam and the
+    EMA lerp)."""
+    from gagan_tpu.train import gan_loss as jgl
+    from gagan_tpu.train import train_step as jts
+    from gagan_tpu_torch.train import gan_loss as tgl
+    from gagan_tpu_torch.train import train_step as tts
+
+    from .test_torch_augment import JaxRng
+    from .test_torch_train_step import _check_moves
+
+    jcfg, tcfg = _cfgs(architecture="resnet", res=32)
+    jd = jsg.DiscriminatorConfig(img_resolution=32, channel_base=512,
+                                 channel_max=32, mbstd_group_size=2)
+    td = tsg.DiscriminatorConfig(img_resolution=32, channel_base=512,
+                                 channel_max=32, mbstd_group_size=2)
+    gflat = {k: np.asarray(v) for k, v in jck.tree_to_flat(
+        jsg.init_generator(jax.random.PRNGKey(4), jcfg)).items()}
+    dflat = {k: np.asarray(v) for k, v in jck.tree_to_flat(
+        jsg.init_discriminator(jax.random.PRNGKey(5), jd)).items()}
+    rng = np.random.RandomState(36)
+    for k, v in gflat.items():
+        if k.endswith("noise_strength"):
+            gflat[k] = np.float32(rng.uniform(0.1, 0.3))
+    real = rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)
+    z = rng.randn(4, 32).astype(np.float32)
+    kw = dict(batch_size=4, g_lr=0.002, d_lr=0.002, ema_kimg=0.1)
+    do_g, do_d = variant == "both", variant == "both"
+    key = jax.random.PRNGKey(13)
+
+    jtc = jts.TrainConfig(**kw, loss=jgl.GANLossConfig(r1_gamma=0.5))
+    jgp, jdp = jck.flat_to_tree(gflat), jck.flat_to_tree(dflat)
+    g_tx, d_tx, _, _ = jts.build_optimizers(jtc, jgp, jdp)
+    jstate = jts.init_train_state(jtc, jgp, jdp, g_tx, d_tx)
+    jstate, jm = jax.jit(jts.make_fused_step(jtc, jcfg, jd, g_tx, d_tx,
+                                             do_g_reg=do_g, do_d_reg=do_d))(
+        jstate, jnp.asarray(real), None, jnp.asarray(z), None, key)
+
+    ttc = tts.TrainConfig(**kw, loss=tgl.GANLossConfig(r1_gamma=0.5))
+    tgp, tdp = tck.flat_to_tree(gflat), tck.flat_to_tree(dflat)
+    g_tx, d_tx, _, _ = tts.build_optimizers(ttc, tgp, tdp)
+    state = tts.init_train_state(ttc, tgp, tdp, g_tx, d_tx)
+    _, tm = tts.make_fused_step(ttc, tcfg, td, g_tx, d_tx, do_g_reg=do_g,
+                                do_d_reg=do_d)(
+        state, torch.from_numpy(real), None, torch.from_numpy(z), None,
+        JaxRng(key))
+
+    assert set(tm) == set(jm)
+    for k, v in jm.items():
+        np.testing.assert_allclose(tm[k].numpy(), np.asarray(v), rtol=1e-3,
+                                   atol=1e-3, err_msg=k)
+    got = {t: tck.tree_to_flat(getattr(state, t))
+           for t in ("g_params", "g_ema")}
+    want = {t: {k: np.asarray(v) for k, v in
+                jck.tree_to_flat(getattr(jstate, t)).items()}
+            for t in ("g_params", "g_ema")}
+    _check_moves("G", gflat, got["g_params"], want["g_params"], g_tx.lr)
+    _check_moves("D", dflat, tck.tree_to_flat(state.d_params),
+                 {k: np.asarray(v) for k, v in
+                  jck.tree_to_flat(jstate.d_params).items()}, d_tx.lr)
+    skips = _skip_keys(gflat)
+    assert len(skips) == 3
+    for k in skips:
+        for tree in ("g_params", "g_ema"):
+            np.testing.assert_array_equal(got[tree][k], gflat[k])
+            np.testing.assert_array_equal(want[tree][k], gflat[k])
+        assert not state.g_opt_state.mu[k].any()
+        assert not state.g_opt_state.nu[k].any()

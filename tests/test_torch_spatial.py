@@ -201,7 +201,28 @@ def runs():
                                           base_hooks=jbase if offs else None)
             jx[label] = np.asarray(fn(placed, jnp.asarray(ws)))
     return {"ranks": ranks, "one": one, "kinks": kinks,
-            "one_synth": one_synth, "one_d": one_d, "jax": jx}
+            "one_synth": one_synth, "one_d": one_d, "jax": jx,
+            "inputs": (jg, synth, (_port(jd), dflat, real32), case)}
+
+
+@pytest.fixture(scope="module")
+def runs3(runs):
+    """Three ranks, whose blocks differ in size and start on odd rows: the
+    synthesis at 32^2 (min_res 8), D and the step of ``runs`` in the
+    "none" and "both" variants, and the probes, in one spawn; JAX's
+    spatial_synthesis_fn on create_mesh(3)."""
+    jg, (tg, gflat, ws, _), d, case = runs["inputs"]
+    ranks = tmesh.spawn(
+        dryrun.spatial_rank, 3, devices="cpu", timeout=TIMEOUT,
+        limit=TIMEOUT,
+        args=(dryrun.SpatialCase(
+            synthesis=(tg, gflat, ws, [("plain", 8, None)]), d=d, step=case,
+            probes=True, variants=("none", "both")),))
+    mesh = create_mesh(3)
+    fn = jsp.spatial_synthesis_fn(jg, mesh, min_res=8)
+    jx = np.asarray(fn(place_state(mesh, jck.flat_to_tree(gflat)),
+                       jnp.asarray(ws)))
+    return {"ranks": ranks, "jax": jx}
 
 
 def _close(got, want, what):
@@ -214,9 +235,10 @@ def _close(got, want, what):
 # Without ranks
 
 
-def _fake_mesh(n):
-    """A rank-0 mesh of ``n`` ranks for the calls that run no collective."""
-    return tmesh.Mesh(n, 0, torch.device("cpu"), "gloo",
+def _fake_mesh(n, rank=0):
+    """Rank ``rank`` of a mesh of ``n`` ranks, for the calls that run no
+    collective."""
+    return tmesh.Mesh(n, rank, torch.device("cpu"), "gloo",
                       None if n == 1 else object())
 
 
@@ -263,20 +285,71 @@ def test_layout_survives_merge_hooks_in_either_order():
         _port(_configs(32)[0]).synthesis, _fake_mesh(1), min_res=16), None)
 
 
-@pytest.mark.parametrize("n,h,stride2,match", [
-    (2, 5, False, "does not split"), (4, 6, False, "does not split"),
-    (2, 6, True, "odd row"), (4, 8, True, None), (2, 6, False, None)])
-def test_uneven_and_odd_blocks_are_refused(n, h, stride2, match):
-    """A map that n does not split into equal row blocks, or whose blocks
-    would start on an odd row in front of a stride-2 op, raises a
-    ValueError naming n and the rows (XLA pads uneven shards)."""
+def _ops_on_windows(n, h):
+    """Three ops (a 3x3 conv, an up=2 and a stride-2 conv2d_resample) run
+    on every rank's window of a whole map of ``h`` rows and cropped to the
+    rank's block, the blocks stacked: the op on the whole map, if the
+    windows and offsets are right."""
+    from gagan_tpu_torch.ops.conv2d_resample import conv2d_resample
+    from gagan_tpu_torch.ops.upfirdn2d import setup_filter
+
+    gen = torch.Generator().manual_seed(h)
+    w = torch.randn((2, 2, 3, 3), generator=gen, dtype=torch.float64)
+    f = setup_filter([1, 3, 3, 1]).double()
+    ops = {"same": (1, h, dict()), "up": (1, 2 * h, dict(up=2, f=f)),
+           "down": (2, h // 2, dict(down=2, f=f))}
+    x = torch.randn((1, 2, h, 5), generator=gen, dtype=torch.float64)
+    for name, (k, out_h, kw) in ops.items():
+        if (name == "down" and h % 2) or out_h < n:
+            continue
+        want = conv2d_resample(x, w, padding=1, flip_weight=not kw.get("up"),
+                               **kw)
+        parts = []
+        for r in range(n):
+            layout = tsp.RowLayout(_fake_mesh(n, r))
+            xw, offset = layout.window(x, h, k, out_h)
+            y = conv2d_resample(xw, w, padding=1,
+                                flip_weight=not kw.get("up"), **kw)
+            parts.append(layout.crop(y, offset, out_h))
+        torch.testing.assert_close(torch.cat(parts, -2), want, rtol=0,
+                                   atol=1e-12, msg=f"{name} {n} {h}")
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6, 7])
+def test_row_layout_splits_any_map(n):
+    """Any number of ranks splits any map of at least as many rows (JAX
+    pads uneven shards): for h = 4-1024 the blocks cover the map once,
+    differ by a row at most, and above the floor of 2 rows a rank (the
+    levels below it stay replicated) each holds at least a stride-2 op's
+    halo of 2; each op's window and offset agree with the block of its
+    output level (an up=2 op's twice the rows, a stride-2 op's half), and
+    at h <= 40 the ops on the windows, cropped, are the ops on the whole
+    map.  A map of fewer rows than ranks raises, naming both."""
+    for h in range(4, 1025):
+        if h < n:
+            with pytest.raises(ValueError, match=f"{n} ranks: a {h}-row"):
+                tsp.row_blocks(h, n)
+            continue
+        blocks = tsp.row_blocks(h, n)
+        assert [s for s, _ in blocks] == [0] + [e for _, e in blocks[:-1]]
+        assert blocks[-1][1] == h
+        sizes = {e - s for s, e in blocks}
+        assert max(sizes) - min(sizes) <= 1 and min(sizes) >= 1
+        if h >= 2 * n:
+            assert min(sizes) >= 2
+        for k, out_h in ((1, h), (1, 2 * h), (2, h // 2), (0, h // 2)):
+            if out_h < n or (out_h == h // 2 and h % 2):
+                continue
+            for ((a, b), offset), (s, e) in zip(
+                    tsp.op_windows(h, out_h, k, n), tsp.row_blocks(out_h, n)):
+                assert (a * out_h) % h == 0 and a * out_h // h + offset == s
+                assert a <= (s * h) // out_h - k
+                assert b >= -(-e * h // out_h) + k
+        if h <= 40:
+            _ops_on_windows(n, h)
     layout = tsp.RowLayout(_fake_mesh(n))
-    if match is None:
-        assert layout.block(h, stride2) == (0, h // n)
-        return
-    with pytest.raises(ValueError, match=match) as e:
-        layout.block(h, stride2)
-    assert f"{n} ranks" in str(e.value) and f"{h}-row" in str(e.value)
+    with pytest.raises(ValueError, match="fewer rows than ranks"):
+        layout.block(n - 1)
 
 
 def test_world_of_one_is_the_plain_forward():
@@ -319,7 +392,7 @@ def test_spatial_synthesis_matches_jax_and_one_process(runs, label):
                "vs JAX")
 
 
-@pytest.mark.parametrize("pair", ["halo", "enter", "gather"])
+@pytest.mark.parametrize("pair", ["halo", "up", "down", "enter", "gather"])
 def test_exchange_is_adjoint_to_its_backward(runs, pair):
     """<A x, y> = <x, A^T y> in float64 over both ranks, A^T the autograd
     backward of the pair's forward Function."""
@@ -435,3 +508,68 @@ def test_spatial_step_matches_jax_spatial_step():
                 _close(got["state"][leaf], np.asarray(v), leaf)
         _close(got["state"]["pl_mean"], np.asarray(jstate.pl_mean),
                "pl_mean")
+
+
+# ----------------------------------------------------------------------------
+# Three ranks
+
+
+def test_three_ranks_synthesis_matches_jax_and_one_process(runs, runs3):
+    """Blocks of 11, 11 and 10 rows at 32^2 (3, 3 and 2 at 8^2): the
+    gathered image is the one-process forward's, the ranks' bit-equal, and
+    within 1e-5 of JAX's spatial_synthesis_fn on create_mesh(3)."""
+    imgs = []
+    for r, out in enumerate(runs3["ranks"]):
+        img, block = out["synthesis"]["plain"]
+        assert block == (2, 3, (11, 11, 10)[r], SYNTH_RES)
+        _close(img, runs["one_synth"]["plain"], f"rank {r} vs one process")
+        imgs.append(img)
+    np.testing.assert_array_equal(imgs[0], imgs[1])
+    np.testing.assert_array_equal(imgs[0], imgs[2])
+    assert np.abs(imgs[0] - runs3["jax"]).max() <= 1e-5
+
+
+@pytest.mark.parametrize("pair", ["halo", "up", "down", "enter", "gather"])
+def test_three_ranks_exchange_is_adjoint_and_differentiable(runs3, pair):
+    for out in runs3["ranks"]:
+        assert out["probes"]["adjoint"][pair] < 1e-12
+        if pair in out["probes"]["gradcheck"]:
+            assert out["probes"]["gradcheck"][pair] == (True, True)
+
+
+@pytest.mark.parametrize("what", ["logits", "r1", "grads"])
+def test_three_ranks_d_matches_d_without_it(runs, runs3, what):
+    """D at 32^2 with the packed first block (packed-grid blocks of 6, 5
+    and 5 rows) over three ranks against D in one process."""
+    want = runs["one_d"][what]
+    got = [out["d"][what] for out in runs3["ranks"]]
+    if what == "grads":
+        for k, v in want.items():
+            _close(got[0][k], v, k)
+            for other in got[1:]:
+                np.testing.assert_array_equal(got[0][k], other[k])
+        return
+    _close(got[0], want, what)
+    for other in got[1:]:
+        np.testing.assert_array_equal(got[0], other)
+
+
+@pytest.mark.parametrize("variant", ["none", "both"])
+def test_three_ranks_step_matches_one_process_step(runs, runs3, variant):
+    """The fp32 step at 16^2 over three ranks (G's 8^2 and 16^2 levels and
+    D's 16- and 8-row inputs on rows) against the one-process step on
+    every leaf and metric, the ranks bit-equal."""
+    states = [r["step"][variant]["state"] for r in runs3["ranks"]]
+    got, want = runs3["ranks"][0]["step"][variant], runs["one"][variant]
+    for k, v in want["metrics"].items():
+        _close(got["metrics"][k], v, k)
+    assert set(got["state"]) == set(want["state"])
+    for k, v in want["state"].items():
+        if isinstance(v, torch.Tensor):
+            _close(got["state"][k], v, k)
+            for other in states[1:]:
+                assert torch.equal(other[k], got["state"][k]), k
+        else:
+            assert got["state"][k] == v, k
+    stats = runs3["ranks"][0]["stats"]
+    assert stats["halo"] > 0 and stats["enter"] > 0 and stats["gather"] > 0
