@@ -1,0 +1,1 @@
+"""Frozen copy (see the package docstring)."""
