@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.resize import resize2d
 from ..utils.checkpoint import tree_to_device
+from ..utils.observability import traced
 
 Params = Dict[str, Any]
 
@@ -140,6 +141,7 @@ def _mean_std(device: torch.device, dtype: torch.dtype):
         None, :, None, None] for v in (IMAGE_MEAN, IMAGE_STD))
 
 
+@traced("clip.encode_image", device=True)
 def encode_image(cfg: CLIPConfig, params: Params, images: torch.Tensor,
                  normalize: bool = True, preprocess: bool = True,
                  return_hidden: Sequence[int] = (),

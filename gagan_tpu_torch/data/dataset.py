@@ -23,6 +23,7 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.observability import trace_scope
 from ..utils.png import SIGNATURE as PNG_SIGNATURE, read_png
 
 # Pillow's registered extensions (``PIL.Image.init(); PIL.Image.EXTENSION``),
@@ -326,8 +327,11 @@ def data_loader(
     def producer():
         try:
             while not stop.is_set():
-                batch = make_batch()
-                put(to_device(batch) if to_device is not None else batch)
+                with trace_scope("loader.read_batch"):
+                    batch = make_batch()
+                    if to_device is not None:
+                        batch = to_device(batch)
+                put(batch)
         except Exception as e:               # hand the failure to the reader
             put(e)
 

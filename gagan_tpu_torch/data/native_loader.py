@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from ..utils.observability import trace_scope
 from .dataset import IMAGE_EXTENSIONS, InfiniteSampler
 
 _lib = None
@@ -227,11 +228,14 @@ def native_data_loader(dataset: NativeZipDataset, batch_size: int,
     def producer():
         try:
             while not stop.is_set():
-                idxs = [next(sampler) for _ in range(batch_size)]
-                if rows is not None:
-                    idxs = [idxs[i] for i in rows]
-                batch = dataset.read_batch(idxs)
-                put(to_device(batch) if to_device is not None else batch)
+                with trace_scope("loader.read_batch"):
+                    idxs = [next(sampler) for _ in range(batch_size)]
+                    if rows is not None:
+                        idxs = [idxs[i] for i in rows]
+                    batch = dataset.read_batch(idxs)
+                    if to_device is not None:
+                        batch = to_device(batch)
+                put(batch)
         except Exception as e:               # hand the failure to the reader
             put(e)
 

@@ -28,6 +28,7 @@ import torch
 
 from ..models import stylegan2 as sg2
 from ..parallel.mesh import share_rows
+from ..utils.observability import trace_scope
 from .crossover_mutation import dynamic_mutation, gaussian_crossover
 
 Params = Dict
@@ -81,14 +82,14 @@ class GASearchConfig:
 def render(g_cfg, g_params, z, psi, hooks) -> torch.Tensor:
     """The candidates' images in [0, 255] (float), const noise; a profiler
     range "ga_render"."""
-    with torch.profiler.record_function("ga_render"):
+    with trace_scope("ga_render"):
         img = sg2.generator_apply(g_cfg, g_params, z, truncation_psi=psi,
                                   noise_mode="const", hooks=hooks)
         return torch.clamp(img * 127.5 + 128, 0, 255)
 
 
 def _fitness(fitness_fn, images):
-    with torch.profiler.record_function("ga_fitness"):
+    with trace_scope("ga_fitness"):
         return fitness_fn(images)
 
 

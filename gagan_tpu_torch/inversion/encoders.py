@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.resize import resize2d
+from ..utils.observability import trace_scope
 
 Params = Dict[str, Any]
 
@@ -78,7 +79,7 @@ def backbone_features(params: Params, x: torch.Tensor,
     """[N, 3, H, W] in [-1, 1] -> {"c1", "c2", "c3"} feature maps (and
     "final", the last unit's output, with ``want_final``)."""
     # Named for profiler traces.
-    with torch.profiler.record_function("e4e_backbone"):
+    with trace_scope("e4e_backbone"):
         il = params["input_layer"]
         x = _conv(x, il["0"]["weight"], padding=1)
         x = F.prelu(_bn(il["1"], x), il["2"]["weight"])

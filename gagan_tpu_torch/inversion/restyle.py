@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from .. import resolve_device
 from ..models import stylegan2 as sg2
 from ..utils import checkpoint as ckpt_lib
+from ..utils.observability import trace_scope
 from . import encoders as enc
 
 Params = Dict
@@ -77,7 +78,7 @@ def resnet34_features(params: Params, x: torch.Tensor,
     """conv1 (7x7, stride 2), bn, the PReLU stored as ``relu``, then the 16
     blocks.  Returns {"final"} and, with ``want_taps``, {"c1", "c2",
     "c3"}."""
-    with torch.profiler.record_function("restyle_backbone"):
+    with trace_scope("restyle_backbone"):
         x = enc._conv(x, params["conv1"]["weight"], stride=2, padding=3)
         x = F.prelu(enc._bn(params["bn1"], x), params["relu"]["weight"])
         feats = {}

@@ -45,6 +45,7 @@ from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
 from ..ops.modulated_conv2d import demod_coefs, modulated_conv2d
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..utils.observability import trace_scope, traced
 from ..utils.rng import Rng, name_fold
 
 Params = Dict[str, Any]
@@ -400,6 +401,7 @@ def normalize_2nd_moment(x: torch.Tensor, dim: int = 1,
     return x * torch.rsqrt(x.square().mean(dim=dim, keepdim=True) + eps)
 
 
+@traced("G.mapping")
 def mapping_apply(cfg: MappingConfig, params: Params, z: Optional[torch.Tensor],
                   c: Optional[torch.Tensor] = None, truncation_psi: float = 1.0,
                   truncation_cutoff: Optional[int] = None,
@@ -690,6 +692,7 @@ def _remat(fn, *args):
         fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
+@traced("G.synthesis")
 def synthesis_apply(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
                     noise_mode: str = "const",
                     generator: "Optional[torch.Generator | Rng]" = None,
@@ -802,12 +805,13 @@ def generator_apply(cfg: GeneratorConfig, params: Params, z: torch.Tensor,
                     force_fp32: bool = False,
                     hooks: Optional[LayerHooks] = None) -> torch.Tensor:
     """z [N, z_dim] -> img [N, img_channels, R, R] in float32."""
-    ws = mapping_apply(cfg.mapping, params["mapping"], z, c,
-                       truncation_psi=truncation_psi,
-                       truncation_cutoff=truncation_cutoff)
-    return synthesis_apply(cfg.synthesis, params["synthesis"], ws,
-                           noise_mode=noise_mode, generator=generator,
-                           force_fp32=force_fp32, hooks=hooks)
+    with trace_scope("G.apply", device=True):
+        ws = mapping_apply(cfg.mapping, params["mapping"], z, c,
+                           truncation_psi=truncation_psi,
+                           truncation_cutoff=truncation_cutoff)
+        return synthesis_apply(cfg.synthesis, params["synthesis"], ws,
+                               noise_mode=noise_mode, generator=generator,
+                               force_fp32=force_fp32, hooks=hooks)
 
 
 def generator_styles(cfg: SynthesisConfig, params: Params, ws: torch.Tensor,
@@ -1036,6 +1040,7 @@ def _d_block_rows(cfg: DiscriminatorConfig, lay, block: Params, x, img,
     return x, img
 
 
+@traced("D.apply")
 def discriminator_apply(cfg: DiscriminatorConfig, params: Params,
                         img: torch.Tensor, c: Optional[torch.Tensor] = None,
                         force_fp32: bool = False,

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from ..utils.observability import trace_scope
 from .modulated_conv2d import demod_coefs
 
 LRELU_SLOPE = 0.2
@@ -262,7 +263,7 @@ class _FusedModconv3x3(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         # Named for profiler traces (the backward's kernels are stock ones).
-        with torch.profiler.record_function("fused_modconv3x3_bwd"):
+        with trace_scope("fused_modconv3x3_bwd"):
             grads = fused_modconv3x3_bwd(*ctx.saved_tensors, g, *ctx.consts,
                                          needs=ctx.needs_input_grad[:6])
         return grads + (None, None, None)

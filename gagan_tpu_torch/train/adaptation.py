@@ -55,6 +55,7 @@ from ..ops.resize import resize2d
 from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils.config import to_dict
+from ..utils.observability import trace_scope
 from . import adapt_losses as al
 from . import auto_layers
 from .train_step import Adam
@@ -102,7 +103,9 @@ class AdaptationConfig:
 
 def _to_host(losses: Dict[str, torch.Tensor]) -> Dict[str, float]:
     """The losses as floats, in one device-to-host copy."""
-    values = torch.stack([v.float() for v in losses.values()]).tolist()
+    values = torch.stack([v.float() for v in losses.values()])
+    with trace_scope("host_read.adapt_losses"):
+        values = values.tolist()
     return dict(zip(losses, values))
 
 
@@ -326,7 +329,7 @@ class AdaptationTrainer:
         """Flat e4e latents [N, style_count * 512] of images for the SCC
         loss."""
         # Named for profiler traces.
-        with torch.profiler.record_function("e4e"):
+        with trace_scope("e4e"):
             x = resize2d(images.float(), (E4E_SIZE, E4E_SIZE), "bilinear")
             ws = enc_lib.e4e_encode(self._latent_cfg, self._latent_params, x)
         return ws.reshape(ws.shape[0], -1)
@@ -418,16 +421,23 @@ class AdaptationTrainer:
         for t in leaves.values():
             t.requires_grad_(True)
         try:
-            losses, scc_state = self.losses(self.offsets, key, self.scc_state,
-                                            self.current_step)
-            grads = torch.autograd.grad(losses["total"], list(leaves.values()),
-                                        allow_unused=True)
+            with trace_scope("adapt.losses"):
+                losses, scc_state = self.losses(self.offsets, key,
+                                                self.scc_state,
+                                                self.current_step)
+            with trace_scope("adapt.grad"):
+                grads = torch.autograd.grad(losses["total"],
+                                            list(leaves.values()),
+                                            allow_unused=True)
         finally:
             for t in leaves.values():
                 t.requires_grad_(False)
         grads = {k: g if g is not None else torch.zeros_like(t)
                  for (k, t), g in zip(leaves.items(), grads)}
-        return {k: v.detach() for k, v in losses.items()}, grads, scc_state
+        # Freeing the step's autograd graph is host time of its own.
+        with trace_scope("adapt.free_graph"):
+            losses = {k: v.detach() for k, v in losses.items()}
+        return losses, grads, scc_state
 
     def loss_and_grads(self, key):
         """(losses, {dotted key: gradient}) at the current offsets, for the
@@ -457,24 +467,27 @@ class AdaptationTrainer:
 
     def train_step_async(self) -> Dict[str, torch.Tensor]:
         """One adaptation step; the losses stay on the device."""
-        cfg = self.cfg
-        self.rng, k_step, k_auto = self.rng.split(3)
-        losses, grads, self.scc_state = self._loss_and_grads(k_step)
-        if cfg.auto_layer_iters > 0:
-            mask = self._auto_layer_mask(k_auto)
-            grads = {k: g * mask[k] for k, g in grads.items()}
-        if cfg.weight_decay:
-            leaves = self.tx.trainable(self.offsets)
-            grads = {k: g + cfg.weight_decay * leaves[k]
-                     for k, g in grads.items()}
-        lr = cfg.lr
-        if cfg.lr_warmup_steps > 0:
-            lr = cfg.lr * min(self.opt_state.count, cfg.lr_warmup_steps) \
-                / cfg.lr_warmup_steps
-        dataclasses.replace(self.tx, lr=lr).update_(grads, self.opt_state,
-                                                    self.offsets)
-        self.current_step += 1
-        return losses
+        with trace_scope("adapt.step", device=True):
+            cfg = self.cfg
+            self.rng, k_step, k_auto = self.rng.split(3)
+            losses, grads, self.scc_state = self._loss_and_grads(k_step)
+            with trace_scope("adapt.update"):
+                if cfg.auto_layer_iters > 0:
+                    mask = self._auto_layer_mask(k_auto)
+                    grads = {k: g * mask[k] for k, g in grads.items()}
+                if cfg.weight_decay:
+                    leaves = self.tx.trainable(self.offsets)
+                    grads = {k: g + cfg.weight_decay * leaves[k]
+                             for k, g in grads.items()}
+                lr = cfg.lr
+                if cfg.lr_warmup_steps > 0:
+                    lr = cfg.lr * min(self.opt_state.count,
+                                      cfg.lr_warmup_steps) \
+                        / cfg.lr_warmup_steps
+                dataclasses.replace(self.tx, lr=lr).update_(
+                    grads, self.opt_state, self.offsets)
+            self.current_step += 1
+            return losses
 
     def train_step(self) -> Dict[str, float]:
         return _to_host(self.train_step_async())

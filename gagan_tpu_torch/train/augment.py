@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
+from ..utils.observability import trace_scope
 from .warp import affine_warp
 
 # Wavelet low-pass coefficients.
@@ -394,7 +395,9 @@ def augment_pipe(cfg: AugmentConfig, images: torch.Tensor, p, key,
             margin = mesh.gather(margin[None], [mesh.rank],
                                  mesh.world_size).amax(dim=0)
         # The data-dependent margin becomes the pad width: one host read.
-        mx0, my0, mx1, my1 = (int(v) for v in np.ceil(margin.cpu().numpy()))
+        with trace_scope("host_read.margin"):
+            margin = margin.cpu().numpy()
+        mx0, my0, mx1, my1 = (int(v) for v in np.ceil(margin))
         images = F.pad(images, (mx0, mx1, my0, my1), mode="reflect")
         g_inv = translate2d((mx0 - mx1) / 2, (my0 - my1) / 2, (), dev) @ g_inv
 
@@ -540,6 +543,7 @@ def make_augment_fn(cfg: AugmentConfig):
         cfg = dataclasses.replace(cfg, geom_mode="fast")
 
     def fn(images, p, key):
-        return augment_pipe(cfg, images, p, key)
+        with trace_scope("augment", device=True):
+            return augment_pipe(cfg, images, p, key)
 
     return fn

@@ -54,6 +54,7 @@ from ..parallel import spatial as spatial_lib
 from ..params import offsets as offs_lib
 from ..utils import checkpoint as ckpt
 from ..utils import config as config_lib
+from ..utils.observability import trace_scope
 from ..utils.png import write_png
 from ..utils.rng import Rng
 from ..utils.stats import Collector, StatsLogger
@@ -268,9 +269,10 @@ def training_loop(
     done = False
 
     while not done:
-        images, labels = next(loader)
-        images, labels = (torch.as_tensor(a).to(device, non_blocking=True)
-                          for a in (images, labels))
+        with trace_scope("loop.next_batch"):
+            images, labels = next(loader)
+            images, labels = (torch.as_tensor(a).to(device, non_blocking=True)
+                              for a in (images, labels))
         real = images.to(torch.float32) / 127.5 - 1.0
         real_c = labels if labels.shape[1] > 0 else None
         gen_c = real_c
@@ -283,8 +285,9 @@ def training_loop(
                     and batch_idx % train_cfg.g_reg_interval == 0)
         do_d_reg = (train_cfg.d_reg_interval is not None
                     and batch_idx % train_cfg.d_reg_interval == 0)
-        state, metrics = steps[(do_g_reg, do_d_reg)](
-            state, real, real_c, z, gen_c, k_step)
+        with trace_scope("loop.step", device=True):
+            state, metrics = steps[(do_g_reg, do_d_reg)](
+                state, real, real_c, z, gen_c, k_step)
         collector.report_dict(metrics)
         batch_idx += 1
         cur_nimg = int(state.cur_nimg)
@@ -292,7 +295,9 @@ def training_loop(
         # ADA heuristic.
         if (train_cfg.ada_target is not None
                 and batch_idx % train_cfg.ada_interval == 0):
-            new_p = ts.ada_update(train_cfg, float(state.ada_p),
+            with trace_scope("host_read.ada_p"):
+                ada_p = float(state.ada_p)
+            new_p = ts.ada_update(train_cfg, ada_p,
                                   collector.mean("Loss/signs/real"))
             state.ada_p = torch.tensor(new_p, dtype=torch.float32,
                                        device=device)
@@ -303,75 +308,83 @@ def training_loop(
             continue
 
         # ---- Tick maintenance ----
-        tick_end_time = time.time()
-        sec_per_kimg = ((tick_end_time - tick_start_time)
-                        / max(cur_nimg - tick_start_nimg, 1) * 1000)
-        fields = [
-            f"tick {cur_tick:<5d}",
-            f"kimg {cur_nimg / 1e3:<8.1f}",
-            f"sec/tick {tick_end_time - tick_start_time:<7.1f}",
-            f"sec/kimg {sec_per_kimg:<7.2f}",
-            f"augment {float(state.ada_p):.3f}",
-            f"G_loss {collector.mean('Loss/G/loss'):.3f}",
-            f"D_loss {collector.mean('Loss/D/loss'):.3f}",
-        ]
-        if lead:
-            print(" ".join(fields), flush=True)
-            logger.write(collector, step=cur_nimg, extra={
-                "Progress/tick": cur_tick,
-                "Progress/kimg": cur_nimg / 1e3,
-                "Progress/augment": float(state.ada_p),
-                "Timing/sec_per_kimg": sec_per_kimg,
-                "Timing/total_sec": tick_end_time - start_time,
-            })
-            if loop_cfg.log_param_histograms:
-                logger.log_histograms({"G": state.g_params,
-                                       "D": state.d_params}, step=cur_nimg)
-        collector.reset()
+        with trace_scope("loop.tick"):
+            tick_end_time = time.time()
+            with trace_scope("host_read.ada_p"):
+                ada_p = float(state.ada_p)
+            sec_per_kimg = ((tick_end_time - tick_start_time)
+                            / max(cur_nimg - tick_start_nimg, 1) * 1000)
+            fields = [
+                f"tick {cur_tick:<5d}",
+                f"kimg {cur_nimg / 1e3:<8.1f}",
+                f"sec/tick {tick_end_time - tick_start_time:<7.1f}",
+                f"sec/kimg {sec_per_kimg:<7.2f}",
+                f"augment {ada_p:.3f}",
+                f"G_loss {collector.mean('Loss/G/loss'):.3f}",
+                f"D_loss {collector.mean('Loss/D/loss'):.3f}",
+            ]
+            if lead:
+                print(" ".join(fields), flush=True)
+                logger.write(collector, step=cur_nimg, extra={
+                    "Progress/tick": cur_tick,
+                    "Progress/kimg": cur_nimg / 1e3,
+                    "Progress/augment": ada_p,
+                    "Timing/sec_per_kimg": sec_per_kimg,
+                    "Timing/total_sec": tick_end_time - start_time,
+                })
+                if loop_cfg.log_param_histograms:
+                    logger.log_histograms({"G": state.g_params,
+                                           "D": state.d_params}, step=cur_nimg)
+            collector.reset()
 
-        if loop_cfg.abort_fn is not None:
-            abort = torch.tensor(
-                [float(lead and bool(loop_cfg.abort_fn()))], device=device)
-            done = done or bool(mesh.broadcast_(abort).item())
-        if lead and loop_cfg.progress_fn is not None:
-            loop_cfg.progress_fn(cur_nimg // 1000, loop_cfg.total_kimg)
+            if loop_cfg.abort_fn is not None:
+                abort = torch.tensor(
+                    [float(lead and bool(loop_cfg.abort_fn()))], device=device)
+                if not done:
+                    with trace_scope("host_read.abort"):
+                        done = bool(mesh.broadcast_(abort).item())
+            if lead and loop_cfg.progress_fn is not None:
+                loop_cfg.progress_fn(cur_nimg // 1000, loop_cfg.total_kimg)
 
-        if (lead and loop_cfg.image_snapshot_ticks is not None
-                and (done or cur_tick % loop_cfg.image_snapshot_ticks == 0)):
-            imgs = ema_synthesize(state.g_ema, grid_z).cpu().numpy()
-            save_image_grid(
-                imgs, os.path.join(run_dir, f"fakes{cur_nimg // 1000:06d}.png"),
-                drange=[-1, 1], grid_size=loop_cfg.grid_size)
+            image_ticks = loop_cfg.image_snapshot_ticks
+            if (lead and image_ticks is not None
+                    and (done or cur_tick % image_ticks == 0)):
+                imgs = ema_synthesize(state.g_ema, grid_z).cpu().numpy()
+                save_image_grid(
+                    imgs, os.path.join(run_dir,
+                                       f"fakes{cur_nimg // 1000:06d}.png"),
+                    drange=[-1, 1], grid_size=loop_cfg.grid_size)
 
-        if (loop_cfg.network_snapshot_ticks is not None
-                and (done or cur_tick % loop_cfg.network_snapshot_ticks == 0)):
-            mesh_lib.check_replica_consistency(state, "train state", mesh)
-        if (lead and loop_cfg.network_snapshot_ticks is not None
-                and (done or cur_tick % loop_cfg.network_snapshot_ticks == 0)):
-            snap_path = os.path.join(
-                run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.npz")
-            ckpt.save_snapshot(
-                snap_path, g_params=state.g_params, d_params=state.d_params,
-                g_ema=state.g_ema,
-                config={"g_cfg": config_lib.to_dict(g_cfg),
-                        "d_cfg": config_lib.to_dict(d_cfg)},
-                extra={"pl_mean": state.pl_mean, "ada_p": state.ada_p,
-                       "cur_nimg": np.asarray(state.cur_nimg, np.int32)})
-            if offsets_spec is not None:
-                ckpt.save_adaptation(
-                    os.path.join(run_dir,
-                                 f"adaptation-{cur_nimg // 1000:06d}.npz"),
-                    model_type="parametrization",
-                    parametrization=parametrization,
-                    offsets=state.offsets_ema,
-                    sg2_config=config_lib.to_dict(g_cfg))
-            if loop_cfg.metrics_fn is not None:
-                loop_cfg.metrics_fn(state.g_ema, g_cfg, snapshot=snap_path)
-        mesh.barrier()
+            network_ticks = loop_cfg.network_snapshot_ticks
+            snapshot = (network_ticks is not None
+                        and (done or cur_tick % network_ticks == 0))
+            if snapshot:
+                mesh_lib.check_replica_consistency(state, "train state", mesh)
+            if lead and snapshot:
+                snap_path = os.path.join(
+                    run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.npz")
+                ckpt.save_snapshot(
+                    snap_path, g_params=state.g_params,
+                    d_params=state.d_params, g_ema=state.g_ema,
+                    config={"g_cfg": config_lib.to_dict(g_cfg),
+                            "d_cfg": config_lib.to_dict(d_cfg)},
+                    extra={"pl_mean": state.pl_mean, "ada_p": state.ada_p,
+                           "cur_nimg": np.asarray(state.cur_nimg, np.int32)})
+                if offsets_spec is not None:
+                    ckpt.save_adaptation(
+                        os.path.join(run_dir,
+                                     f"adaptation-{cur_nimg // 1000:06d}.npz"),
+                        model_type="parametrization",
+                        parametrization=parametrization,
+                        offsets=state.offsets_ema,
+                        sg2_config=config_lib.to_dict(g_cfg))
+                if loop_cfg.metrics_fn is not None:
+                    loop_cfg.metrics_fn(state.g_ema, g_cfg, snapshot=snap_path)
+            mesh.barrier()
 
-        cur_tick += 1
-        tick_start_nimg = cur_nimg
-        tick_start_time = time.time()
+            cur_tick += 1
+            tick_start_nimg = cur_nimg
+            tick_start_time = time.time()
 
     loader.close()
     if logger is not None:

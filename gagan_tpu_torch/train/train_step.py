@@ -55,6 +55,7 @@ from ..parallel import mesh as mesh_lib
 from ..parallel import spatial as spatial_lib
 from ..params import offsets as offs_lib
 from ..utils.checkpoint import tree_to_flat_tensors
+from ..utils.observability import trace_scope
 from . import gan_loss, masks as masks_lib
 
 Params = Dict[str, Any]
@@ -243,13 +244,17 @@ def _accum(run_round: Callable, rounds: int, key,
     try:
         for r in range(max(rounds, 1)):
             loss, metrics = run_round(r, key if rounds <= 1 else key.fold_in(r))
-            loss.backward()
-            del loss
+            with trace_scope("step.backward"):
+                loss.backward()
+            # Freeing the round's autograd graph is host time of its own.
+            with trace_scope("step.free_graph"):
+                del loss
             for k, v in metrics.items():
                 acc[k] = v if k not in acc else acc[k] + v
         n = float(max(rounds, 1))
-        grads = {k: (t.grad / n if t.grad is not None
-                     else torch.zeros_like(t)) for k, t in leaves.items()}
+        with trace_scope("step.grads"):
+            grads = {k: (t.grad / n if t.grad is not None
+                         else torch.zeros_like(t)) for k, t in leaves.items()}
     finally:
         for t in leaves.values():
             t.grad = None
@@ -437,8 +442,11 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
 
         metrics, grads = _accum(run_round, main_rounds, key, g_leaves(state),
                                 mesh)
-        g_update_(state, _scrub(grads))
-        _update_w_avg(g_cfg, state.g_params, metrics)
+        with trace_scope("step.update"):
+            g_update_(state, _scrub(grads))
+            _update_w_avg(g_cfg, state.g_params, metrics)
+            # Freed inside the span: releasing the gradients is host time.
+            del grads
         return state, metrics
 
     def g_reg_step(state: TrainState, z, c, key, mesh=None):
@@ -462,7 +470,9 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
 
         metrics, grads = _accum(run_round, g_reg_rounds, key, g_leaves(state),
                                 mesh)
-        g_update_(state, _scrub(grads))
+        with trace_scope("step.update"):
+            g_update_(state, _scrub(grads))
+            del grads
         state.pl_mean = metrics.pop("aux/pl_mean")
         return state, metrics
 
@@ -487,11 +497,13 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 d_constraint=d_constraint)
 
         metrics, grads = _accum(run_round, main_rounds, key, leaves, mesh)
-        grads = _scrub(grads)
-        g_update_(state, grads)
-        d_tx.update_(_unprefixed("D/", grads), state.d_opt_state,
-                     state.d_params)
-        _update_w_avg(g_cfg, state.g_params, metrics)
+        with trace_scope("step.update"):
+            grads = _scrub(grads)
+            g_update_(state, grads)
+            d_tx.update_(_unprefixed("D/", grads), state.d_opt_state,
+                         state.d_params)
+            _update_w_avg(g_cfg, state.g_params, metrics)
+            del grads
         return state, metrics
 
     def d_main_step(state: TrainState, real_img, real_c, z, gen_c, key,
@@ -513,7 +525,9 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
                 d_constraint=d_constraint)
 
         metrics, grads = _accum(run_round, main_rounds, key, leaves, mesh)
-        d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
+        with trace_scope("step.update"):
+            d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
+            del grads
         return state, metrics
 
     def d_reg_step(state: TrainState, real_img, real_c, key, mesh=None):
@@ -532,7 +546,9 @@ def make_phase_steps(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
             return loss * gain, metrics
 
         metrics, grads = _accum(run_round, d_reg_rounds, key, leaves, mesh)
-        d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
+        with trace_scope("step.update"):
+            d_tx.update_(_scrub(grads), state.d_opt_state, state.d_params)
+            del grads
         return state, metrics
 
     return g_main_step, g_reg_step, d_main_step, d_reg_step, gd_main_step
@@ -574,28 +590,35 @@ def make_fused_step(cfg: TrainConfig, g_cfg: sg2.GeneratorConfig,
         keys = key.split(4)
         metrics: Dict[str, torch.Tensor] = {}
         if cfg.simultaneous_main:
-            state, m = gd_main(state, real_img, real_c, z, gen_c, keys[0],
-                               mesh)
+            with trace_scope("step.gd_main", device=True):
+                state, m = gd_main(state, real_img, real_c, z, gen_c, keys[0],
+                                   mesh)
             metrics.update(m)
             if do_g_reg and cfg.g_reg_interval is not None:
-                state, m = g_reg(state, z, gen_c, keys[1], mesh)
+                with trace_scope("step.g_reg", device=True):
+                    state, m = g_reg(state, z, gen_c, keys[1], mesh)
                 metrics.update(m)
         else:
-            state, m = g_main(state, z, gen_c, keys[0], mesh)
+            with trace_scope("step.g_main", device=True):
+                state, m = g_main(state, z, gen_c, keys[0], mesh)
             metrics.update(m)
             if do_g_reg and cfg.g_reg_interval is not None:
-                state, m = g_reg(state, z, gen_c, keys[1], mesh)
+                with trace_scope("step.g_reg", device=True):
+                    state, m = g_reg(state, z, gen_c, keys[1], mesh)
                 metrics.update(m)
-            state, m = d_main(state, real_img, real_c, z, gen_c, keys[2],
-                              mesh)
+            with trace_scope("step.d_main", device=True):
+                state, m = d_main(state, real_img, real_c, z, gen_c, keys[2],
+                                  mesh)
             metrics.update(m)
         if do_d_reg and cfg.d_reg_interval is not None:
-            state, m = d_reg(state, real_img, real_c, keys[3], mesh)
+            with trace_scope("step.d_reg", device=True):
+                state, m = d_reg(state, real_img, real_c, keys[3], mesh)
             metrics.update(m)
         state.cur_nimg += cfg.batch_size
-        ema_update(state.g_params, state.g_ema, state.cur_nimg, cfg)
-        if state.offsets is not None and state.offsets_ema is not None:
-            _offsets_ema_update(state, cfg)
+        with trace_scope("step.ema"):
+            ema_update(state.g_params, state.g_ema, state.cur_nimg, cfg)
+            if state.offsets is not None and state.offsets_ema is not None:
+                _offsets_ema_update(state, cfg)
         return state, metrics
 
     return step

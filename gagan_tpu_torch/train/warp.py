@@ -36,6 +36,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.observability import trace_scope
+
 
 def _pixel_affine_from_theta(theta: torch.Tensor, in_h: int, in_w: int,
                              out_h: int, out_w: int):
@@ -174,7 +176,9 @@ def _half_widths(coef_x, coef_y, antialias: bool, eps: float = 1e-3):
     sign = torch.where(axx >= 0, 1.0, -1.0)
     axx_safe = torch.where(torch.abs(axx) < eps, sign * eps, axx)
     p = ayy - ayx / axx_safe * axy
-    hw = torch.stack([torch.abs(p).amax(), torch.abs(axx).amax()]).tolist()
+    hw = torch.stack([torch.abs(p).amax(), torch.abs(axx).amax()])
+    with trace_scope("host_read.warp"):
+        hw = hw.tolist()
     return tuple(max(1, math.ceil(v)) for v in hw)
 
 

@@ -1,14 +1,17 @@
 """Tracing, profiling, and consistency checks (port of
-gagan_tpu/utils/observability.py): shape assertions, named profiler spans,
-a profiler session with a TensorBoard trace handler, phase timing that
-synchronises the card, parameter fingerprints and summaries, a NaN guard and
-a cross-process consistency check."""
+gagan_tpu/utils/observability.py): shape assertions, the port's span
+recorder (``trace_scope``, read by ``span_totals``), a profiler session with
+a TensorBoard trace handler, parameter fingerprints and summaries, a NaN
+guard and a cross-process consistency check."""
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import functools
+import threading
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,19 +31,151 @@ def assert_shape(x, ref_shape) -> None:
                 f"Wrong size for dimension {i}: got {size}, expected {ref}")
 
 
-@contextlib.contextmanager
-def trace_scope(name: str):
-    """Named profiler span."""
-    with torch.profiler.record_function(name):
-        yield
+# ----------------------------------------------------------------------------
+# Spans
+#
+# The port's one span recorder.  A span records only while a torch profiler
+# is recording (or while ``recording(True)`` holds); otherwise entering and
+# leaving it reads two flags and does nothing else.  A recorded span is a
+# named host range in the profiler's trace (one CPU event, on the clock of
+# the kernels) and one record in memory: its name, the enclosing recorded
+# span on its thread, its host start and end, and with ``device`` a pair of
+# CUDA events on the current stream, read only when totals are asked for.
+# The profiler range is a function-scope record, not a ``record_function``
+# user annotation: the profiler copies a user annotation onto the device
+# timeline as a range over its kernels, and a trace reader that takes every
+# device event for a kernel would count each span's range as busy time.
+
+_PROFILER = torch.autograd.profiler     # ``_is_profiler_enabled``: a bool
+_HostRange = torch._C._profiler._RecordFunctionFast
+
+_forced = False
+_records: List["SpanRecord"] = []
+_local = threading.local()
+
+
+def recording(on: bool) -> bool:
+    """Record spans without a profiler while ``on`` (tests, and measuring
+    the spans' own cost); returns the previous setting."""
+    global _forced
+    was, _forced = _forced, bool(on)
+    return was
+
+
+@dataclasses.dataclass
+class SpanRecord:
+    name: str
+    parent: Optional[str]           # the enclosing recorded span's name
+    start_ns: int                   # time.perf_counter_ns()
+    end_ns: int = 0
+    events: Optional[Tuple[Any, Any]] = None    # CUDA (start, end) events
+
+    @property
+    def host_ms(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e6
+
+    def device_ms(self) -> Optional[float]:
+        """Stream time from the start event to the end event (kernels and
+        any device idle between them); waits for the end event."""
+        if self.events is None:
+            return None
+        start, end = self.events
+        end.synchronize()
+        return start.elapsed_time(end)
+
+
+def _stack() -> List[SpanRecord]:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class trace_scope:
+    """A named span over the enclosed work (see the section's comment).
+    ``device``: also time the enclosed work on the card's current stream,
+    when CUDA is in use.  Whether the span records is decided on entry."""
+
+    __slots__ = ("name", "device", "_range", "_rec")
+
+    def __init__(self, name: str, device: bool = False):
+        self.name = name
+        self.device = device
+        self._rec = None
+
+    def __enter__(self):
+        if not (_forced or _PROFILER._is_profiler_enabled):
+            return self
+        self._range = _HostRange(self.name)
+        self._range.__enter__()
+        events = None
+        if self.device and torch.cuda.is_initialized():
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record()
+        stack = _stack()
+        self._rec = SpanRecord(self.name, stack[-1].name if stack else None,
+                               time.perf_counter_ns(), events=events)
+        stack.append(self._rec)
+        return self
+
+    def __exit__(self, *exc):
+        rec = self._rec
+        if rec is None:
+            return False
+        self._rec = None
+        rec.end_ns = time.perf_counter_ns()
+        if rec.events is not None:
+            rec.events[1].record()
+        _stack().pop()
+        _records.append(rec)
+        self._range.__exit__(*exc)
+        return False
+
+
+def traced(name: str, device: bool = False):
+    """Decorator: each call of the function is a :class:`trace_scope`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with trace_scope(name, device):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+def span_records() -> List[SpanRecord]:
+    """The recorded spans, in the order they ended."""
+    return list(_records)
+
+
+def span_totals() -> Dict[str, Dict[str, Any]]:
+    """{name: {"count", "host_ms", "device_ms"}} over the recorded spans;
+    ``device_ms`` sums the spans timed on the card, None where none was
+    (on the CPU).  Waits for the card to reach each span's end."""
+    out: Dict[str, Dict[str, Any]] = {}
+    for rec in span_records():
+        t = out.setdefault(rec.name, {"count": 0, "host_ms": 0.0,
+                                      "device_ms": None})
+        t["count"] += 1
+        t["host_ms"] += rec.host_ms
+        ms = rec.device_ms()
+        if ms is not None:
+            t["device_ms"] = (t["device_ms"] or 0.0) + ms
+    return out
+
+
+def reset_spans() -> None:
+    """Forget the recorded spans."""
+    _records.clear()
 
 
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Profile the enclosed work (host, and the card when there is one) and
     write a trace that TensorBoard's profiler plugin reads
-    (``tensorboard --logdir <log_dir>``); trace_scope spans appear as named
-    regions."""
+    (``tensorboard --logdir <log_dir>``): the port's spans appear in it as
+    named host ranges beside the kernels."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU]
@@ -49,29 +184,6 @@ def profile_trace(log_dir: str):
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
         yield
-
-
-class PhaseTimer:
-    """Per-phase wall timing; with ``sync_on`` a CUDA tensor, the phase ends
-    when the card has finished its work."""
-
-    def __init__(self):
-        self.totals: Dict[str, float] = {}
-        self.counts: Dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync_on: Any = None):
-        start = time.perf_counter()
-        yield
-        if isinstance(sync_on, torch.Tensor) and sync_on.is_cuda:
-            torch.cuda.synchronize(sync_on.device)
-        elapsed = time.perf_counter() - start
-        self.totals[name] = self.totals.get(name, 0.0) + elapsed
-        self.counts[name] = self.counts.get(name, 0) + 1
-
-    def as_metrics(self) -> Dict[str, float]:
-        return {f"Timing/{k}": v / max(self.counts[k], 1)
-                for k, v in self.totals.items()}
 
 
 def params_fingerprint(params) -> np.ndarray:

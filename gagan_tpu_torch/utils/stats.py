@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from .checkpoint import tree_to_flat_tensors
+from .observability import trace_scope
 
 
 def to_host(values: List[Any]) -> List[np.ndarray]:
@@ -32,7 +33,9 @@ def to_host(values: List[Any]) -> List[np.ndarray]:
     host = []
     if tensors:
         flat = torch.cat([t.detach().reshape(-1).to(torch.float64)
-                          for t in tensors]).cpu().numpy()
+                          for t in tensors])
+        with trace_scope("host_read.stats"):
+            flat = flat.cpu().numpy()
         offsets = np.cumsum([0] + [t.numel() for t in tensors])
         host = [flat[a:b].reshape(t.shape)
                 for a, b, t in zip(offsets[:-1], offsets[1:], tensors)]

@@ -173,15 +173,24 @@ def test_assert_shape_timer_and_spans(tmp_path):
     for bad in ([2, 3], [2, 3, 5]):
         with pytest.raises(AssertionError):
             tobs.assert_shape(x, bad)
-    t = tobs.PhaseTimer()
-    with t.phase("matmul", sync_on=x):
+    # The span recorder: forced on, then under the TensorBoard profiler.
+    tobs.reset_spans()
+    was = tobs.recording(True)
+    try:
         with tobs.trace_scope("matmul"):
             x.reshape(6, 4) @ x.reshape(6, 4).T
-    assert t.as_metrics()["Timing/matmul"] >= 0
+    finally:
+        tobs.recording(was)
+    t = tobs.span_totals()["matmul"]
+    assert t["count"] == 1 and t["host_ms"] >= 0 and t["device_ms"] is None
+    tobs.reset_spans()
     with tobs.profile_trace(str(tmp_path / "prof")):
         with tobs.trace_scope("span"):
             torch.ones(4).sum()
     assert any((tmp_path / "prof").iterdir())
+    assert list(tobs.span_totals()) == ["span"]
+    tobs.reset_spans()
+    assert not hasattr(tobs, "PhaseTimer")
 
 
 def test_registry_matches_jax():
