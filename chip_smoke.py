@@ -18,9 +18,17 @@ no ok line):
                cuDNN call; at the main path's two bf16 levels also
                the level's backward against autograd through the plain
                version in fp32, timed alone and with the forward;
+     epilogue - the synthesis layers' epilogue kernel
+               (ops/synthesis_epilogue.py) at the six largest layers it
+               serves in a batch-32 FFHQ-1024 forward and at edge cases:
+               bit-equal to its plain version, within 3 bf16 ulps of the
+               composed chain it replaces, timed beside its byte bound, the
+               plain version and the composed chain;
   4. main    - the FFHQ-1024 generator forward through the port's entry point
                (pallas_level=True, random seeded weights, batch 8): kernel
-               launch counts, output shape, finite values, agreement with the
+               launch counts (the fused level's; the epilogue kernel's, 15
+               without a graph and none recording one), output shape,
+               finite values, agreement with the
                composed path; then imgs/s at batch 32 and one torch.profiler
                trace of a batch-32 forward (top kernels, fused levels' share);
   5. cli     - a 1024^2 snapshot through cli/generate.py for two seeds;
@@ -271,6 +279,8 @@ from gagan_tpu_torch.metrics import ppl as ppl_lib  # noqa: E402
 from gagan_tpu_torch.metrics import precision_recall as pr_lib  # noqa: E402
 from gagan_tpu_torch.models import stylegan2 as sg2  # noqa: E402
 from gagan_tpu_torch.ops import fused_modconv as fmc  # noqa: E402
+from gagan_tpu_torch.ops import synthesis_epilogue as se  # noqa: E402
+from gagan_tpu_torch.ops.bias_act import bias_act  # noqa: E402
 from gagan_tpu_torch.parallel import dryrun  # noqa: E402
 from gagan_tpu_torch.parallel import mesh as mesh_lib  # noqa: E402
 from gagan_tpu_torch.parallel import spatial as spatial_lib  # noqa: E402
@@ -394,6 +404,46 @@ KERNEL_CASES = (
          noise=False, clamp=None, demodulate=False),
     Case("3 C_out tiles fp32", 1, 256, 384, 16, 128, torch.float32),
 )
+
+
+class EpilogueCase(NamedTuple):
+    """One shape of the epilogue phase: c [n, c, h, w]; noise planes
+    [noise_n, planes, h, w] (noise_n 0: no noise)."""
+    label: str
+    n: int
+    c: int
+    h: int
+    w: int
+    dtype: torch.dtype
+    noise_n: int = 1
+    planes: int = 1
+    clamp: Optional[float] = 256.0
+
+
+# The six largest layers that the epilogue kernel serves in a batch-32
+# FFHQ-1024 forward (the packed b1024 block: 4 x 32 channels at 512^2, its
+# noise as 4 packed planes), the conv1 layers with per-sample noise as
+# noise_mode="random" draws it; then b64 in fp32 and edge cases: a 4^2 plane,
+# an H*W off the 16-byte vector (the one-element route), no noise or clamp.
+EPILOGUE_CASES = (
+    EpilogueCase("b128.conv0", 32, 256, 128, 128, torch.bfloat16),
+    EpilogueCase("b256.conv0", 32, 128, 256, 256, torch.bfloat16),
+    EpilogueCase("b512.conv0", 32, 64, 512, 512, torch.bfloat16),
+    EpilogueCase("b512.conv1 random noise", 32, 64, 512, 512, torch.bfloat16,
+                 noise_n=32),
+    EpilogueCase("b1024.conv0 packed", 32, 128, 512, 512, torch.bfloat16,
+                 planes=4),
+    EpilogueCase("b1024.conv1 packed random noise", 32, 128, 512, 512,
+                 torch.bfloat16, noise_n=32, planes=4),
+    EpilogueCase("b64.conv0 fp32", 32, 512, 64, 64, torch.float32),
+    EpilogueCase("b4.conv1 fp32", 32, 512, 4, 4, torch.float32),
+    EpilogueCase("odd plane", 3, 12, 5, 7, torch.bfloat16, noise_n=3,
+                 planes=4),
+    EpilogueCase("odd plane fp32", 3, 12, 5, 7, torch.float32),
+    EpilogueCase("no noise or clamp", 4, 64, 32, 32, torch.bfloat16,
+                 noise_n=0, clamp=None),
+)
+EPILOGUE_ON_PATH = 6               # the first cases: the forward's layers
 
 
 START = time.perf_counter()
@@ -615,6 +665,104 @@ def kernel_phase(peaks):
     return main
 
 
+def epilogue_inputs(case: EpilogueCase, seed: int):
+    """c, d, b and the scaled noise of one epilogue case on the card, at the
+    generation cell's scales (values past the clamp included)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (case.n, case.c, case.h, case.w)
+    c = (torch.randn(shape, generator=g, device="cuda") * 64).to(case.dtype)
+    d = torch.rand((case.n, case.c), generator=g, device="cuda") + 0.5
+    b = torch.randn((case.c,), generator=g, device="cuda") * 0.1
+    noise = None
+    if case.noise_n:
+        noise = (torch.randn((case.noise_n, case.planes, case.h, case.w),
+                             generator=g, device="cuda") * 0.2).to(case.dtype)
+    return c, d, b, noise
+
+
+def epilogue_composed(c, d, b, noise, clamp):
+    """The chain the kernel replaces: the demodulation multiply, the noise
+    add (packed: each plane repeated over its channels), bias_act."""
+    x = c * d.to(c.dtype)[:, :, None, None]
+    if noise is not None:
+        x = x + noise.repeat_interleave(c.shape[1] // noise.shape[1], dim=1)
+    return bias_act(x, b.to(c.dtype), act="lrelu", gain=se.LRELU_GAIN,
+                    clamp=clamp)
+
+
+def epilogue_phase(peaks):
+    """Each EPILOGUE_CASES shape: the kernel against its plain version, bit
+    for bit (both compute the same fp32 operations in the same order, the
+    kernel without fused multiply-adds, and round once), and against the
+    composed chain it replaces (equal in fp32; in bf16 the chain rounds
+    after each of its five ops, the kernel once: within 3 bf16 ulps of
+    max|y|); then the kernel's time beside its byte bound, the plain
+    version's and the composed chain's."""
+    phase("epilogue")
+    hbm = peaks[2]
+    main = dict(ms=0.0, plain_ms=0.0, composed_ms=0.0, bound_ms=0.0)
+    for i, case in enumerate(EPILOGUE_CASES):
+        c, d, b, noise = epilogue_inputs(case, seed=300 + i)
+        args = (c, d, b, noise)
+        se.synthesis_epilogue.launches = 0
+        y = se.synthesis_epilogue(*args, clamp=case.clamp)
+        ref = se.synthesis_epilogue_ref(*args, clamp=case.clamp)
+        comp = epilogue_composed(*args, case.clamp)
+        torch.cuda.synchronize()
+        if se.synthesis_epilogue.launches != 1:
+            raise AssertionError(f"{case.label}: no kernel launch counted")
+        if y.dtype != case.dtype or y.shape != c.shape:
+            raise AssertionError(f"{case.label}: got {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        unequal = int((bits(y) != bits(ref)).sum())
+        peak = float(ref.float().abs().max())
+        err = float((y.float() - comp.float()).abs().max())
+        tol = 3 * bf16_ulp(peak) if case.dtype == torch.bfloat16 else 0.0
+        print(f"{case.label}: c {case.n}x{case.c}x{case.h}x{case.w} "
+              f"{str(case.dtype)[6:]} noise {case.noise_n}x{case.planes} "
+              f"clamp {case.clamp} max|y| {peak:.4g} elements unequal to "
+              f"the plain version {unequal} max_abs_err vs composed {err:.4g} "
+              f"(tol {tol:.4g})", flush=True)
+        if unequal:
+            raise AssertionError(f"{case.label}: {unequal} elements differ "
+                                 f"from the plain version")
+        if not (np.isfinite(err) and err <= tol):
+            raise AssertionError(f"{case.label}: {err} from the composed "
+                                 f"chain > {tol}")
+        del y, ref, comp
+        ms = time_ms(lambda: se.synthesis_epilogue(*args, clamp=case.clamp))
+        plain_ms = time_ms(lambda: se.synthesis_epilogue_ref(
+            *args, clamp=case.clamp), iters=5)
+        composed_ms = time_ms(lambda: epilogue_composed(*args, case.clamp),
+                              iters=5)
+        bound_ms = 1e3 * se.nbytes(*args) / hbm
+        print(f"  kernel_ms {ms:.4f} bound_ms {bound_ms:.4f} (bytes: "
+              f"{se.nbytes(*args) / 2 ** 30:.3f} GiB, "
+              f"{100 * bound_ms / ms:.1f}% of the bound, "
+              f"{se.nbytes(*args) / ms / 1e6:.0f} GB/s) plain_ms "
+              f"{plain_ms:.4f} composed_ms {composed_ms:.4f}", flush=True)
+        if i < EPILOGUE_ON_PATH:
+            main["ms"] += ms
+            main["plain_ms"] += plain_ms
+            main["composed_ms"] += composed_ms
+            main["bound_ms"] += bound_ms
+        del args, c, d, b, noise
+        torch.cuda.empty_cache()
+    print(f"epilogue, the {EPILOGUE_ON_PATH} largest layers: kernel "
+          f"{main['ms']:.4f} ms, bound {main['bound_ms']:.4f} ms "
+          f"({100 * main['bound_ms'] / main['ms']:.1f}%), plain "
+          f"{main['plain_ms']:.4f} ms, composed {main['composed_ms']:.4f} ms")
+    return main
+
+
+def expected_epilogue_launches(cfg: sg2.GeneratorConfig, batch: int) -> int:
+    """Synthesis conv layers (one in the 4^2 block, two in each other) less
+    the fused levels: each ends in the epilogue kernel in a forward that
+    records no autograd graph."""
+    n_layers = 2 * len(cfg.synthesis.block_resolutions) - 1
+    return n_layers - expected_launches(cfg, batch)
+
+
 def backward_case(case: Case, a, peaks):
     """The level's backward on the card, against autograd through the plain
     version in fp32 on the same inputs and output gradient, TF32 off:
@@ -767,6 +915,7 @@ def main_phase(card):
         raise AssertionError(f"output {img.dtype} {tuple(img.shape)}")
     if not bool(torch.isfinite(img).all()):
         raise AssertionError("non-finite output")
+    epilogue_launches = epilogue_forward_launches(cfg, params, z, forward)
 
     plain_cfg = entry_config(pallas_level=False)
     with torch.no_grad():
@@ -798,7 +947,29 @@ def main_phase(card):
           f"{rates['composed']:.2f} imgs/s (pallas_level=False) "
           f"on {card}")
     trace_forward(cfg, params, zt)
-    return params, launches
+    return params, launches, epilogue_launches
+
+
+def epilogue_forward_launches(cfg, params, z, forward):
+    """The epilogue kernel's launches in a no-grad forward (every synthesis
+    layer but the fused levels) and in one that records a graph (none)."""
+    want = expected_epilogue_launches(cfg, z.shape[0])
+    se.synthesis_epilogue.launches = 0
+    forward(params, z)
+    torch.cuda.synchronize()
+    no_grad = se.synthesis_epilogue.launches
+    se.synthesis_epilogue.launches = 0
+    zg = z.clone().requires_grad_(True)
+    img = sg2.generator_apply(cfg, params, zg, noise_mode="const")
+    torch.cuda.synchronize()
+    graph = se.synthesis_epilogue.launches
+    del img, zg
+    print(f"synthesis_epilogue launches per forward: {no_grad} without a "
+          f"graph (expected {want}), {graph} recording one (expected 0)")
+    if no_grad != want or graph != 0:
+        raise AssertionError(f"epilogue launches {no_grad} / {graph}, "
+                             f"expected {want} / 0")
+    return no_grad
 
 
 def trace_forward(cfg, params, z, top=10):
@@ -5258,7 +5429,8 @@ def main():
     card, peaks = device_phase()
     build_phase()
     k = kernel_phase(peaks)
-    params, launches = main_phase(card)
+    ep = epilogue_phase(peaks)
+    params, launches, epilogue_launches = main_phase(card)
     cli_launches = cli_phase(params)
     del params
     torch.cuda.empty_cache()
@@ -5344,7 +5516,12 @@ def main():
         fp32_bound_by=("operations" if f32["flop_ms"] >= f32["byte_ms"]
                        else "bytes"),
         fp32_library_ms=f32["library_ms"],
-        fp32_max_abs_err=f32["max_abs_err"])]
+        fp32_max_abs_err=f32["max_abs_err"]), dict(
+        name="synthesis_epilogue", route="cuda",
+        source="gagan_tpu_torch/csrc/synthesis_epilogue.cu", replaces=None,
+        forward_launches=epilogue_launches, ms=ep["ms"],
+        plain_ms=ep["plain_ms"], composed_ms=ep["composed_ms"],
+        bound_ms=ep["bound_ms"], bound_by="bytes")]
     print(f"(kernel times: the launches of one batch-{BATCH} forward, "
           f"b128.conv1 + b256.conv1, on {card}; bwd_*: the level's composed "
           f"backward at the same shapes; train: s/step "

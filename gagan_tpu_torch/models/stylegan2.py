@@ -11,6 +11,10 @@ the JAX parameter pytree.  :class:`Generator` holds those tensors as an
 Levels that the JAX package sends to its Pallas kernel under
 ``SynthesisConfig.pallas_level`` go to the port's fused CUDA op
 (ops/fused_modconv.py) under the same flag and conditions, by shape only.
+The other synthesis layers (and the packed tail's convs) end in the
+composed epilogue (demodulation, noise, bias, lrelu, clamp), or, on CUDA
+in a forward that records no autograd graph, in one kernel that does it
+all (ops/synthesis_epilogue.py).
 
 Block rematerialization (``remat`` / ``remat_min_res``) runs each chosen
 block under ``torch.utils.checkpoint``, as the JAX package wraps it in
@@ -41,9 +45,11 @@ from torch import nn
 from .. import resolve_device
 from ..ops import fused_modconv as fmc
 from ..ops import packed as pk
+from ..ops import synthesis_epilogue as se
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
-from ..ops.modulated_conv2d import demod_coefs, modulated_conv2d
+from ..ops.modulated_conv2d import (demod_coefs, modulated_conv2d,
+                                    modulated_conv2d_parts)
 from ..ops.upfirdn2d import downsample2d, setup_filter, upsample2d
 from ..utils.observability import trace_scope, traced
 from ..utils.rng import Rng, name_fold
@@ -523,10 +529,18 @@ def synthesis_layer_apply(cfg: SynthesisConfig, lp: Params, x: torch.Tensor,
             act_gain=activation_funcs[cfg.activation].def_gain,
             clamp=cfg.conv_clamp)
 
-    x = modulated_conv2d(x, weight, styles, up=up,
-                         padding=weight.shape[-1] // 2,
-                         resample_filter=resample_filter,
-                         flip_weight=(up == 1))
+    x, dcoefs = modulated_conv2d_parts(x, weight, styles, up=up,
+                                       padding=weight.shape[-1] // 2,
+                                       resample_filter=resample_filter,
+                                       flip_weight=(up == 1))
+    if post is None and se.applies(x, cfg.activation, lp["bias"], noise):
+        # A forward without a graph: the epilogue in one kernel.
+        nz = noise
+        if nz is not None:
+            nz = (nz[None, None] if nz.ndim == 2 else nz).to(x.dtype)
+        return se.synthesis_epilogue(x, dcoefs, lp["bias"].float(), nz,
+                                     clamp=cfg.conv_clamp)
+    x = x * dcoefs.to(x.dtype)[:, :, None, None]
     if post is not None:
         x = post(x)
     if noise is not None:
@@ -611,13 +625,21 @@ def _packed_tail(cfg: SynthesisConfig, params: Params,
     spec = activation_funcs[cfg.activation]
     batch = x.shape[0]
 
-    def add_noise_act(lp, name, res, h, out_ch):
+    def epilogue(lp, name, res, h, d):
+        """Demodulation, noise (packed: channel o reads cell o // C_out),
+        bias, activation and clamp of a packed conv output ``h``."""
         nz = _noise(cfg, lp, noise_mode, (batch, 1, res, res), rng,
                     f"b{res}.{name}")
         if nz is not None:
             nz = pk.pack(nz[None, None] if nz.ndim == 2 else nz)
-            h = h + nz.repeat_interleave(out_ch, dim=1).to(h.dtype)
-        bias = pk.pack_channel_tile(lp["bias"])
+        d, bias = pk.pack_channel_tile(d), pk.pack_channel_tile(lp["bias"])
+        if se.applies(h, cfg.activation, bias, nz):
+            return se.synthesis_epilogue(
+                h, d, bias.float(), None if nz is None else nz.to(h.dtype),
+                clamp=cfg.conv_clamp)
+        h = h * d.to(h.dtype)[:, :, None, None]
+        if nz is not None:
+            h = h + nz.repeat_interleave(h.shape[1] // 4, dim=1).to(h.dtype)
         return bias_act(h, bias.to(h.dtype), act=cfg.activation,
                         gain=spec.def_gain, clamp=cfg.conv_clamp)
 
@@ -641,8 +663,7 @@ def _packed_tail(cfg: SynthesisConfig, params: Params,
         wp = pk.build_packed_upconv(weight, taps)
         h = x * styles.to(x.dtype)[:, :, None, None]
         h = pk.conv_packed(h, wp.to(dtype))
-        h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-        h = add_noise_act(block["conv0"], "conv0", res, h, weight.shape[0])
+        h = epilogue(block["conv0"], "conv0", res, h, d)
         packed = True
 
         # conv1: packed -> packed.
@@ -651,8 +672,7 @@ def _packed_tail(cfg: SynthesisConfig, params: Params,
         wp = pk.build_packed_conv3x3(weight)
         h = h * pk.pack_channel_tile(styles).to(h.dtype)[:, :, None, None]
         h = pk.conv_packed(h, wp.to(dtype))
-        h = h * pk.pack_channel_tile(d).to(h.dtype)[:, :, None, None]
-        h = add_noise_act(block["conv1"], "conv1", res, h, weight.shape[0])
+        h = epilogue(block["conv1"], "conv1", res, h, d)
 
         lp = block["torgb"]
         styles, weight = styles_weight(

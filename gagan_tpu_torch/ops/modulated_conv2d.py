@@ -11,7 +11,7 @@ with the weight cast to ``x.dtype`` where JAX casts it.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,11 +26,10 @@ def demod_coefs(weight: torch.Tensor, styles: torch.Tensor) -> torch.Tensor:
     return torch.rsqrt(torch.einsum("ni,oi->no", s32.square(), wsq) + 1e-8)
 
 
-def modulated_conv2d(
+def modulated_conv2d_parts(
     x: torch.Tensor,              # [N, C_in, H, W]
     weight: torch.Tensor,         # [C_out, C_in, kh, kw]
     styles: torch.Tensor,         # [N, C_in]
-    noise: Optional[torch.Tensor] = None,
     up: int = 1,
     down: int = 1,
     padding: int = 0,
@@ -38,8 +37,11 @@ def modulated_conv2d(
     demodulate: bool = True,
     flip_weight: bool = True,
     input_prenorm: bool = False,
-) -> torch.Tensor:
-    """Modulate, convolve, demodulate, and optionally add noise.
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Modulate and convolve: the conv output before demodulation, and the
+    [N, C_out] float32 demodulation coefficients (None without
+    ``demodulate``), for a caller that applies them in its own epilogue
+    (``ops/synthesis_epilogue.py``).
 
     ``input_prenorm`` is the reference's fp16 overflow guard: the weight is
     normalized per output channel by its inf-norm, the styles per sample.
@@ -60,8 +62,29 @@ def modulated_conv2d(
     x = x * styles.to(x.dtype)[:, :, None, None]
     x = conv2d_resample(x, weight.to(x.dtype), f=resample_filter, up=up,
                         down=down, padding=padding, flip_weight=flip_weight)
+    return x, dcoefs
 
-    if demodulate:
+
+def modulated_conv2d(
+    x: torch.Tensor,              # [N, C_in, H, W]
+    weight: torch.Tensor,         # [C_out, C_in, kh, kw]
+    styles: torch.Tensor,         # [N, C_in]
+    noise: Optional[torch.Tensor] = None,
+    up: int = 1,
+    down: int = 1,
+    padding: int = 0,
+    resample_filter: Optional[torch.Tensor] = None,
+    demodulate: bool = True,
+    flip_weight: bool = True,
+    input_prenorm: bool = False,
+) -> torch.Tensor:
+    """Modulate, convolve, demodulate, and optionally add noise
+    (:func:`modulated_conv2d_parts`, then the coefficients and the noise)."""
+    x, dcoefs = modulated_conv2d_parts(
+        x, weight, styles, up=up, down=down, padding=padding,
+        resample_filter=resample_filter, demodulate=demodulate,
+        flip_weight=flip_weight, input_prenorm=input_prenorm)
+    if dcoefs is not None:
         x = x * dcoefs.to(x.dtype)[:, :, None, None]
     if noise is not None:
         x = x + noise.to(x.dtype)

@@ -62,6 +62,13 @@ def recording(on: bool) -> bool:
     return was
 
 
+def is_recording() -> bool:
+    """Whether spans record now (a profiler records, or ``recording(True)``
+    holds); the port's byte and launch tallies of a traced window follow
+    it too."""
+    return _forced or _PROFILER._is_profiler_enabled
+
+
 @dataclasses.dataclass
 class SpanRecord:
     name: str
